@@ -1,0 +1,123 @@
+"""The port's numpy host modules against the JAX package's: bit-identical.
+
+`srsran_ce_tpu_torch` carries its own copies of config, plan, synthetic and
+oracle because the JAX package's `__init__` imports jax, which the GPU machine
+does not have. These tests hold every field and every array of the two
+packages' configs, cases and plans equal bit for bit (arrays compared as raw
+bytes, floats with ==), and prove that the port imports no jax.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from srsran_ce_tpu.models import plan as jplan
+from srsran_ce_tpu.utils import synthetic as jsyn
+from srsran_ce_tpu import config as jcfg
+from srsran_ce_tpu_torch.models import plan as tplan
+from srsran_ce_tpu_torch.utils import synthetic as tsyn
+from srsran_ce_tpu_torch.utils import oracle as toracle
+from srsran_ce_tpu.utils import oracle as joracle
+from srsran_ce_tpu_torch import config as tcfg
+
+REPO = Path(__file__).resolve().parents[1]
+
+# c0, c2, c4 of the benchmark catalog plus the geometries of
+# tests/test_pallas_kernels.py::test_pallas_front_matches_xla
+GEOMETRIES = [
+    ("c0", dict(jsyn.BENCH_CASES["c0_baseline_52prb"], snr_db=30.0)),
+    ("c2", dict(jsyn.BENCH_CASES["c2_mmse_4port_106prb"], snr_db=30.0)),
+    ("c4", dict(jsyn.BENCH_CASES["c4_multihost_hopped"], snr_db=30.0)),
+    ("front_4l_2cdm", dict(n_prbs=26, n_layers=4, comb=2, snr_db=30.0)),
+    ("front_cfo_off", dict(n_prbs=24, n_layers=1, comb=2, snr_db=25.0, cfo_compensate=False)),
+    ("front_two_hops", dict(n_prbs=12, n_layers=2, comb=2, snr_db=30.0, two_hops=True)),
+    ("front_52prb", dict(n_prbs=52, n_layers=2, comb=2, snr_db=20.0, cfo_hz=200.0)),
+    ("front_cnn", dict(n_prbs=24, n_layers=1, comb=2, snr_db=30.0, interp="cnn")),
+]
+
+
+def assert_same(a, b, path="root"):
+    """Recursive bit-identity of two values built by the two packages."""
+    if dataclasses.is_dataclass(a):
+        assert dataclasses.is_dataclass(b) and type(a).__name__ == type(b).__name__, path
+        fa = [f.name for f in dataclasses.fields(a)]
+        assert fa == [f.name for f in dataclasses.fields(b)], path
+        for name in fa:
+            assert_same(getattr(a, name), getattr(b, name), f"{path}.{name}")
+    elif isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray), path
+        assert a.dtype == b.dtype and a.shape == b.shape, (path, a.dtype, b.dtype, a.shape, b.shape)
+        assert a.tobytes() == b.tobytes(), path
+    elif isinstance(a, (tuple, list)):
+        assert type(a) is type(b) and len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f"{path}[{i}]")
+    elif isinstance(a, float):
+        assert isinstance(b, float) and (a == b or (np.isnan(a) and np.isnan(b))), (path, a, b)
+    else:
+        assert type(a) is type(b) and a == b, (path, a, b)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(scs_hz=30e3),
+        dict(scs_hz=15e3, smoothing="wiener", cfo_compensate=False, n_symbols=14),
+        dict(scs_hz=30e3, interp="cnn", cnn_alpha=0.4, matmul_precision="high",
+             time_interp="linear", cfo_estimator="wls"),
+    ],
+)
+def test_make_config_identical(kwargs):
+    a, b = tcfg.make_config(**kwargs), jcfg.make_config(**kwargs)
+    assert_same(a, b)
+    assert hash(a) == hash(a) and a == tcfg.make_config(**kwargs)
+
+
+@pytest.mark.parametrize("name,kw", GEOMETRIES, ids=[g[0] for g in GEOMETRIES])
+def test_make_case_and_plan_identical(name, kw):
+    tc, jc = tsyn.make_case(seed=31, **kw), jsyn.make_case(seed=31, **kw)
+    assert_same(tc, jc)
+    nL = tc.pilots.shape[2]
+    tp = tplan.make_plan(tc.hop1, tc.hop2, tc.config, nL)
+    jp = jplan.make_plan(jc.hop1, jc.hop2, jc.config, nL)
+    assert_same(tp, jp)
+
+
+def test_oracle_identical():
+    """The port's oracle copy gives bit-identical results on a port case."""
+    kw = dict(n_prbs=16, n_layers=3, comb=2, snr_db=30.0)
+    c = tsyn.make_case(seed=5, **kw)
+    jc = jsyn.make_case(seed=5, **kw)
+    assert_same(
+        toracle.estimate(c.received_rg, c.pilots, c.beta, c.hop1, c.hop2, c.config),
+        joracle.estimate(jc.received_rg, jc.pilots, jc.beta, jc.hop1, jc.hop2, jc.config),
+    )
+
+
+def test_unported_pilot_sources_raise():
+    with pytest.raises(NotImplementedError, match="sequences"):
+        tsyn.make_case(seed=1, n_prbs=4, pilot_source="dmrs")
+    with pytest.raises(NotImplementedError):
+        tsyn.make_mimo_case(seed=1)
+
+
+def test_port_imports_no_jax():
+    """The GPU machine has no JAX: importing the port's modules must not load it."""
+    code = (
+        "import sys\n"
+        "import srsran_ce_tpu_torch.models.estimator, srsran_ce_tpu_torch.utils.synthetic\n"
+        "import srsran_ce_tpu_torch.utils.oracle, srsran_ce_tpu_torch.entry\n"
+        "import srsran_ce_tpu_torch.ops.kernels._build\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'srsran_ce_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
