@@ -2,14 +2,18 @@
 
 A second package beside the JAX one, which stays the reference the port is held
 against. It imports torch and numpy, never jax: the host-side numpy modules it
-needs (config, plan, oracle, synthetic) are copies, held bit-identical to the
-JAX package's by the CPU tests. The kernels of the TPU package become
-hand-written Hopper kernels (`csrc/`, built at first use by
-`ops/kernels/_build.py`), each beside a plain PyTorch version that the CPU runs.
+needs (config, plan, oracle, synthetic, ops/sequences, utils/vectors,
+validation/synth_vectors) are copies, held bit-identical to the JAX package's
+by the CPU tests. The kernels of the TPU package become hand-written Hopper
+kernels (`csrc/`, built at first use by `ops/kernels/_build.py`), each beside a
+plain PyTorch version that the CPU runs.
 
-This slice covers the batched serve estimator: `models.estimator.build_ri(...,
-kernels="pallas_front", out_layout="serve" | "factored")` through the fused
-front (K1) and the serve fill (K2). `entry.entry()` builds the c2 case.
+Covered: the estimator, `models.estimator.build_ri` over the three kernel tiers
+("xla" plain torch, "pallas" with K5 `rc_smooth` and K6 `fused_fill_rotate`,
+"pallas_front" with K1 `fused_front`; K2 `fused_fill_rotate_serve` fills the
+serve grid) and the three layouts, plus `build`, `build_batched` and
+`estimate`; the conformance replay (`validation/cli.py selftest | validate`).
+`entry.entry()` builds the c2 case.
 """
 from .config import (
     NRE,

@@ -476,19 +476,34 @@ def plan_tensors(plan, device, dtype) -> dict:
     of either package (only numpy attributes are read).
 
     Returns {"hops": (per-hop dict, ...), "sst": (14,) symbol start times or None}.
-    Each hop dict holds the pilot-RE gather indices, the DM-RS symbol indices,
-    the per-CDM-group interpolation operators (n_cdm, n_re, n_sc_hop) and the
-    fused front's tensors (None when the hop has no fused smoothing): the
-    matrices of `models.estimator._front_mats` plus `two_pi_sst_d`, 2*pi times
-    the DM-RS symbols' start times (None without CFO compensation) — the array
-    form of the static tuple the TPU kernel bakes in.
+    Each hop dict holds (None where the plan has no such array):
+      re_idx, dmrs_sym_idx  the pilot-RE gather indices and DM-RS symbol indices;
+      interp       the fill operators (n_cdm, n_re, n_sc_hop): the linear
+                   interpolation matrices, or with interp="cnn" the exact
+                   inpainting operators (`ops.dsp.inpaint_operator`, built on
+                   the device);
+      vp           the virtual-pilot fit matrix (n_pils, n_pils);
+      fused        the fused smoothing matrices pair_l, pair_r, smooth,
+                   smooth_vb, smooth_ve;
+      wiener       (Re U, Im U, lambda) of wiener smoothing;
+      ta, ta_idx   the direct-DFT TA matrices (cos, sin), and the scatter
+                   indices of the FFT route;
+      time_interp_t  the time-interpolation weights, (n_dsym, n_alloc);
+      front        the fused front kernel's tensors: the matrices of
+                   `models.estimator._front_mats` plus `two_pi_sst_d`, 2*pi
+                   times the DM-RS symbols' start times (None without CFO
+                   compensation), the array form of the static tuple the TPU
+                   kernel bakes in.
     """
     import torch
 
+    from ..ops.dsp import inpaint_operator
     from .estimator import _front_mats
 
     def real(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+        return None if a is None else torch.as_tensor(
+            np.ascontiguousarray(a), dtype=dtype, device=device
+        )
 
     def index(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64).reshape(-1), device=device)
@@ -498,8 +513,20 @@ def plan_tensors(plan, device, dtype) -> dict:
     for hp in (plan.hop1, plan.hop2):
         if hp is None:
             continue
+        if plan.config.interp == "cnn":
+            interp = torch.stack([
+                inpaint_operator(known, len(transient) + steady, dtype, device)
+                for known, (transient, steady) in zip(hp.inpaint_known, hp.inpaint_schedules)
+            ])
+        else:
+            interp = real(hp.interp_matrix)
+        fused = None
+        if hp.smooth_mat is not None:
+            fused = dict(pair_l=real(hp.pair_l_mat), pair_r=real(hp.pair_r_mat),
+                         smooth=real(hp.smooth_mat), smooth_vb=real(hp.smooth_vb_mat),
+                         smooth_ve=real(hp.smooth_ve_mat))
         front = None
-        if hp.smooth_mat is not None and hp.ta_dft_cos is not None:
+        if fused is not None and hp.ta_dft_cos is not None:
             front = {k: real(v) for k, v in _front_mats(hp).items()}
             front["two_pi_sst_d"] = (
                 None if sst is None else real(2.0 * np.pi * sst[hp.dmrs_sym_idx])
@@ -508,8 +535,16 @@ def plan_tensors(plan, device, dtype) -> dict:
             dict(
                 re_idx=index(hp.re_idx),  # (n_cdm * n_re,) group-major
                 dmrs_sym_idx=index(hp.dmrs_sym_idx),
-                interp=None if hp.interp_matrix is None else real(hp.interp_matrix),
+                interp=interp,
+                vp=real(hp.vp_matrix),
+                fused=fused,
+                wiener=None if hp.wiener_u is None else (
+                    real(np.real(hp.wiener_u)), real(np.imag(hp.wiener_u)), real(hp.wiener_lam)
+                ),
+                ta=None if hp.ta_dft_cos is None else (real(hp.ta_dft_cos), real(hp.ta_dft_sin)),
+                ta_idx=index(hp.ta_scatter_idx),
+                time_interp_t=None if hp.time_interp_mat is None else real(hp.time_interp_mat.T),
                 front=front,
             )
         )
-    return dict(hops=tuple(hops), sst=None if sst is None else real(sst))
+    return dict(hops=tuple(hops), sst=real(sst))

@@ -1,14 +1,108 @@
-"""Host-side DSP helpers of the port (numpy).
+"""DSP primitives of the port: torch counterparts of `srsran_ce_tpu/ops/dsp.py`.
 
-Counterparts of two functions of `srsran_ce_tpu/ops/dsp.py`: the static
-inpainting schedule the plan builds (a numpy copy, held bit-identical by
-tests/test_torch_plan.py) and the matmul precision names. The rest of that
-module (the jnp primitives, the inpainting operator) is ROADMAP.md queue 1,
-item 2.
+Every function works on the **last axis** and broadcasts over leading axes (the
+port's estimator puts its problem axis first), on real or complex tensors of
+either precision, on the tensor's own device. Convolutions are K static
+shifted adds with Python-float taps, as in the JAX module, so the input dtype
+is kept and the sums run in the same order.
+
+`make_inpaint_schedule` is a numpy copy of the JAX function (held
+bit-identical by tests/test_torch_plan.py); the plan builds its schedule at
+plan time. `precision_of` maps the config's matmul precision names onto the
+port, which runs every product in full f32 or f64.
 """
 from __future__ import annotations
 
+import functools
+import math
+from typing import Sequence
+
 import numpy as np
+import torch
+
+
+def _pad_last(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """Zero-pad the last axis (complex tensors included)."""
+    parts = []
+    if left:
+        parts.append(x.new_zeros(x.shape[:-1] + (left,)))
+    parts.append(x)
+    if right:
+        parts.append(x.new_zeros(x.shape[:-1] + (right,)))
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else x
+
+
+def unwrap_phase(ph: torch.Tensor) -> torch.Tensor:
+    """Phase unwrap along the last axis, numpy.unwrap's convention: the
+    parallel prefix-sum form of the JAX function (`torch.remainder` is the
+    floored modulo of `jnp.mod`)."""
+    if ph.shape[-1] <= 1:
+        return ph
+    pi = math.pi
+    dd = ph[..., 1:] - ph[..., :-1]
+    ddmod = torch.remainder(dd + pi, 2.0 * pi) - pi
+    ddmod = torch.where((ddmod == -pi) & (dd > 0), ddmod + 2.0 * pi, ddmod)
+    correction = torch.where(dd.abs() < pi, torch.zeros_like(dd), ddmod - dd)
+    cum = torch.cumsum(correction, dim=-1)
+    return ph + _pad_last(cum, 1, 0)
+
+
+def conv_same_zero(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+    """MATLAB conv(x, h, 'same') with zero padding, odd-length static real taps."""
+    taps = np.asarray(taps)
+    K = taps.size
+    if K % 2 != 1:
+        raise ValueError("conv_same_zero expects odd-length taps")
+    if K == 1:
+        return x * float(taps[0])
+    N = x.shape[-1]
+    p = (K - 1) // 2
+    xp = _pad_last(x, p, p)
+    flipped = [float(t) for t in taps[::-1]]
+    y = flipped[0] * xp[..., 0:N]
+    for k in range(1, K):
+        y = y + flipped[k] * xp[..., k : k + N]
+    return y
+
+
+def conv_valid(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+    """'valid' convolution along the last axis: (..., N) -> (..., N-K+1)."""
+    taps = np.asarray(taps)
+    K = taps.size
+    N = x.shape[-1]
+    if N < K:
+        raise ValueError(f"conv_valid needs input >= taps ({N} < {K})")
+    flipped = [float(t) for t in taps[::-1]]
+    M = N - K + 1
+    y = flipped[0] * x[..., 0:M]
+    for k in range(1, K):
+        y = y + flipped[k] * x[..., k : k + M]
+    return y
+
+
+def _reflect_pad_1(x: torch.Tensor) -> torch.Tensor:
+    """Reflect-pad the last axis by 1 on each side (replicate for length 1)."""
+    if x.shape[-1] == 1:
+        return torch.cat([x, x, x], dim=-1)
+    return torch.cat([x[..., 1:2], x, x[..., -2:-1]], dim=-1)
+
+
+def conv3_reflect(x: torch.Tensor, taps: Sequence[float] = (0.25, 0.5, 0.25)) -> torch.Tensor:
+    """3-tap 'same' convolution with reflect padding (the CNN building block)."""
+    a, b, c = float(taps[2]), float(taps[1]), float(taps[0])  # flipped for convolution
+    xp = _reflect_pad_1(x)
+    N = x.shape[-1]
+    return a * xp[..., 0:N] + b * xp[..., 1 : N + 1] + c * xp[..., 2 : N + 2]
+
+
+def cnn_lowpass(x: torch.Tensor, passes: int = 2) -> torch.Tensor:
+    """`passes` x [0.25, 0.5, 0.25] smoothing (identity for length <= 2)."""
+    if x.shape[-1] <= 2:
+        return x
+    y = x
+    for _ in range(max(1, int(passes))):
+        y = conv3_reflect(y)
+    return y
 
 
 def make_inpaint_schedule(known_mask: np.ndarray, n_iters: int):
@@ -46,6 +140,92 @@ def make_inpaint_schedule(known_mask: np.ndarray, n_iters: int):
         schedule.append((m.copy(), den))
         m = np.maximum(m, (den > eps).astype(np.float64))
     return schedule, steady
+
+
+def cnn_inpaint(
+    x_sparse: torch.Tensor,  # (..., n), zeros at unknown positions
+    known_mask: np.ndarray,  # (n,) bool, static
+    n_iters: int,
+    schedule=None,
+) -> torch.Tensor:
+    """Partial-convolution inpainting with a static mask schedule (reference
+    _cnn_inpaint_1d_complex, ce_dl_cnn.py:473-508)."""
+    known = np.asarray(known_mask, dtype=bool).reshape(-1)
+    if known.all():
+        return cnn_lowpass(x_sparse, passes=2)
+    if schedule is None:
+        schedule = make_inpaint_schedule(known, n_iters)
+    transient, steady = schedule
+    eps = 1e-12
+    dev = x_sparse.device
+    rdtype = x_sparse.real.dtype
+    known_t = torch.tensor(known, device=dev)
+    x0 = x_sparse
+    x = x_sparse
+    for m_t, den_t in transient:
+        m_j = torch.as_tensor(m_t, dtype=rdtype, device=dev)
+        inv_den = torch.as_tensor(1.0 / (den_t + eps), dtype=rdtype, device=dev)
+        x = torch.where(known_t, x0, conv3_reflect(x * m_j) * inv_den)
+    if steady > 0:
+        inv = torch.as_tensor(1.0 / (1.0 + eps), dtype=rdtype, device=dev)
+        for _ in range(steady):
+            x = torch.where(known_t, x0, conv3_reflect(x) * inv)
+    return torch.where(known_t, x0, cnn_lowpass(x, passes=2))
+
+
+@functools.lru_cache(maxsize=64)
+def _inpaint_operator_cached(known_key: bytes, n: int, n_iters: int, dtype, device):
+    known = np.frombuffer(known_key, dtype=bool)
+    filled = np.nonzero(known)[0]
+    eye = torch.zeros((filled.size, n), dtype=torch.float64, device=device)
+    eye[torch.arange(filled.size, device=device), torch.as_tensor(filled, device=device)] = 1.0
+    schedule = make_inpaint_schedule(known, n_iters)
+    w = cnn_inpaint(eye, known, n_iters, schedule=schedule)
+    return w.to(dtype).contiguous()
+
+
+def inpaint_operator(known_mask: np.ndarray, n_iters: int, dtype, device) -> torch.Tensor:
+    """The (n_re, n_sc) linear operator of the whole inpainting chain, on `device`.
+
+    The inpainting is linear in the seeded pilot values (mask schedule,
+    denominators and pinning are static), so its iterations and final
+    low-pass collapse into one matrix W with full = pilots @ W. W is built by
+    pushing the scatter-identity basis through `cnn_inpaint` itself, once per
+    (mask, iterations, dtype, device), on the device. The port builds it in
+    float64 and casts (the JAX package builds it in the target dtype): at c3
+    (273 PRB, 409 iterations, 1638 x 3276) a float32 build would carry the
+    rounding of 409 chained passes into every problem."""
+    known = np.ascontiguousarray(np.asarray(known_mask, dtype=bool).reshape(-1))
+    return _inpaint_operator_cached(
+        known.tobytes(), known.size, int(n_iters), dtype, torch.device(device)
+    )
+
+
+def inpaint_matmul(values: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Apply a real operator to complex values: (..., n_re) -> (..., n_sc).
+    Run it under `ops.kernels.full_f32_matmul` on the card."""
+    w = w.to(values.real.dtype)
+    return torch.complex(torch.matmul(values.real, w), torch.matmul(values.imag, w))
+
+
+def lerp_gather(values: torch.Tensor, left, right, alpha) -> torch.Tensor:
+    """Linear interpolation via static gather tables (ordinals into the last axis)."""
+    dev = values.device
+    left = torch.as_tensor(np.asarray(left, dtype=np.int64), device=dev)
+    right = torch.as_tensor(np.asarray(right, dtype=np.int64), device=dev)
+    lv = values.index_select(-1, left)
+    rv = values.index_select(-1, right)
+    a = torch.as_tensor(np.asarray(alpha), dtype=values.real.dtype, device=dev)
+    return lv + a * (rv - lv)
+
+
+def fro_norm_sq(x: torch.Tensor, batch_dims: int = 0) -> torch.Tensor:
+    """||x||_F^2 over every axis after the first `batch_dims` (reference
+    _fro_norm_sq, ce_rule_baseline.py:466-468). The JAX function sums over all
+    axes because it runs per problem under vmap; the port's estimator keeps
+    its problem axis and passes batch_dims=1."""
+    dims = tuple(range(batch_dims, x.dim()))
+    return torch.sum(x.abs() ** 2, dim=dims) if dims else x.abs() ** 2
 
 
 #: EstimatorConfig.matmul_precision -> the precision the port's kernels take.

@@ -8,10 +8,9 @@ oracle (`srsran_ce_tpu_torch.utils.oracle`) run on these cases is the golden out
 port's estimator must match within tight NMSE bounds.
 
 A numpy copy of `srsran_ce_tpu/utils/synthetic.py` (the port cannot import the JAX
-package): `make_case` with `pilot_source="qpsk"` draws bit-identical cases. The
-standard-sequence pilot sources and `make_mimo_case` need `ops/sequences.py`,
-`ops/demap.py` and `transport.py`, which are not ported yet, and raise
-NotImplementedError.
+package): `make_case` draws bit-identical cases for every pilot source.
+`make_mimo_case` needs `ops/demap.py` and `transport.py`, which are not ported
+yet, and raises NotImplementedError.
 
 Case geometry mirrors the shapes exercised by the reference harness
 (scripts/validation/validate_all.py:366-571): SCS 15/30 kHz, 1-4 layers, comb-2 /
@@ -26,11 +25,6 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..config import NRE, EstimatorConfig, HopConfig, make_config
-
-_SEQUENCES_TODO = (
-    "standard DM-RS/SRS pilot sequences need ops/sequences.py, not ported yet "
-    "(ROADMAP.md queue 1, item 1)"
-)
 
 
 @dataclass
@@ -148,7 +142,9 @@ def make_case(
             raise ValueError("dmrs_type=2 requires pilot_source='dmrs'")
         if comb != 2:
             raise ValueError("dmrs_type=2 fixes the RE pattern; leave comb at 2")
-        raise NotImplementedError(_SEQUENCES_TODO)
+        from ..ops import sequences as _seq
+
+        re_mask = _seq.dmrs_re_mask(2, n_cdm)
     else:
         re_mask = comb_re_mask(comb, n_cdm)
     dmrs_per_prb = int(re_mask[:, 0].sum())
@@ -241,7 +237,25 @@ def make_case(
             if c * 2 + 1 < n_layers:
                 pilots[:, :, c * 2 + 1] = pilots[:, :, c * 2] * occ[:, None]
     elif pilot_source in ("dmrs", "srs"):
-        raise NotImplementedError(_SEQUENCES_TODO)
+        # Standard-compliant sequences (TS 38.211) — both carry the +1/-1
+        # intra-CDM alternation the estimator's pair-averaging inverts (DM-RS via
+        # the OCC-2 w_f table; SRS via cyclic shifts spaced n_cs_max/2 apart).
+        from ..ops import sequences
+
+        slot, n_id = seed % 20, seed % 1008
+        per_hop = []
+        for hop in hop_cfgs:
+            if pilot_source == "dmrs":
+                per_hop.append(
+                    sequences.pusch_dmrs_pilots(
+                        hop, n_layers, slot, n_id, config_type=dmrs_type
+                    )
+                )
+            else:
+                per_hop.append(
+                    sequences.srs_pilots(hop, n_layers, slot, n_id, hopping="groupHopping")
+                )
+        pilots = np.concatenate(per_hop, axis=1)
     else:
         raise ValueError(f"unknown pilot_source {pilot_source!r}")
 
@@ -297,11 +311,10 @@ def symbol_cfo_rotation(config: EstimatorConfig, cfo_hz: float, n_sym: int) -> n
 
 def make_mimo_case(*args, **kwargs):
     """MIMO link case (`srsran_ce_tpu.utils.synthetic.make_mimo_case`): needs the
-    receiver chain's modulation, scrambling and standard sequences, which the
-    port does not carry yet."""
+    receiver chain's modulation and scrambling, which the port does not carry
+    yet."""
     raise NotImplementedError(
-        "make_mimo_case needs ops/sequences.py, ops/demap.py and transport.py "
-        "(ROADMAP.md queue 1, items 6-7)"
+        "make_mimo_case needs ops/demap.py and transport.py (ROADMAP.md queue 1, items 6-7)"
     )
 
 

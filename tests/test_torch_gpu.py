@@ -11,7 +11,8 @@ Tolerances: kernel vs plain version relative 1e-5 (max-abs error over
 max-abs value) on arrays, 1e-4 on the front's scalars, the same TA bin (the
 f32 sums run in another order; the TA is a discrete bin); the whole CUDA estimator
 against the float64 CPU run of the same port at channel NMSE < 4e-11, the JAX
-package's serve bound.
+package's serve bound, and < 1e-12 in the reference layout (its ref bound);
+bfloat16 grids within 1e-2 of the float32 grid's scale (bf16 keeps 8 bits).
 """
 import numpy as np
 import pytest
@@ -19,8 +20,10 @@ import torch
 
 from srsran_ce_tpu_torch.models import estimator as est
 from srsran_ce_tpu_torch.models.plan import make_plan, plan_tensors
+from srsran_ce_tpu_torch.ops.kernels import fill_rotate as k6
 from srsran_ce_tpu_torch.ops.kernels import fill_rotate_serve as k2
 from srsran_ce_tpu_torch.ops.kernels import front as k1
+from srsran_ce_tpu_torch.ops.kernels import rc_smooth as k5
 from srsran_ce_tpu_torch.utils import synthetic
 
 NEEDS_GPU = pytest.mark.skipif(
@@ -151,3 +154,101 @@ def test_unbatched_single_problem_on_cuda():
     a, b = got.channel_est_rg.double().cpu(), want.channel_est_rg
     assert a.shape == b.shape == (2, 4, 14, 1272)
     assert float(((a - b) ** 2).sum() / (b**2).sum()) < 4e-11
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("batch,C,n_ext,K", [(128, 8, 650, 15), (128, 32, 650, 15), (3, 2, 20, 5), (1, 1, 1, 1)])
+def test_rc_smooth_kernel_matches_plain(batch, C, n_ext, K):
+    rng = np.random.default_rng(K)
+    x = torch.as_tensor(rng.standard_normal((batch, C, n_ext)), dtype=torch.float32, device="cuda")
+    taps = rng.standard_normal(K)
+    n0 = k5.launches
+    got = k5.rc_smooth(x, taps)
+    assert k5.launches == n0 + 1
+    want = k5.rc_smooth_plain(x, taps)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, C, n_ext - K + 1)
+    assert rel(got, want) <= 1e-5
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize(
+    "nL,slices", [(4, ((0, 2), (2, 4))), (3, ((0, 2), (2, 3))), (1, ((0, 1),)), (8, ((0, 4), (4, 8)))]
+)
+@pytest.mark.parametrize("batch,n_re,n_sc,n_sym", [(13, 52, 200, 14), (128, 636, 1272, 7)])
+def test_fill_rotate_kernel_matches_plain(nL, slices, batch, n_re, n_sc, n_sym):
+    rng = np.random.default_rng(nL)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    h = t(rng.standard_normal((batch, 2, nL, n_re)))
+    w = t(0.1 * rng.standard_normal((len(slices), n_re, n_sc)))
+    ph = rng.uniform(-np.pi, np.pi, (batch, n_sym))
+    rot = t(np.stack([np.cos(ph), np.sin(ph)], 1))
+    n0 = k6.launches
+    got = k6.fused_fill_rotate(h, w, rot, layer_slices=slices)
+    assert k6.launches == n0 + 1
+    want = k6.fused_fill_rotate_plain(h, w, rot, layer_slices=slices)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, 2, n_sc, n_sym, nL)
+    assert rel(got, want) <= 1e-5
+    # the same block written into a larger grid leaves the rest untouched
+    grid = torch.full((batch, 2, n_sc + 40, 14, nL), 3.0, device="cuda")
+    k6.fused_fill_rotate(h, w, rot, layer_slices=slices, out=grid, sc_start=12, sym_start=14 - n_sym)
+    torch.cuda.synchronize()
+    assert rel(grid[:, :, 12 : 12 + n_sc, 14 - n_sym :], want) <= 1e-5
+    assert (grid[:, :, :12] == 3.0).all() and (grid[:, :, 12 + n_sc :] == 3.0).all()
+    assert (grid[:, :, :, : 14 - n_sym] == 3.0).all()
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("name,kw", FRONT_CASES[:4], ids=[c[0] for c in FRONT_CASES[:4]])
+def test_pallas_ref_on_cuda_matches_float64_cpu(name, kw):
+    """kernels="pallas" in the reference layout: K5 and K6 on the card."""
+    case, rg, pil, beta = case_inputs(kw, 8, torch.float32, "cuda", seed=5)
+    nL = case.pilots.shape[2]
+    fn = est.build_ri(case.hop1, case.hop2, case.config, nL, batched=True, kernels="pallas")
+    n5, n6 = k5.launches, k6.launches
+    got = fn(rg, pil, beta)
+    torch.cuda.synchronize()
+    assert k5.launches > n5 and k6.launches > n6
+    want = fn(rg.double().cpu(), pil.double().cpu(), beta.double().cpu())
+    a, b = got.channel_est_rg.double().cpu(), want.channel_est_rg
+    assert a.shape == b.shape == (8, 2, case.received_rg.shape[0], 14, nL)
+    assert float(((a - b) ** 2).sum() / (b**2).sum()) < 1e-12, name
+    for f in ("noise_est", "rsrp", "epre", "time_alignment"):
+        np.testing.assert_allclose(getattr(got, f).cpu(), getattr(want, f), rtol=1e-3, err_msg=f)
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("kernels,layout", [("xla", "ref"), ("xla", "serve"), ("pallas", "serve")])
+def test_other_tiers_on_cuda(kernels, layout):
+    """The "xla" tier (float32 and float64) and the deferred pallas serve route
+    on the card against the float64 CPU run."""
+    case, rg, pil, beta = case_inputs(FRONT_CASES[0][1], 4, torch.float32, "cuda", seed=6)
+    fn = est.build_ri(case.hop1, case.hop2, case.config, 4, batched=True, kernels=kernels,
+                      out_layout=layout)
+    want = fn(rg.double().cpu(), pil.double().cpu(), beta.double().cpu()).channel_est_rg
+    got32 = fn(rg, pil, beta).channel_est_rg.double().cpu()
+    assert float(((got32 - want) ** 2).sum() / (want**2).sum()) < 4e-11
+    if kernels == "xla":
+        got64 = fn(rg.double(), pil.double(), beta.double()).channel_est_rg.cpu()
+        assert float(((got64 - want) ** 2).sum() / (want**2).sum()) < 1e-24
+    else:
+        with pytest.raises(TypeError, match="float32"):
+            fn(rg.double(), pil.double(), beta.double())
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("kernels", ["pallas_front", "pallas", "xla"])
+def test_bf16_and_cnn_serve_on_cuda(kernels):
+    kw = dict(n_prbs=24, n_layers=2, comb=2, snr_db=30.0, interp="cnn")
+    case, rg, pil, beta = case_inputs(kw, 4, torch.float32, "cuda", seed=7)
+    f32 = est.build_ri(case.hop1, case.hop2, case.config, 2, batched=True, kernels=kernels,
+                       out_layout="serve")
+    bf = est.build_ri(case.hop1, case.hop2, case.config, 2, batched=True, kernels=kernels,
+                      out_layout="serve", out_dtype="bfloat16")
+    want = f32(rg.double().cpu(), pil.double().cpu(), beta.double().cpu()).channel_est_rg
+    a = f32(rg, pil, beta).channel_est_rg.double().cpu()
+    assert float(((a - want) ** 2).sum() / (want**2).sum()) < 4e-11
+    b = bf(rg, pil, beta).channel_est_rg
+    assert b.dtype == torch.bfloat16
+    assert rel(b.float(), want) <= 1e-2

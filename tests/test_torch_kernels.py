@@ -1,9 +1,10 @@
 """The port's kernel modules against the JAX package's Pallas kernels.
 
 On the CPU each wrapper runs its plain PyTorch version (CPU tensors never reach
-a CUDA kernel), so these tests hold `fused_front_plain` and
-`fused_fill_rotate_serve_plain` against `srsran_ce_tpu.ops.pallas.kernels`
-run in interpret mode, as the JAX package's own tests run it. Inputs come from
+a CUDA kernel), so these tests hold `fused_front_plain`,
+`fused_fill_rotate_serve_plain`, `rc_smooth_plain` and
+`fused_fill_rotate_plain` against `srsran_ce_tpu.ops.pallas.kernels` run in
+interpret mode, as the JAX package's own tests run it. Inputs come from
 numpy seeds and feed both sides.
 
 Tolerances:
@@ -25,14 +26,18 @@ import pytest
 import torch
 
 from srsran_ce_tpu.models import estimator as jest
+from srsran_ce_tpu.ops import dsp as jdsp
 from srsran_ce_tpu.ops.pallas import kernels as jk
 from srsran_ce_tpu.ops.pallas import mathx as jmathx
 from srsran_ce_tpu_torch.models import estimator as port_est
 from srsran_ce_tpu_torch.models.plan import make_plan, plan_tensors
 from srsran_ce_tpu_torch.ops import mathx
+from srsran_ce_tpu_torch.ops import dsp
 from srsran_ce_tpu_torch.ops.kernels import _build
+from srsran_ce_tpu_torch.ops.kernels import fill_rotate as k6
 from srsran_ce_tpu_torch.ops.kernels import fill_rotate_serve as k2
 from srsran_ce_tpu_torch.ops.kernels import front as k1
+from srsran_ce_tpu_torch.ops.kernels import rc_smooth as k5
 from srsran_ce_tpu_torch.utils import synthetic
 
 FRONT_CASES = [
@@ -147,6 +152,80 @@ def test_fill_rotate_serve_plain_matches_jax(nL, slices, dtype):
     assert rel(got.numpy(), want) <= tol
 
 
+@pytest.mark.parametrize("C,n_ext,K", [(8, 650, 15), (32, 60, 15), (2, 20, 5), (4, 9, 1)])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_rc_smooth_plain_matches_jax(C, n_ext, K, dtype):
+    """K5's plain version vs the JAX kernel, c2 rows (C = 2*nL = 8, n_ext =
+    636 + 2*7, K = 15) and the time-interpolation row count among them."""
+    rng = np.random.default_rng(K * C)
+    x = rng.standard_normal((3, C, n_ext)).astype(dtype)
+    taps = rng.standard_normal(K)
+    got = k5.rc_smooth_plain(torch.as_tensor(x), taps)
+    want = jk.rc_smooth(jnp.asarray(x), taps)
+    assert got.shape == want.shape == (3, C, n_ext - K + 1)
+    assert rel(got.numpy(), want) <= (1e-14 if dtype == np.float64 else 1e-6)
+
+
+def _inpaint_w(n_re_groups, comb, n_sc, dtype):
+    """(n_groups, n_re, n_sc) inpainting operators (comb offsets per group) and
+    the JAX package's operators for the same masks."""
+    ws, jws = [], []
+    for c in range(n_re_groups):
+        known = np.zeros(n_sc, dtype=bool)
+        known[c::comb] = True
+        ws.append(dsp.inpaint_operator(known, max(6, n_sc // 8), torch.float64, "cpu"))
+        jws.append(np.asarray(jdsp.inpaint_operator(known, max(6, n_sc // 8), np.float64)))
+    return torch.stack(ws).numpy().astype(dtype), np.stack(jws).astype(dtype)
+
+
+@pytest.mark.parametrize(
+    "nL,slices,w_kind",
+    [(4, ((0, 2), (2, 4)), "linear"), (3, ((0, 2), (2, 3)), "linear"), (1, ((0, 1),), "linear"),
+     (2, ((0, 2),), "inpaint"), (3, ((0, 2), (2, 3)), "inpaint")],
+    ids=["equal_2x2", "unequal_2_1", "one_layer", "inpaint_one_group", "inpaint_unequal"],
+)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_fill_rotate_plain_matches_jax(nL, slices, w_kind, dtype):
+    """K6's plain version vs the JAX kernel, which takes one CDM group per call
+    (as `_grid_fill_rotate_pallas` calls it): the JAX blocks are concatenated
+    along the layer axis."""
+    if w_kind == "linear":
+        h, w, rot = fill_inputs(nL, len(slices), dtype, seed=nL)
+        jw = w
+    else:
+        rng = np.random.default_rng(nL)
+        w, jw = _inpaint_w(len(slices), 2, 208, dtype)
+        h = rng.standard_normal((3, 2, nL, w.shape[1])).astype(dtype)
+        ph = rng.uniform(-np.pi, np.pi, (3, 14))
+        rot = np.stack([np.cos(ph), np.sin(ph)], 1).astype(dtype)
+    got = k6.fused_fill_rotate_plain(
+        torch.as_tensor(h), torch.as_tensor(w), torch.as_tensor(rot), layer_slices=slices
+    )
+    want = np.concatenate(
+        [np.asarray(jk.fused_fill_rotate(jnp.asarray(h[:, :, l0:l1]), jnp.asarray(jw[c]),
+                                         jnp.asarray(rot)))
+         for c, (l0, l1) in enumerate(slices)],
+        axis=-1,
+    )
+    assert got.shape == want.shape == (3, 2, 208, 14, nL)
+    assert rel(got.numpy(), want) <= (1e-10 if dtype == np.float64 else 1e-5)
+
+
+def test_fill_rotate_writes_block_into_grid_on_cpu():
+    """`out=` places the block and leaves the rest of the grid untouched; the
+    plain path counts no launch."""
+    h, w, rot = (torch.as_tensor(a) for a in fill_inputs(3, 2, np.float64, 1))
+    rot = rot[:, :, :10]
+    grid = torch.full((3, 2, 230, 14, 3), 5.0, dtype=torch.float64)
+    n6 = k6.launches
+    out = k6.fused_fill_rotate(h, w, rot, ((0, 2), (2, 3)), out=grid, sc_start=11, sym_start=2)
+    assert out is grid and k6.launches == n6
+    blk = k6.fused_fill_rotate_plain(h, w, rot, ((0, 2), (2, 3)))
+    assert torch.equal(grid[:, :, 11:219, 2:12], blk)
+    assert (grid[:, :, :11] == 5).all() and (grid[:, :, 219:] == 5).all()
+    assert (grid[:, :, :, :2] == 5).all() and (grid[:, :, :, 12:] == 5).all()
+
+
 def test_mathx_atan2_axes_and_signed_zeros():
     vals = np.array([-2.0, -1.0, -1e-30, -0.0, 0.0, 1e-30, 1.0, 2.0, 3.5])
     y, x = np.meshgrid(vals, vals, indexing="ij")
@@ -195,6 +274,10 @@ def test_wrappers_take_plain_version_on_cpu():
         k2.fused_fill_rotate_serve_plain(h, w, rot, ((0, 2), (2, 3))),
     )
     assert (k1.launches, k2.launches) == (n1, n2)  # plain versions never count
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal((2, 4, 30)))
+    n5 = k5.launches
+    assert torch.equal(k5.rc_smooth(x, np.ones(5) / 5), k5.rc_smooth_plain(x, np.ones(5) / 5))
+    assert k5.launches == n5
 
 
 def test_wrappers_reject_other_devices():
@@ -205,6 +288,11 @@ def test_wrappers_reject_other_devices():
     (hp, t_args, t_kw, _, _), = front_inputs(FRONT_CASES[1][1], np.float32)
     with pytest.raises(ValueError, match="CUDA"):
         k1.fused_front(t_args[0].to("meta"), *t_args[1:], **t_kw)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        k5.rc_smooth(torch.empty((2, 4, 30), device="meta"), np.ones(5))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        k6.fused_fill_rotate(h, torch.empty((8, 16), device="meta"),
+                             torch.empty((2, 2, 14), device="meta"))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
