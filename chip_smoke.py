@@ -33,7 +33,24 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      within -40 dB;
  15. times with CUDA events: K5 and K6 against their plain versions, and the
      whole build_ri call at c2 batch 128 for pallas/ref, pallas/serve and
-     xla/serve.
+     xla/serve;
+ 16. K4 (ldpc_posterior) against its plain version at the JAX bench's decode
+     rows (array_code(6,16,61) B=512, NR BG2 Z=208 and BG1 Z=52 at B=128),
+     flooding and layered at the row's default layered_group: bit-identical
+     (the plain flooding is the "xla" tier), payload-exact;
+ 17. K3 (ldpc_stream_posterior) against its plain version at NR BG1 Z=384
+     (n = 26112), B=128, 8 layered sweeps: float32 messages bit-identical,
+     bfloat16 messages with identical bits, both payload-exact;
+ 18. `ops.ldpc.build_decoder(kernels="auto")` on the card for the bench's
+     five decode rows: the tier taken, K3/K4 launches of one call (counts set
+     to 0 just before it), payload-exactness, ms per batch;
+ 19. a coded-transport round trip at BG1 Z=384: CRC24B, NR rate matching at
+     rate 1/2 onto a 273-PRB single-hop QPSK grid, Gaussian LLRs at 3.5 dB,
+     extract_streams, the auto decoder (K3, bfloat16 messages), every CRC ok;
+ 20. times with CUDA events: K3 and K4 against their plain versions at the
+     rows above, K5's one-call PyTorch counterpart (F.conv1d), and every
+     kernel's bound (the larger of its bytes over 3.35 TB/s and its float32
+     operations over 67 TFLOP/s).
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -84,18 +101,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from srsran_ce_tpu_torch import transport
     from srsran_ce_tpu_torch.models import estimator
     from srsran_ce_tpu_torch.models.plan import make_plan, plan_tensors
     from srsran_ce_tpu_torch.ops.kernels import _build
     from srsran_ce_tpu_torch.ops.kernels import fill_rotate as k6
     from srsran_ce_tpu_torch.ops.kernels import fill_rotate_serve as k2
     from srsran_ce_tpu_torch.ops.kernels import front as k1
+    from srsran_ce_tpu_torch.ops import ldpc, nr_ldpc
+    from srsran_ce_tpu_torch.ops.kernels import ldpc as k4
+    from srsran_ce_tpu_torch.ops.kernels import ldpc_stream as k3
     from srsran_ce_tpu_torch.ops.kernels import rc_smooth as k5
     from srsran_ce_tpu_torch.utils import oracle, synthetic
     from srsran_ce_tpu_torch.validation import cli, conformance, synth_vectors
 
     kmods = {"fused_front": k1, "fused_fill_rotate_serve": k2, "rc_smooth": k5,
-             "fused_fill_rotate": k6}
+             "fused_fill_rotate": k6, "ldpc_posterior": k4, "ldpc_stream_posterior": k3}
 
     def reset_counts():
         for m in kmods.values():
@@ -318,9 +339,10 @@ def main() -> int:
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in evs) / iters
 
-    def ab(kernel, plain):
-        p1, k1_, k2_, p2 = time_ms(plain), time_ms(kernel), time_ms(kernel), time_ms(plain)
-        return (k1_ + k2_) / 2, (p1 + p2) / 2, (p1, k1_, k2_, p2), time_ms(kernel, cold=False)
+    def ab(kernel, plain, iters=20):
+        p1, k1_, k2_, p2 = (time_ms(plain, iters), time_ms(kernel, iters), time_ms(kernel, iters),
+                            time_ms(plain, iters))
+        return (k1_ + k2_) / 2, (p1 + p2) / 2, (p1, k1_, k2_, p2), time_ms(kernel, iters, cold=False)
 
     def print_times(phase, times):
         for kname, (ms, plain_ms, turns, warm) in times.items():
@@ -471,6 +493,208 @@ def main() -> int:
         print(f"phase 15 build_ri {label} c2 B=128: {ev:.4f} ms/batch on CUDA events, cold L2; "
               f"{wall:.4f} ms/batch host wall clock back-to-back {card}")
 
+    # 16. K4 vs plain at the bench's decode rows (bench.py:792-984): same seed,
+    # same words, same SNR; flooding and layered at the row's default G
+    def words(code, batch, snr_db, seed=0):
+        """(plan, info bits, float32 LLRs on the card) of `batch` encoded words
+        through BPSK + AWGN at `snr_db`, made as the JAX bench makes them."""
+        plan = ldpc.make_ldpc_plan(code)
+        r = np.random.default_rng(seed)
+        u = r.integers(0, 2, (batch, plan.k), dtype=np.uint8)
+        cw = ldpc.encode(code, u)
+        snr = 10.0 ** (snr_db / 10)
+        llr = 4 * snr * ((1 - 2.0 * cw) + r.normal(0, np.sqrt(0.5 / snr), cw.shape))
+        return plan, u, torch.as_tensor(llr.astype(np.float32), device=dev)
+
+    def payload_exact(post, plan, u):
+        """Every word's parity satisfied and its systematic bits equal to `u`."""
+        w = k4.wiring(plan, dev)
+        bits = (post < 0).to(torch.uint8)
+        return bool(ldpc._parity_ok(bits, w).all()) and np.array_equal(
+            bits[:, w.info_cols].cpu().numpy(), u)
+
+    def ldpc_ops(plan, batch, iters, schedule):
+        """float32 operations of min-sum on these words: per edge lane and sweep,
+        flooding 8 (the posterior add; v = L - c2v, |v|, its sign, the two-min
+        compare and min; norm * m, the sign) plus the final posterior add,
+        layered 9 (the same 5 + 2, then stored - old and the L update)."""
+        lanes = len(plan.edges) * plan.code.z * batch
+        return lanes * (8 * iters + 1 if schedule == "flooding" else 9 * iters)
+
+    PEAK_BPS, PEAK_F32 = 3.35e12, 67e12  # H100 SXM: HBM3 bytes/s, float32 FLOP/s outside the tensor cores
+
+    def bound(nbytes, ops):
+        """(ms, "bytes" or "operations", bytes ms, operations ms): the least
+        time the card could take, the larger of the two."""
+        tb, to = nbytes / PEAK_BPS * 1e3, ops / PEAK_F32 * 1e3
+        return (tb, "bytes", tb, to) if tb >= to else (to, "operations", tb, to)
+
+    ldpc_rows = (  # name, code, batch, SNR dB, flooding sweeps, layered sweeps
+        ("ldpc_decode_n976_b512", ldpc.array_code(6, 16, 61), 512, 4.0, 25, 13),
+        ("nr_bg2_z208", nr_ldpc.nr_base_graph(2, 208), 128, 3.5, 16, 8),
+        ("nr_bg1_z52", nr_ldpc.nr_base_graph(1, 52), 128, 3.5, 16, 8),
+    )
+    k4_cfgs = []
+    for row, code, batch, snr_db, it_f, it_l in ldpc_rows:
+        plan, u, ch = words(code, batch, snr_db)
+        g = ldpc.default_layered_group(code)
+        for sched, iters, grp in (("flooding", it_f, 1), ("layered", it_l, g)):
+            got = k4.ldpc_posterior(ch, plan, iters, 0.75, sched, grp)
+            want = k4.ldpc_posterior_plain(ch, plan, iters, 0.75, sched, grp)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"K4 {row} {sched}: max abs diff {float((got - want).abs().max()):.3e} vs plain, "
+                     "expected bit-identical")
+            if not payload_exact(got, plan, u):
+                fail(f"K4 {row} {sched}-{iters} G={grp}: not payload-exact")
+            label = f"{row} {sched}-{iters} G={grp} B={batch}"
+            k4_cfgs.append((label, plan, ch, iters, sched, grp))
+            print(f"phase 16 K4 vs plain ({label}, z={code.z}, {len(plan.edges)} edges): "
+                  "bit-identical, payload-exact")
+
+    # 17. K3 vs plain at the largest NR code block
+    code384 = nr_ldpc.nr_base_graph(1, 384)
+    plan384, u384, ch384 = words(code384, 128, 3.5)
+    k3_err = 0.0
+    for c2v in (None, "bfloat16"):
+        got = k3.ldpc_stream_posterior(ch384, plan384, 8, 0.75, 1, c2v)
+        want = k3.ldpc_stream_posterior_plain(ch384, plan384, 8, 0.75, 1, c2v)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        if (c2v is None and not equal) or not torch.equal(got < 0, want < 0):
+            fail(f"K3 c2v={c2v}: max abs diff {float((got - want).abs().max()):.3e} vs plain")
+        if not payload_exact(got, plan384, u384):
+            fail(f"K3 c2v={c2v}: not payload-exact")
+        k3_err = max(k3_err, float((got - want).abs().max()))
+        print(f"phase 17 K3 vs plain (NR BG1 Z=384 n={code384.n}, B=128, layered-8 G=1, "
+              f"c2v {c2v or 'float32'}): posterior {'bit-identical' if equal else 'differs'}, "
+              "bits identical, payload-exact")
+    results["ldpc_posterior"] = 0.0
+    results["ldpc_stream_posterior"] = k3_err
+
+    # 18. build_decoder(kernels="auto") on the bench's five decode rows
+    auto_rows = (  # name, code, batch, SNR dB, decoder arguments, tier, expected (K4, K3) launches
+        ("ldpc_decode_n976_b512", ldpc_rows[0][1], 512, 4.0, dict(n_iters=25), "pallas", (1, 0)),
+        ("nr_bg2_z208", ldpc_rows[1][1], 128, 3.5, dict(n_iters=16), "pallas", (1, 0)),
+        ("nr_bg1_z52", ldpc_rows[2][1], 128, 3.5, dict(n_iters=16), "pallas", (1, 0)),
+        ("nr_bg1_z384", code384, 32, 3.5, dict(n_iters=16), "xla_gather", (0, 0)),
+        ("nr_bg1_z384_streamed", code384, 128, 3.5,
+         dict(n_iters=8, schedule="layered", layered_group=ldpc.default_layered_group(code384),
+              stream_c2v_dtype="bfloat16"), "pallas_stream", (0, 1)),
+    )
+    ldpc_launches = {"ldpc_posterior": 0, "ldpc_stream_posterior": 0}
+    for row, code, batch, snr_db, kw, tier, want_n in auto_rows:
+        plan, u, ch = words(code, batch, snr_db)
+        dec = ldpc.build_decoder(code, kernels="auto", device=dev, **kw)
+        if dec.tier != tier:
+            fail(f"auto {row}: tier {dec.tier}, the JAX package takes {tier}")
+        torch.cuda.synchronize()
+        reset_counts()
+        res = dec(ch)
+        torch.cuda.synchronize()
+        cnt = read_counts()
+        got_n = (cnt["ldpc_posterior"], cnt["ldpc_stream_posterior"])
+        if got_n != want_n or any(cnt[k] for k in kmods if not k.startswith("ldpc")):
+            fail(f"auto {row}: launch counts {cnt}, expected (K4, K3) = {want_n}")
+        for k in ldpc_launches:
+            ldpc_launches[k] += cnt[k]
+        if not (bool(res.ok.all()) and np.array_equal(res.info.cpu().numpy(), u)):
+            fail(f"auto {row}: not payload-exact")
+        ms = time_ms(lambda: dec(ch), iters=5)
+        print(f"phase 18 auto {row} ({tier}, {kw}): launches K4 {got_n[0]}, K3 {got_n[1]}, "
+              f"payload-exact, {ms:.4f} ms/batch{batch} on CUDA events, cold L2 "
+              f"({batch * plan.k / ms / 1e3:.1f} info Mb/s) {card}")
+
+    # 19. coded transport at BG1 Z=384 (bench.py:1075-1095 without the receiver)
+    geo = synthetic.make_case(seed=4242, snr_db=15.0, n_prbs=273, n_layers=1)
+    n_sc, n_sym = geo.received_rg.shape
+    coding = transport.TransportCoding(
+        code=code384, rate_match="nr", tx_bits=2 * 8448, schedule="layered", n_iters=16,
+        crc="crc24b", interleave_seed=7, layered_group=ldpc.default_layered_group(code384),
+        stream_c2v_dtype="bfloat16")
+    nbits = 2
+    lay = transport.layout(coding, geo.hop1, geo.hop2, n_sc, n_sym, 1, nbits)
+    k_pay = transport.payload_bits(coding, plan384.k)
+    r = np.random.default_rng(4242)
+    u = r.integers(0, 2, (lay.c_words, k_pay), dtype=np.uint8)
+    tx = transport.place_codewords(lay, ldpc.encode(code384, transport.crc_attach(u, "crc24b")), 1,
+                                   nbits, fill_rng=r)
+    snr = 10.0 ** 0.35
+    llr_grid = (4 * snr * ((1 - 2.0 * tx) + r.normal(0, np.sqrt(0.5 / snr), tx.shape))).astype(np.float32)
+    streams = transport.extract_streams(lay, llr_grid)
+    dec = ldpc.build_decoder(code384, n_iters=coding.n_iters, norm=coding.norm, kernels=coding.kernels,
+                             schedule=coding.schedule, layered_group=coding.layered_group,
+                             stream_c2v_dtype=coding.stream_c2v_dtype, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    res = dec(streams)
+    torch.cuda.synchronize()
+    cnt = read_counts()
+    info = res.info.cpu().numpy()
+    crc_ok = transport.crc_check(info, "crc24b")
+    if cnt["ldpc_stream_posterior"] != 1 or not (crc_ok.all() and bool(res.ok.all())
+                                                 and np.array_equal(info[:, :k_pay], u)):
+        fail(f"transport round trip: CRC {crc_ok.tolist()}, parity {res.ok.tolist()}, launches {cnt}")
+    print(f"phase 19 coded transport BG1 Z=384 ({lay.c_words} words of E={lay.tx_bits} bits on a "
+          f"{n_sc}x{n_sym} QPSK grid, tier {dec.tier}): every CRC24B ok, parity ok, payload-exact, "
+          f"launches K3 {cnt['ldpc_stream_posterior']}")
+
+    # 20. times and bounds
+    for label, plan, ch, iters, sched, grp in k4_cfgs:
+        t = ab(lambda: k4.ldpc_posterior(ch, plan, iters, 0.75, sched, grp),
+               lambda: k4.ldpc_posterior_plain(ch, plan, iters, 0.75, sched, grp), iters=5)
+        b_ms, b_by, tb, to = bound(2 * ch.numel() * 4, ldpc_ops(plan, ch.shape[0], iters, sched))
+        times.setdefault("ldpc_posterior", t + (b_ms, b_by))
+        print(f"phase 20 K4 {label}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; bytes {tb:.4f}, operations {to:.4f}), cold L2 {card}")
+    for c2v in ("bfloat16", None):
+        t = ab(lambda: k3.ldpc_stream_posterior(ch384, plan384, 8, 0.75, 1, c2v),
+               lambda: k3.ldpc_stream_posterior_plain(ch384, plan384, 8, 0.75, 1, c2v), iters=5)
+        b_ms, b_by, tb, to = bound(2 * ch384.numel() * 4, ldpc_ops(plan384, 128, 8, "layered"))
+        times.setdefault("ldpc_stream_posterior", t + (b_ms, b_by))
+        print(f"phase 20 K3 BG1 Z=384 B=128 layered-8 G=1 c2v {c2v or 'float32'}: kernel {t[0]:.4f} ms, "
+              f"plain {t[1]:.4f} ms, bound {b_ms:.4f} ms ({b_by}; bytes {tb:.4f}, operations "
+              f"{to:.4f}), cold L2 {card}")
+
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    rx, pil_f, beta_f, mats = f_args
+    nL_f = pil_f.shape[2]
+    rows_of = {"pair_l": 2, "pair_r": 2, "smooth": 2, "smooth_vb": 2, "smooth_ve": 2, "ta_c": 2,
+               "ta_s": 2, "vp": 4}  # rows of each product, in units of nL (vp: 2 fits x 2 ends)
+    f_ops = sum(2 * rx.shape[0] * r_ * nL_f * mats[k].numel() for k, r_ in rows_of.items() if k in mats)
+    f_ops += 10 * rx.numel()  # the elementwise front, about 10 operations per received value
+    B2, nL2, n_re2 = k2_args[0].shape[0], k2_args[0].shape[2], k2_args[0].shape[3]
+    n_sc2 = k2_args[1].shape[-1]
+    fill_ops = lambda B_, nL_, n_re_, n_sc_: 4 * B_ * nL_ * n_re_ * n_sc_ + 6 * B_ * nL_ * 14 * n_sc_
+    B6, nL6, n_re6 = h6.shape[0], h6.shape[2], h6.shape[3]
+    M5 = x5.shape[-1] - taps.size + 1
+    bounds = {
+        "fused_front": bound(nbytes(rx, pil_f, beta_f, *[m for m in mats.values() if torch.is_tensor(m)])
+                             + rx.shape[0] * (2 * nL_f * hp.n_re + 8) * 4, f_ops),
+        "fused_fill_rotate_serve": bound(nbytes(*k2_args) + B2 * 2 * nL2 * 14 * n_sc2 * 4,
+                                         fill_ops(B2, nL2, n_re2, n_sc2)),
+        "rc_smooth": bound(nbytes(x5) + x5.shape[0] * x5.shape[1] * M5 * 4,
+                           2 * taps.size * x5.shape[0] * x5.shape[1] * M5),
+        "fused_fill_rotate": bound(nbytes(h6, w6, r6) + B6 * 2 * w6.shape[-1] * 14 * nL6 * 4,
+                                   fill_ops(B6, nL6, n_re6, w6.shape[-1])),
+    }
+    for k, v in bounds.items():
+        times[k] = times[k] + v[:2]
+    # K5's one-call PyTorch counterpart: a valid cross-correlation with the flipped taps
+    w5 = torch.as_tensor(np.ascontiguousarray(taps[::-1]), dtype=torch.float32, device=dev).view(1, 1, -1)
+    conv = lambda: torch.nn.functional.conv1d(x5.reshape(-1, 1, x5.shape[-1]), w5)
+    lib_out = conv().reshape(x5.shape[0], x5.shape[1], -1)
+    _, lib_err = errs(lib_out, k5.rc_smooth_plain(x5, taps))
+    if not lib_err <= 1e-5:
+        fail(f"F.conv1d vs K5's plain version: relative error {lib_err:.3e}")
+    library = {k: None for k in times}
+    library["rc_smooth"] = time_ms(conv)
+    for k in ("fused_front", "fused_fill_rotate_serve", "rc_smooth", "fused_fill_rotate"):
+        ms, plain_ms, _, _, b_ms, b_by = times[k]
+        print(f"phase 20 {k} c2 B=128: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; bytes "
+              f"{bounds[k][2]:.4f}, operations {bounds[k][3]:.4f}), "
+              f"library call {'not one' if library[k] is None else f'{library[k]:.4f} ms'} {card}")
+
     sources = {"fused_front": ("srsran_ce_tpu_torch/csrc/front.cu",
                                "srsran_ce_tpu/ops/pallas/kernels.py:639"),
                "fused_fill_rotate_serve": ("srsran_ce_tpu_torch/csrc/fill_rotate_serve.cu",
@@ -478,13 +702,19 @@ def main() -> int:
                "rc_smooth": ("srsran_ce_tpu_torch/csrc/rc_smooth.cu",
                              "srsran_ce_tpu/ops/pallas/kernels.py:786"),
                "fused_fill_rotate": ("srsran_ce_tpu_torch/csrc/fill_rotate.cu",
-                                     "srsran_ce_tpu/ops/pallas/kernels.py:70")}
+                                     "srsran_ce_tpu/ops/pallas/kernels.py:70"),
+               "ldpc_posterior": ("srsran_ce_tpu_torch/csrc/ldpc.cu",
+                                  "srsran_ce_tpu/ops/pallas/kernels.py:1220"),
+               "ldpc_stream_posterior": ("srsran_ce_tpu_torch/csrc/ldpc_stream.cu",
+                                         "srsran_ce_tpu/ops/pallas/kernels.py:1139")}
     launches = dict(counts)
     launches.update({k: pallas_counts[k] for k in ("rc_smooth", "fused_fill_rotate")})
+    launches.update(ldpc_launches)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
          "launches": launches[k], "max_abs_err": results[k], "ms": times[k][0],
-         "plain_ms": times[k][1]}
+         "plain_ms": times[k][1], "bound_ms": times[k][4], "bound_by": times[k][5],
+         "library_ms": library[k]}
         for k in sources
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -42,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import devices
 from ..config import EstimatorConfig, HopConfig
 from ..ops import dsp, mathx
 from ..ops.kernels import fill_rotate as _k6
@@ -955,11 +956,13 @@ def build(
     hop2: Optional[HopConfig],
     config: EstimatorConfig,
     n_layers: int,
-    device="cpu",
+    device="cuda",
 ):
     """Complex host API: `fn(received_rg, pilots, beta) -> EstimateResult` with
     numpy complex inputs and outputs (ri conversion at the boundary), run on
-    `device`. complex128 inputs run in float64, complex64 in float32."""
+    `device` (the card by default; raises when there is none).
+    complex128 inputs run in float64, complex64 in float32."""
+    device = devices.resolve(device)
     fn_ri = build_ri(hop1, hop2, config, n_layers, batched=False)
 
     def fn(received_rg, pilots, beta):
@@ -975,11 +978,12 @@ def build_batched(
     hop2: Optional[HopConfig],
     config: EstimatorConfig,
     n_layers: int,
-    device="cpu",
+    device="cuda",
 ):
     """Batched complex host API: `fn(received_rg[B], pilots[B], beta[B])` with a
-    leading problem axis on every output; use build_ri(batched=True) for the
-    zero-conversion serving path."""
+    leading problem axis on every output, run on `device` (the card by
+    default); use build_ri(batched=True) for the zero-conversion serving path."""
+    device = devices.resolve(device)
     fn_ri = build_ri(hop1, hop2, config, n_layers, batched=True)
 
     def fn(received_rg, pilots, beta):
@@ -997,7 +1001,7 @@ def estimate(
     hop1: HopConfig,
     hop2: Optional[HopConfig],
     config: EstimatorConfig,
-    device="cpu",
+    device="cuda",
 ) -> EstimateResult:
     """One-shot API mirroring the reference call signature
     (srs_channel_estimator, ce_rule_baseline.py:761-768)."""

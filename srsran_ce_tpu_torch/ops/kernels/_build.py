@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` is compiled on its own (one nvcc process per source,
 all started together) into a shared library with a plain C interface,
-`_build/lib<name>_<hash>.so`, keyed by a hash of the source and the flags, at
-first use. Only the sources in this package are compiled. Without nvcc the
-build raises: there is no CPU path for a CUDA tensor.
+`_build/lib<name>_<hash>.so`, keyed by a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags, at first use. Only the sources in this
+package are compiled. Without nvcc the build raises: there is no CPU path for
+a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("front", "fill_rotate_serve", "rc_smooth", "fill_rotate")
+SOURCES = ("front", "fill_rotate_serve", "rc_smooth", "fill_rotate", "ldpc", "ldpc_stream")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -46,7 +47,8 @@ def nvcc_path() -> str:
 
 def _target(name: str):
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return src, BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 

@@ -1,0 +1,106 @@
+"""K3 — row-streamed layered min-sum with float32 or bfloat16 messages: `ldpc_stream_posterior`.
+
+Replaces the TPU kernel
+`srsran_ce_tpu/ops/pallas/kernels.py:ldpc_stream_posterior`
+(`_ldpc_stream_kernel`): the layered schedule walked row by row from wiring
+tables, in groups of `group` rows that share one posterior snapshot, with
+the check-to-variable messages stored in float32 or bfloat16. A stored
+bfloat16 message is the round-to-nearest-even of the float32 update, and L
+takes the stored value minus the old one, so it stays consistent with what
+is stored. `ops/ldpc.build_decoder(kernels="pallas_stream")` reaches it, and
+`kernels="auto"` with `schedule="layered"` on codes over the unroll budget
+(NR BG1 at Z=384, the largest code block).
+
+CUDA kernel (csrc/ldpc_stream.cu, the layered sweep of csrc/ldpc_common.cuh
+instantiated for both message types): one thread block per codeword, L (n
+floats, 102 KB at BG1 Z=384) in dynamic shared memory, the messages in a
+global scratch (408 edges x 384 lanes per codeword: 612 KiB in float32,
+306 KiB in bfloat16, more than a block's 227 KB of shared memory; 80 or 40 MB
+at B=128, so the bfloat16 scratch stays in the 50 MB L2 and the float32 one
+does not). One thread per check lane of the group's rows;
+the rows of a group are applied in order, one `__syncthreads()` apart. The
+TPU kernel's z padding to 128 lanes and its two-rotation `roll_mod_z` have no
+counterpart: a shift is index math mod z. Padded group rows and padded slots
+do nothing (the TPU kernel stores 0 there, never norm * 1e30, which is inf in
+bfloat16).
+
+What bounds it on the H100: 128 codewords are 128 blocks, one wave on 132
+SMs, and each sweep is mb row steps in series; the bytes (the LLRs in, the
+posterior out, 27 MB at B=128) need 8 us at 3.35 TB/s, so it is bound by the
+latency of the row steps (see PERF.md).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .ldpc import check_args, layered_plain, wiring
+
+#: kernel launches since the count was last set to 0 (incremented only where
+#: the CUDA kernel is launched, never by the plain version)
+launches = 0
+
+_PTR = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_PTR] * 5 + [_I] * 6 + [ctypes.c_float] + [_I] * 3 + [_PTR]
+_C2V_DTYPES = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16,
+               torch.float32: torch.float32, torch.bfloat16: torch.bfloat16}
+
+
+def message_dtype(c2v_dtype) -> torch.dtype:
+    """The stored message type: None or "float32" -> float32, "bfloat16"."""
+    if c2v_dtype not in _C2V_DTYPES:
+        raise ValueError(f"c2v_dtype must be None, 'float32' or 'bfloat16', got {c2v_dtype!r}")
+    return _C2V_DTYPES[c2v_dtype]
+
+
+def ldpc_stream_posterior_plain(ch: torch.Tensor, plan, n_iters: int, norm: float,
+                                group: int = 1, c2v_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version: (B, n) channel LLRs -> (B, n) posterior, the
+    kernel's arithmetic in the same order (messages stored as `c2v_dtype`;
+    with float64 LLRs and no `c2v_dtype` they are float64)."""
+    w = wiring(plan, ch.device)
+    cdt = None if c2v_dtype is None else message_dtype(c2v_dtype)
+    return layered_plain(ch, w, n_iters, norm, max(1, min(int(group), w.mb)), cdt)
+
+
+def _lib():
+    fn = _build.load("ldpc_stream").srs_ldpc_stream_posterior
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ldpc_stream_posterior(ch: torch.Tensor, plan, n_iters: int, norm: float,
+                          group: int = 1, c2v_dtype=None) -> torch.Tensor:
+    """Layered normalized min-sum posterior of (B, n) channel LLRs after
+    `n_iters` sweeps, `group` rows per snapshot, messages stored as
+    `c2v_dtype` (None/"float32" or "bfloat16"). CPU tensors go through the
+    plain version; CUDA tensors launch the kernel."""
+    if ch.device.type == "cpu":
+        return ldpc_stream_posterior_plain(ch, plan, n_iters, norm, group, c2v_dtype)
+    if ch.device.type != "cuda":
+        raise ValueError(f"ldpc_stream_posterior runs on CPU or CUDA tensors, not {ch.device}")
+    cdt = message_dtype(c2v_dtype)
+    device, w = check_args(ch, plan, 1)
+    B = ch.shape[0]
+    g = max(1, min(int(group), w.mb))
+    out = torch.empty_like(ch)
+    c2v = torch.empty((B, w.n_edges, w.z), dtype=cdt, device=device)
+    delta = (torch.empty((B, g * w.d * w.z), dtype=torch.float32, device=device)
+             if g > 1 else None)
+    fn = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(ch.data_ptr(), out.data_ptr(), c2v.data_ptr(),
+                None if delta is None else delta.data_ptr(), w.table.data_ptr(),
+                B, w.n_edges, w.mb, w.nb, w.z, w.d, float(norm), int(n_iters), g,
+                int(cdt == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"ldpc_stream_posterior kernel launch failed: CUDA error {rc}")
+    global launches
+    launches += 1
+    return out

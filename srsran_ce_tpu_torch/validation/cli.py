@@ -37,14 +37,9 @@ SELFTEST_SPECS = [
 
 def _device(name: str):
     """The torch device named on the command line; raises when it is absent."""
-    import torch
+    from ..devices import resolve
 
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device here (pass --device cpu to run on the CPU)")
-    if dev.type not in ("cpu", "cuda"):
-        raise RuntimeError(f"--device {name}: the port runs on 'cpu' or 'cuda'")
-    return dev
+    return resolve(name, arg="--device ")
 
 
 def _print_results(report: dict) -> None:

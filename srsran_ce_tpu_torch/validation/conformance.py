@@ -21,6 +21,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import devices
 from ..config import EstimatorConfig, HopConfig, normal_cp_durations_ms
 from ..models import estimator
 from ..utils import vectors
@@ -125,10 +126,12 @@ def run_case(
     data_dir,
     nmse_bound_db: float = -40.0,
     use_x64: bool = True,
-    device="cpu",
+    device="cuda",
 ) -> CaseResult:
     """Replay one srsRAN vector case through the port's estimator on `device`;
-    assert the NMSE bound. The best of all pilot orderings is kept."""
+    assert the NMSE bound. The best of all pilot orderings is kept. `device`
+    is the card by default; raises when there is none."""
+    device = devices.resolve(device)
     data_dir = Path(data_dir)
     rg_entries = vectors.load_entries(
         data_dir / f"port_channel_estimator_test_input_rg{case.idx}.dat"
@@ -229,10 +232,12 @@ def run_suite(
     data_dir,
     nmse_bound_db: float = -40.0,
     case_filter: Optional[List[int]] = None,
-    device="cpu",
+    device="cuda",
 ) -> dict:
     """Replay the full vector suite on `device`; returns a JSON-able report
-    with pass/fail. A case that raises is recorded as failed with its message."""
+    with pass/fail. A case that raises is recorded as failed with its message.
+    `device` is the card by default; without one the suite raises."""
+    device = devices.resolve(device)
     cases = vectors.parse_test_header(header_path)
     if case_filter:
         cases = [c for c in cases if c.idx in set(case_filter)]

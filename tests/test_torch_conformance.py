@@ -87,7 +87,8 @@ def test_failed_case_is_recorded(suite, tmp_path):
     for f in d.glob("*0.dat"):  # case 0 only (case 10's files end in 10.dat)
         if not f.name.endswith("10.dat"):
             (tmp_path / f.name).write_bytes(f.read_bytes())
-    report = conformance.run_suite(tmp_path / header.name, tmp_path, case_filter=[0, 1])
+    report = conformance.run_suite(tmp_path / header.name, tmp_path, case_filter=[0, 1],
+                                    device="cpu")
     assert report["n_cases"] == 2 and report["n_pass"] == 1
     failed = [r for r in report["results"] if not r["passed"]]
     assert failed[0]["idx"] == 1 and failed[0]["message"]

@@ -207,7 +207,7 @@ def test_ineligible_and_unported_raise():
 
 
 def test_entry_c2_on_cpu():
-    fn, (rg, pil, beta) = entry.entry(batch=2)
+    fn, (rg, pil, beta) = entry.entry(device="cpu", batch=2)
     out = fn(rg, pil, beta)
     assert out.channel_est_rg.shape == (2, 2, 4, 14, 1272)
     assert out.channel_est_rg.dtype == torch.float32
@@ -226,3 +226,29 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                              text=True, timeout=120, env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """Every entry point runs on the card unless asked for the CPU: with no CUDA
+    device its default raises (never a quiet move to the CPU), and the message
+    names the way out."""
+    from srsran_ce_tpu_torch.ops import ldpc
+    from srsran_ce_tpu_torch.validation import conformance
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    case = synthetic.make_case(seed=1, n_prbs=4, n_layers=1, snr_db=30.0)
+    calls = {
+        "entry": lambda: entry.entry(batch=1),
+        "build": lambda: est.build(case.hop1, case.hop2, case.config, 1),
+        "build_batched": lambda: est.build_batched(case.hop1, case.hop2, case.config, 1),
+        "estimate": lambda: est.estimate(case.received_rg, case.pilots, case.beta, case.hop1,
+                                         case.hop2, case.config),
+        "run_case": lambda: conformance.run_case(None, tmp_path),
+        "run_suite": lambda: conformance.run_suite(tmp_path / "none.h", tmp_path),
+        "build_decoder": lambda: ldpc.build_decoder(ldpc.array_code(3, 8, 13), n_iters=2),
+    }
+    for call in calls.values():
+        with pytest.raises(RuntimeError, match=r"device=cuda: no CUDA device here \(pass device=cpu"):
+            call()
+    with pytest.raises(RuntimeError, match="the port runs on 'cpu' or 'cuda'"):
+        est.build(case.hop1, case.hop2, case.config, 1, device="meta")

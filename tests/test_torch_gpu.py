@@ -252,3 +252,110 @@ def test_bf16_and_cnn_serve_on_cuda(kernels):
     b = bf(rg, pil, beta).channel_est_rg
     assert b.dtype == torch.bfloat16
     assert rel(b.float(), want) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# K4 (ldpc_posterior) and K3 (ldpc_stream_posterior): the kernels keep the
+# plain versions' order of operations (adds, subtracts and products by +-1,
+# no FMA pair, no atomics), so they are held to them bit for bit.
+# ---------------------------------------------------------------------------
+
+from srsran_ce_tpu_torch.ops import ldpc as tl  # noqa: E402
+from srsran_ce_tpu_torch.ops import nr_ldpc as tnr  # noqa: E402
+from srsran_ce_tpu_torch.ops.kernels import ldpc as k4  # noqa: E402
+from srsran_ce_tpu_torch.ops.kernels import ldpc_stream as k3  # noqa: E402
+
+LDPC_CODES = {
+    "n976": lambda: tl.array_code(6, 16, 61),
+    "bg2_z208": lambda: tnr.nr_base_graph(2, 208),
+    "bg1_z52": lambda: tnr.nr_base_graph(1, 52),
+    "bg2_z144": lambda: tnr.nr_base_graph(2, 144),
+    "bg1_z384": lambda: tnr.nr_base_graph(1, 384),
+}
+
+
+def awgn_llrs(code, batch, snr_db=3.5, seed=0):
+    """(info bits, float32 LLRs) of `batch` encoded words through BPSK + AWGN."""
+    plan = tl.make_ldpc_plan(code)
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 2, (batch, plan.k), dtype=np.uint8)
+    cw = tl.encode(code, u)
+    snr = 10.0 ** (snr_db / 10)
+    llr = 4 * snr * ((1 - 2.0 * cw) + rng.normal(0, np.sqrt(0.5 / snr), cw.shape))
+    return u, torch.as_tensor(llr.astype(np.float32), device="cuda")
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("name,batch,schedule,group,n_iters", [
+    ("n976", 37, "flooding", 1, 6), ("n976", 37, "layered", 1, 4),
+    ("bg2_z208", 19, "flooding", 1, 4), ("bg2_z208", 19, "layered", 8, 3),
+    ("bg1_z52", 11, "flooding", 1, 4), ("bg1_z52", 11, "layered", 2, 3),
+    ("bg1_z52", 3, "layered", 4, 2), ("bg1_z52", 5, "layered", 3, 2),
+    ("n976", 1, "layered", 2, 3),
+])
+def test_ldpc_posterior_kernel_bit_identical(name, batch, schedule, group, n_iters):
+    code = LDPC_CODES[name]()
+    plan = tl.make_ldpc_plan(code)
+    _, ch = awgn_llrs(code, batch, seed=batch)
+    n0 = k4.launches
+    got = k4.ldpc_posterior(ch, plan, n_iters, 0.75, schedule=schedule, group=group)
+    assert k4.launches == n0 + 1
+    want = k4.ldpc_posterior_plain(ch, plan, n_iters, 0.75, schedule=schedule, group=group)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, want), float((got - want).abs().max())
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("name,batch,group,c2v", [
+    ("bg1_z384", 5, 1, None), ("bg1_z384", 5, 1, "bfloat16"), ("bg2_z144", 7, 3, None),
+    ("bg2_z144", 7, 3, "bfloat16"), ("bg1_z52", 9, 2, "bfloat16"), ("bg2_z208", 3, 8, None),
+])
+def test_ldpc_stream_kernel_bit_identical(name, batch, group, c2v):
+    code = LDPC_CODES[name]()
+    plan = tl.make_ldpc_plan(code)
+    u, ch = awgn_llrs(code, batch, seed=group)
+    n0 = k3.launches
+    got = k3.ldpc_stream_posterior(ch, plan, 4, 0.75, group=group, c2v_dtype=c2v)
+    assert k3.launches == n0 + 1
+    want = k3.ldpc_stream_posterior_plain(ch, plan, 4, 0.75, group=group, c2v_dtype=c2v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, want), float((got - want).abs().max())
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("name,schedule,tier,launched", [
+    ("n976", "flooding", "pallas", "k4"), ("bg1_z52", "layered", "pallas", "k4"),
+    ("bg1_z384", "layered", "pallas_stream", "k3"), ("bg1_z384", "flooding", "xla_gather", None),
+])
+def test_auto_on_cuda_launches_the_kernel(name, schedule, tier, launched):
+    code = LDPC_CODES[name]()
+    u, ch = awgn_llrs(code, 6, snr_db=4.0, seed=3)
+    dec = tl.build_decoder(code, n_iters=12, kernels="auto", schedule=schedule,
+                           layered_group=tl.default_layered_group(code), device="cuda")
+    assert dec.tier == tier
+    n3, n4 = k3.launches, k4.launches
+    res = dec(ch.reshape(2, 3, -1))
+    torch.cuda.synchronize()
+    assert (k3.launches - n3, k4.launches - n4) == {"k3": (1, 0), "k4": (0, 1), None: (0, 0)}[launched]
+    assert res.bits.device.type == "cuda" and res.info.shape == (2, 3, u.shape[1])
+    assert bool(res.ok.all()) and np.array_equal(res.info.reshape(6, -1).cpu().numpy(), u)
+
+
+@NEEDS_GPU
+def test_ldpc_wrappers_reject_what_the_kernels_do_not_take():
+    code = LDPC_CODES["n976"]()
+    plan = tl.make_ldpc_plan(code)
+    ch = torch.zeros((4, code.n), device="cuda")
+    for wrapper in (lambda x: k4.ldpc_posterior(x, plan, 2, 0.75),
+                    lambda x: k3.ldpc_stream_posterior(x, plan, 2, 0.75)):
+        with pytest.raises(TypeError, match="float32"):
+            wrapper(ch.double())
+        with pytest.raises(ValueError, match="contiguous"):
+            wrapper(torch.zeros((code.n, 4), device="cuda").t())
+        with pytest.raises(ValueError, match="n="):
+            wrapper(ch[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        k4.check_args(ch.cpu(), plan, 1)
+    dec = tl.build_decoder(code, n_iters=2, kernels="pallas", device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        dec(ch.double())

@@ -172,8 +172,16 @@ def test_port_imports_no_jax():
         "import srsran_ce_tpu_torch.ops.kernels._build, srsran_ce_tpu_torch.ops.sequences\n"
         "import srsran_ce_tpu_torch.utils.vectors, srsran_ce_tpu_torch.validation.synth_vectors\n"
         "import srsran_ce_tpu_torch.validation.conformance, srsran_ce_tpu_torch.validation.cli\n"
+        "import srsran_ce_tpu_torch.ops.ldpc, srsran_ce_tpu_torch.ops.nr_ldpc\n"
+        "import srsran_ce_tpu_torch.transport, srsran_ce_tpu_torch.devices\n"
+        "import srsran_ce_tpu_torch.ops.kernels.ldpc, srsran_ce_tpu_torch.ops.kernels.ldpc_stream\n"
         "from srsran_ce_tpu_torch.validation import cli\n"
         "assert cli.main(['selftest', '--device', 'cpu']) == 0\n"
+        "from srsran_ce_tpu_torch.ops import ldpc, nr_ldpc\n"
+        "code = nr_ldpc.nr_base_graph(2, 16)\n"
+        "res = ldpc.build_decoder(code, n_iters=2, kernels='auto', schedule='layered',\n"
+        "                         device='cpu')(8.0 - 16.0 * ldpc.encode(code, [[1] * 160]))\n"
+        "assert bool(res.ok.all()) and res.info.sum() == 160\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'srsran_ce_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

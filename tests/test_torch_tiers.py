@@ -166,7 +166,7 @@ def test_oracle_geometries(name, kw):
     case = synthetic.make_case(seed=zlib.crc32(name.encode()), snr_db=30.0, **kw)
     o = oracle.estimate(case.received_rg, case.pilots, case.beta, case.hop1, case.hop2, case.config)
     assert_oracle(est.estimate(case.received_rg, case.pilots, case.beta, case.hop1, case.hop2,
-                               case.config), o)
+                               case.config, device="cpu"), o)
     fn = est.build_ri(case.hop1, case.hop2, case.config, case.pilots.shape[2], kernels="pallas")
     res = fn(torch.as_tensor(est.split_ri(case.received_rg)),
              torch.as_tensor(est.split_ri(case.pilots)), case.beta)
@@ -180,18 +180,18 @@ def test_build_batched_and_estimate_match_jax():
     rg = np.stack([c.received_rg for c in cases])
     pil = np.stack([c.pilots for c in cases])
     beta = np.array([c.beta for c in cases])
-    out = est.build_batched(c0.hop1, c0.hop2, c0.config, 2)(rg, pil, beta)
+    out = est.build_batched(c0.hop1, c0.hop2, c0.config, 2, device="cpu")(rg, pil, beta)
     ref = jest.build_batched(c0.hop1, c0.hop2, c0.config, n_layers=2)(rg, pil, beta)
     assert out.channel_est_rg.shape == (3, 288, 14, 2) and out.channel_est_rg.dtype == np.complex128
     want = np.asarray(ref.channel_est_rg)
     assert np.abs(out.channel_est_rg - want).max() / np.abs(want).max() <= 1e-10
     for f in SCALARS:
         np.testing.assert_allclose(getattr(out, f), np.asarray(getattr(ref, f)), rtol=1e-10)
-    one = est.estimate(rg[1], pil[1], beta[1], c0.hop1, c0.hop2, c0.config)
+    one = est.estimate(rg[1], pil[1], beta[1], c0.hop1, c0.hop2, c0.config, device="cpu")
     assert np.abs(one.channel_est_rg - out.channel_est_rg[1]).max() <= 1e-14
     # complex64 inputs run in float32
     r32 = est.estimate(rg[1].astype(np.complex64), pil[1].astype(np.complex64), np.float32(beta[1]),
-                       c0.hop1, c0.hop2, c0.config)
+                       c0.hop1, c0.hop2, c0.config, device="cpu")
     assert r32.channel_est_rg.dtype == np.complex64
     assert np.abs(r32.channel_est_rg - one.channel_est_rg).max() <= 1e-5
 
