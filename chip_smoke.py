@@ -50,7 +50,32 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
  20. times with CUDA events: K3 and K4 against their plain versions at the
      rows above, K5's one-call PyTorch counterpart (F.conv1d), and every
      kernel's bound (the larger of its bytes over 3.35 TB/s and its float32
-     operations over 67 TFLOP/s).
+     operations over 67 TFLOP/s);
+ 21. K7 (inpaint_stack) against its plain version at the JAX test's shapes
+     (n, comb) = (48, 2) and (96, 4), the estimator's chain regime (11 PRB,
+     nL=4, B=128) and c3 width (n=3276, 409 iterations, B=16), relative
+     error <= 1e-5; then its own entry once at c3 with the count set to 0
+     (no estimator path reaches K7, in the JAX package neither);
+ 22. the receiver `build_receiver_ri` at the bench's c2_receiver_4rx4l width
+     (106 PRB, 4 RX x 4 layers, batch 128, make_mimo_case inputs), modes
+     auto (factored) and dense, kernels "xla" and "pallas" with K5/K2 launch
+     counts, against the port's float64 CPU run of the first 4 problems
+     (x NMSE <= 1e-9, SINR max |error| / max |SINR| <= 1e-4); the 256QAM LLR
+     row (int8 planes within one step on <= 0.1 %); a 30 dB QPSK link's
+     (4 RX x 2 layers) hard-decision BER on the scored REs: 0;
+ 23. `serving.process` over heterogeneous lists on the card, every output
+     ("grid", "factored", "equalized", "llrs") against single calls of the
+     port's build functions; tail padding through one receiver per signature;
+ 24. the e2e decoded row (bench.py:1075-1120): 273 PRB QPSK slots carrying
+     CRC24B, NR-rate-matched BG1 Z=384 words at 15 dB through
+     `process(out="decoded", batch_size=8)` on the host path and with
+     decode_on_device=True, 8 and 24 slots: every word ok and payload-exact,
+     both paths identical, K3 launched in every decode call;
+ 25. times: K7 (kernel, plain, bound, and its one-call counterpart, the
+     operator matmul), the receiver's ms per batch (CUDA events, both modes,
+     both tiers), the e2e ms per slot (host wall clock over the 8 -> 24 slot
+     slope, both paths), and the device idle share of one e2e call
+     (torch.profiler).
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -111,12 +136,17 @@ def main() -> int:
     from srsran_ce_tpu_torch.ops import ldpc, nr_ldpc
     from srsran_ce_tpu_torch.ops.kernels import ldpc as k4
     from srsran_ce_tpu_torch.ops.kernels import ldpc_stream as k3
+    from srsran_ce_tpu_torch.ops.kernels import inpaint as k7
     from srsran_ce_tpu_torch.ops.kernels import rc_smooth as k5
+    from srsran_ce_tpu_torch import serving
+    from srsran_ce_tpu_torch.models import receiver
+    from srsran_ce_tpu_torch.ops import demap, dsp
     from srsran_ce_tpu_torch.utils import oracle, synthetic
     from srsran_ce_tpu_torch.validation import cli, conformance, synth_vectors
 
     kmods = {"fused_front": k1, "fused_fill_rotate_serve": k2, "rc_smooth": k5,
-             "fused_fill_rotate": k6, "ldpc_posterior": k4, "ldpc_stream_posterior": k3}
+             "fused_fill_rotate": k6, "ldpc_posterior": k4, "ldpc_stream_posterior": k3,
+             "inpaint_stack": k7}
 
     def reset_counts():
         for m in kmods.values():
@@ -695,6 +725,313 @@ def main() -> int:
               f"{bounds[k][2]:.4f}, operations {bounds[k][3]:.4f}), "
               f"library call {'not one' if library[k] is None else f'{library[k]:.4f} ms'} {card}")
 
+    # 21. K7 vs plain at the JAX test's shapes, the chain regime and c3 width
+    def k7_inputs(B, C, n, comb, seed):
+        known = np.zeros(n, dtype=bool)
+        known[::comb] = True
+        x = np.where(known, np.random.default_rng(seed).standard_normal((B, C, n)), 0.0)
+        return known, torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    k7_shapes = (  # label, B, C = 2 nL, n, comb, iterations (max(6, n // 8), plan.py:323)
+        ("JAX test (48, comb 2)", 2, 4, 48, 2, 6),
+        ("JAX test (96, comb 4)", 2, 4, 96, 4, 12),
+        ("chain regime 11 PRB nL=4 B=128", 128, 8, 132, 2, 16),
+        ("c3 273 PRB nL=1 B=16", 16, 2, 3276, 2, 409),
+    )
+    k7_err = 0.0
+    for i, (label, B, C, n, comb, iters) in enumerate(k7_shapes):
+        known, x = k7_inputs(B, C, n, comb, seed=210 + i)
+        got = k7.inpaint_stack(x, known, iters)
+        want = k7.inpaint_stack_plain(x, known, iters)
+        torch.cuda.synchronize()
+        abs_err, err = errs(got, want)
+        if not (err <= 1e-5 and bool(torch.isfinite(got).all())):
+            fail(f"K7 {label}: relative error {err:.3e} > 1e-5 or not finite")
+        k7_err = max(k7_err, abs_err)
+        print(f"phase 21 K7 vs plain ({label}, x {tuple(x.shape)}, {iters} iterations): max abs "
+              f"err {abs_err:.3e}, rel err {err:.3e} (<= 1e-5)")
+    results["inpaint_stack"] = k7_err
+    k7_c3 = (x, known, iters)
+    reset_counts()
+    k7.inpaint_stack(*k7_c3)
+    torch.cuda.synchronize()
+    k7_launches = read_counts()["inpaint_stack"]
+    if k7_launches != 1:
+        fail(f"K7 entry at c3: {k7_launches} launches, expected 1")
+    print(f"phase 21 K7 entry `ops.kernels.inpaint.inpaint_stack` at c3: launches {k7_launches}")
+
+    # 22. the receiver at the bench's c2_receiver_4rx4l width
+    C2_RX = dict(n_prbs=106, n_layers=4, comb=2, scs_hz=30e3, snr_db=30.0)
+    B_RX, N_RX = 128, 4
+
+    def mimo_batch(modulation, batch, seeds=SEEDS, **kw):
+        """(cases, config at "high", rg, pil, beta on the card) of make_mimo_case
+        links tiled to the batch."""
+        cases = [synthetic.make_mimo_case(seed=s, n_rx=N_RX, modulation=modulation, **kw)
+                 for s in seeds]
+        cfg = dataclasses.replace(cases[0].config, matmul_precision="high")
+        rg = np.stack([estimator.split_ri(c.received_rg) for c in cases])
+        pil = np.stack([estimator.split_ri(c.pilots) for c in cases])
+        idx = np.arange(batch) % len(cases)
+        t32 = lambda a: torch.as_tensor(a[idx], dtype=torch.float32, device=dev)
+        return cases, cfg, t32(rg), t32(pil), torch.ones(batch, dtype=torch.float32, device=dev)
+
+    rx_cases, rx_cfg, rx_rg, rx_pil, rx_beta = mimo_batch("256qam", B_RX, **C2_RX)
+    c0 = rx_cases[0]
+    n_ref = len(rx_cases)
+    ref_args = tuple(a[:n_ref].double().cpu() for a in (rx_rg, rx_pil, rx_beta))
+    rx_fns = {}
+    for mode, kern in (("auto", "xla"), ("dense", "xla"), ("auto", "pallas"), ("dense", "pallas")):
+        fn = receiver.build_receiver_ri(c0.hop1, c0.hop2, rx_cfg, 4, N_RX, batched=True, mode=mode,
+                                        kernels=kern, device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        res = fn(rx_rg, rx_pil, rx_beta)
+        torch.cuda.synchronize()
+        cnt = read_counts()
+        if kern == "xla":
+            need(f"receiver {mode}/{kern}", cnt, idle=tuple(kmods))
+        else:
+            need(f"receiver {mode}/{kern}", cnt, launched=("rc_smooth",) + (
+                ("fused_fill_rotate_serve",) if mode == "dense" else ()),
+                 idle=("fused_front", "fused_fill_rotate") + (
+                ("fused_fill_rotate_serve",) if mode == "auto" else ()))
+        want = fn(*ref_args)  # the same receiver on CPU float64 tensors: the plain tier
+        x = res.x[:n_ref].double().cpu()
+        if tuple(res.x.shape) != (B_RX, 2, 4, 14, c0.received_rg.shape[1]) or not bool(
+                torch.isfinite(res.x).all()):
+            fail(f"receiver {mode}/{kern}: x {tuple(res.x.shape)} not finite or wrong shape")
+        nmse = ((x - want.x) ** 2).sum(dim=(1, 2, 3, 4)) / (want.x**2).sum(dim=(1, 2, 3, 4))
+        _, s_err = errs(res.sinr[:n_ref].cpu(), want.sinr)
+        s_elem = float(((res.sinr[:n_ref].double().cpu() - want.sinr).abs()
+                        / want.sinr.abs().clamp_min(1e-30)).max())
+        if not (float(nmse.max()) <= 1e-9 and s_err <= 1e-4):
+            fail(f"receiver {mode}/{kern}: x NMSE {nmse.tolist()} (<= 1e-9), SINR rel {s_err:.3e}")
+        check_rtol(f"receiver {mode}/{kern} noise", res.noise_est[:n_ref].cpu(), want.noise_est, 1e-4)
+        rx_fns[(mode, kern)] = fn
+        print(f"phase 22 receiver c2_receiver_4rx4l {mode}/{kern} (B={B_RX}, {N_RX} RX x 4 layers, "
+              f"sinr {tuple(res.sinr.shape)}): x NMSE vs float64 CPU {float(nmse.max()):.3e} "
+              f"(<= 1e-9), SINR max err / max {s_err:.3e} (<= 1e-4; elementwise worst "
+              f"{s_elem:.3e}), launches {cnt}")
+
+    fn256 = receiver.build_receiver_ri(c0.hop1, c0.hop2, rx_cfg, 4, N_RX, batched=True,
+                                       modulation="256qam", device=dev)
+    res = fn256(rx_rg, rx_pil, rx_beta)
+    torch.cuda.synchronize()
+    want = fn256(*ref_args)
+    d = torch.stack([(p[:n_ref].cpu().to(torch.int16) - q.to(torch.int16)).abs()
+                     for p, q in zip(res.llr, want.llr)])
+    frac = float((d > 0).double().mean())
+    if int(d.max()) > 1 or frac > 1e-3:
+        fail(f"receiver llr256: int8 planes differ by up to {int(d.max())} on {frac:.2e} of entries")
+    rx_fns["llr256"] = fn256
+    print(f"phase 22 receiver c2_receiver_4rx4l_llr256 (8 int8 planes {tuple(res.llr[0].shape)}): "
+          f"within one step of the float64 run, {frac:.2e} of entries off by one (<= 1e-3)")
+
+    # 4 RX x 2 layers: at 4 x 4 a 30 dB uncoded link has errors of its own
+    # (deep fades of a square channel; BER ~1e-3 in the float64 run too)
+    q_cases, q_cfg, q_rg, q_pil, q_beta = mimo_batch("qpsk", n_ref, **dict(C2_RX, n_layers=2))
+    fnq = receiver.build_receiver_ri(q_cases[0].hop1, q_cases[0].hop2, q_cfg, 2, N_RX, batched=True,
+                                     modulation="qpsk", device=dev)
+    res = fnq(q_rg, q_pil, q_beta)
+    n_err = n_bits = 0
+    for i, c in enumerate(q_cases):
+        llr = np.stack([p[i].cpu().numpy() for p in res.llr], axis=-1)  # (nL, n_sym, n_sc, 2)
+        llr = demap.descramble_llrs(np.transpose(llr, (2, 1, 0, 3)), c.scramble_c)
+        hard = (llr < 0).astype(np.uint8)
+        n_err += int((hard[c.data_mask] != c.bits[c.data_mask]).sum())
+        n_bits += int(c.bits[c.data_mask].size)
+    if n_err:
+        fail(f"QPSK 30 dB link: {n_err} bit errors in {n_bits}")
+    print(f"phase 22 QPSK 30 dB link (4 RX x 2 layers, 106 PRB, scrambled): BER 0 over {n_bits} "
+          "scored bits")
+
+    # 23. serving.process over heterogeneous lists (tests/test_serving.py shapes)
+    def prob_of(c, rg=None):
+        return serving.Problem((c.received_rg if rg is None else rg).astype(np.complex64),
+                               c.pilots.astype(np.complex64), float(c.beta), c.hop1, c.hop2,
+                               c.config)
+
+    specs = [dict(n_prbs=24, n_layers=1), dict(n_prbs=24, n_layers=2),
+             dict(n_prbs=12, n_layers=1, two_hops=True),
+             dict(n_prbs=24, n_layers=1, time_interp="linear", doppler_hz=250.0)]
+    g_cases = [synthetic.make_case(seed=37 + 10 * j + i, snr_db=30.0, **sp)
+               for j, sp in enumerate(specs) for i in range(3)]
+    t_rel = 0.0
+    for out in ("grid", "factored"):
+        cs = [c for c in g_cases if out == "grid" or c.config.time_interp == "none"]
+        res = serving.process([prob_of(c) for c in cs], batch_size=4, out=out, device=dev)
+        for c, r in zip(cs, res):
+            nL = c.pilots.shape[2]
+            one = estimator.build_ri(c.hop1, c.hop2, dataclasses.replace(c.config, matmul_precision="high"),
+                                     nL, out_layout="serve" if out == "grid" else "factored")(
+                torch.as_tensor(estimator.split_ri(c.received_rg.astype(np.complex64)), device=dev),
+                torch.as_tensor(estimator.split_ri(c.pilots.astype(np.complex64)), device=dev),
+                torch.tensor(float(c.beta), device=dev))
+            if out == "grid":
+                want = estimator.merge_ri(one.channel_est_rg.cpu().numpy()).transpose(2, 1, 0)
+                got = r.channel_est_rg
+            else:
+                want = estimator.merge_ri(one.profiles.cpu().numpy())
+                got = r.profiles
+            e = np.abs(got - want).max() / np.abs(want).max()
+            t_rel = max(t_rel, e)
+            if not e <= 1e-5:
+                fail(f"process({out}) vs a single build_ri call: rel err {e:.3e}")
+            check_rtol(f"process({out}) noise", r.noise_est, float(one.noise_est), 1e-5)
+    rx_specs = [dict(n_rx=1, kw=dict(n_prbs=24, n_layers=1)),
+                dict(n_rx=2, kw=dict(n_prbs=24, n_layers=2)),
+                dict(n_rx=2, kw=dict(n_prbs=24, n_layers=2, time_interp="linear")),
+                dict(n_rx=2, kw=dict(n_prbs=12, n_layers=1, two_hops=True))]
+    e_cases, e_rgs = [], []
+    for j, sp in enumerate(rx_specs):
+        for i in range(3):
+            ports = [synthetic.make_case(seed=300 + 10 * j + i, noise_seed=500 + r, snr_db=30.0,
+                                         **sp["kw"]) for r in range(sp["n_rx"])]
+            e_cases.append(ports[0])
+            e_rgs.append(np.stack([p.received_rg for p in ports]))
+    order = np.random.default_rng(1).permutation(len(e_cases))
+    e_cases = [e_cases[i] for i in order]
+    e_rgs = [e_rgs[i] for i in order]
+    probs = [prob_of(c, rg) for c, rg in zip(e_cases, e_rgs)]
+    receiver._build_receiver_cached.cache_clear()
+    res_e = serving.process(probs, batch_size=2, out="equalized", data_beta=1.1, device=dev)
+    misses = receiver._build_receiver_cached.cache_info().misses
+    if misses != len(rx_specs):
+        fail(f"process(equalized): {misses} receiver builds for {len(rx_specs)} signatures")
+    res_l = serving.process(probs, batch_size=2, out="llrs", modulation="16qam", device=dev)
+    eq_nmse, n_off, n_all = 0.0, 0, 0
+    for c, rg, re_, rl in zip(e_cases, e_rgs, res_e, res_l):
+        nL = c.pilots.shape[2]
+        cfg = dataclasses.replace(c.config, matmul_precision="high")
+        args = (torch.as_tensor(estimator.split_ri(rg.astype(np.complex64)), device=dev),
+                torch.as_tensor(estimator.split_ri(c.pilots.astype(np.complex64)), device=dev),
+                torch.tensor(float(c.beta), device=dev))
+        one = receiver.build_receiver_ri(c.hop1, c.hop2, cfg, nL, rg.shape[0], data_beta=1.1,
+                                         device=dev)(*args)
+        want = estimator.merge_ri(one.x.cpu().numpy()).transpose(2, 1, 0)
+        eq_nmse = max(eq_nmse, float(np.sum(np.abs(re_.x - want) ** 2) / np.sum(np.abs(want) ** 2)))
+        one_l = receiver.build_receiver_ri(c.hop1, c.hop2, cfg, nL, rg.shape[0], modulation="16qam",
+                                           device=dev)(*args)
+        want_l = np.stack([p.cpu().numpy() for p in one_l.llr]).transpose(3, 2, 1, 0)
+        dl = np.abs(rl.llr.astype(np.int16) - want_l.astype(np.int16))
+        if dl.max() > 1:
+            fail(f"process(llrs) vs a single receiver call: int8 LLRs differ by {dl.max()}")
+        n_off += int((dl > 0).sum())
+        n_all += dl.size
+    if eq_nmse > 1e-7 or n_off > 1e-3 * n_all:
+        fail(f"process(equalized) NMSE {eq_nmse:.3e} (<= 1e-7) or llrs off on {n_off}/{n_all}")
+    print(f"phase 23 serving.process on {dev}: grid/factored vs single build_ri calls rel err "
+          f"{t_rel:.3e} (<= 1e-5); equalized ({len(probs)} problems, 4 signatures, 1 and 2 RX, "
+          f"batch 2 with tail padding, {misses} receiver builds) vs single build_receiver_ri "
+          f"calls NMSE {eq_nmse:.3e} (<= 1e-7); llrs 16QAM {n_off}/{n_all} entries off by one")
+
+    # 24. the e2e decoded row at its bench width (bench.py:1075-1120)
+    lplan = ldpc.make_ldpc_plan(code384)
+    e2e_coding = transport.TransportCoding(
+        code=code384, rate_match="nr", tx_bits=2 * 8448, schedule="layered", n_iters=16,
+        crc="crc24b", interleave_seed=7, layered_group=ldpc.default_layered_group(code384),
+        stream_c2v_dtype="bfloat16")
+    seed = 4242
+    geo = synthetic.make_case(seed=seed, snr_db=15.0, n_prbs=273, n_layers=1)
+    n_sc, n_sym = geo.received_rg.shape
+    lay = transport.layout(e2e_coding, geo.hop1, geo.hop2, n_sc, n_sym, 1, 2)
+    k_pay = transport.payload_bits(e2e_coding, lplan.k)
+    rng24 = np.random.default_rng(seed)
+    u24 = rng24.integers(0, 2, (lay.c_words, k_pay), dtype=np.uint8)
+    bits = transport.place_codewords(
+        lay, ldpc.encode(code384, transport.crc_attach(u24, "crc24b")), 1, 2, fill_rng=rng24)
+    case = synthetic.make_mimo_case(seed=seed, n_rx=1, modulation="qpsk", scramble=False,
+                                    bits=bits, n_prbs=273, n_layers=1, snr_db=15.0)
+    e2e_prob = prob_of(case)
+
+    def run_slots(n, on_device):
+        t0 = time.perf_counter()
+        res = serving.process([e2e_prob] * n, batch_size=8, out="decoded", modulation="qpsk",
+                              coding=e2e_coding, matmul_precision="high",
+                              decode_on_device=on_device, device=dev)
+        dt = time.perf_counter() - t0
+        for r in res:
+            if not (bool(np.all(r.ok)) and np.array_equal(r.info, u24)):
+                fail(f"e2e decoded ({'device' if on_device else 'host'} path, {n} slots): "
+                     f"not payload-exact, ok {np.asarray(r.ok).tolist()}")
+        return dt, res
+
+    e2e_out = {}
+    for on_device in (False, True):
+        for n in (8, 24):
+            reset_counts()
+            _, res = run_slots(n, on_device)
+            torch.cuda.synchronize()
+            cnt = read_counts()
+            n_calls = n // 8 if on_device else 1  # decode calls: one per chunk / one per process
+            if cnt["ldpc_stream_posterior"] < n_calls:
+                fail(f"e2e {n} slots {'device' if on_device else 'host'}: K3 launches "
+                     f"{cnt['ldpc_stream_posterior']} < {n_calls} decode calls")
+            e2e_out[(on_device, n)] = res
+            print(f"phase 24 e2e decoded 273 PRB BG1 Z=384 {'device' if on_device else 'host'} path, "
+                  f"{n} slots x {lay.c_words} words: every CRC24B ok, payload-exact, launches {cnt}")
+    for n in (8, 24):
+        for rh, rd in zip(e2e_out[(False, n)], e2e_out[(True, n)]):
+            if not (np.array_equal(rh.info, rd.info) and np.array_equal(rh.ok, rd.ok)):
+                fail(f"e2e {n} slots: host and device paths differ")
+    print("phase 24 host and device paths identical (info, ok) on 8 and 24 slots")
+
+    # 25. times: K7, the receiver, the e2e row, the idle share of one e2e call
+    x7, known7, it7 = k7_c3
+    times["inpaint_stack"] = ab(lambda: k7.inpaint_stack(x7, known7, it7),
+                                lambda: k7.inpaint_stack_plain(x7, known7, it7), iters=5)
+    B7, C7, n7 = x7.shape
+    n_tr = len(dsp.make_inpaint_schedule(known7, it7)[0])
+    passes = it7 + 2  # transient + steady = the iterations, then the 2-pass low-pass
+    b7 = bound(2 * x7.numel() * 4 + n7 * 4 + n_tr * 2 * n7 * 4, 6 * B7 * C7 * n7 * passes)
+    times["inpaint_stack"] += b7[:2]
+    w_op = dsp.inpaint_operator(known7, it7, torch.float32, dev)  # (n_known, n)
+    xk = x7[..., torch.as_tensor(np.nonzero(known7)[0], device=dev)].reshape(B7 * C7, -1)
+    lib_out = torch.matmul(xk, w_op)
+    _, lib_err = errs(lib_out.reshape(B7, C7, n7), k7.inpaint_stack_plain(x7, known7, it7))
+    library["inpaint_stack"] = time_ms(lambda: torch.matmul(xk, w_op))
+    ms7, plain7, turns7, warm7 = times["inpaint_stack"][:4]
+    print(f"phase 25 K7 c3 (B={B7}, C={C7}, n={n7}, {it7} iterations, {n_tr} transient), cold L2: "
+          f"kernel {ms7:.4f} ms, plain {plain7:.4f} ms (turns {[round(t, 4) for t in turns7]}), "
+          f"warm back-to-back {warm7:.4f} ms; bound {b7[0]:.4f} ms ({b7[1]}; bytes {b7[2]:.4f}, "
+          f"operations {b7[3]:.4f}); library call torch.matmul by the {tuple(w_op.shape)} operator "
+          f"{library['inpaint_stack']:.4f} ms (the known-value gather excluded; rel err vs plain "
+          f"{lib_err:.2e}) {card}")
+    known_c, x_c = k7_inputs(128, 8, 132, 2, seed=212)
+    t_chain = ab(lambda: k7.inpaint_stack(x_c, known_c, 16),
+                 lambda: k7.inpaint_stack_plain(x_c, known_c, 16), iters=10)
+    print(f"phase 25 K7 chain regime (B=128, C=8, n=132, 16 iterations), cold L2: kernel "
+          f"{t_chain[0]:.4f} ms, plain {t_chain[1]:.4f} ms {card}")
+    for key, fn in rx_fns.items():
+        ev, wall = call_ms(fn, (rx_rg, rx_pil, rx_beta))
+        label = "/".join(key) if isinstance(key, tuple) else key
+        print(f"phase 25 receiver c2_receiver_4rx4l {label} B={B_RX}: {ev:.4f} ms/batch on CUDA "
+              f"events, cold L2; {wall:.4f} ms/batch host wall clock back-to-back {card}")
+    for on_device in (False, True):
+        t_lo = min(run_slots(8, on_device)[0] for _ in range(3))
+        t_hi = min(run_slots(24, on_device)[0] for _ in range(3))
+        path = "device" if on_device else "host"
+        print(f"phase 25 e2e decoded {path} path: {(t_hi - t_lo) / 16 * 1e3:.3f} ms/slot (host wall "
+              f"clock, slope 8 -> 24 slots, min of 3: {t_lo * 1e3:.1f} ms / {t_hi * 1e3:.1f} ms) "
+              f"{card}")
+        if on_device:
+            wall8 = t_lo
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_slots(8, True)
+        torch.cuda.synchronize()
+    busy_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                  for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    if busy_us > 0:
+        print(f"phase 25 e2e device path, 8 slots: device busy {busy_us / 1e3:.3f} ms of "
+              f"{wall8 * 1e3:.1f} ms unprofiled wall, idle share "
+              f"{100 * (1 - busy_us / 1e3 / (wall8 * 1e3)):.1f} % (torch.profiler) {card}")
+    else:
+        print("phase 25 e2e idle share: not measured (the profiler saw no device time)")
+
     sources = {"fused_front": ("srsran_ce_tpu_torch/csrc/front.cu",
                                "srsran_ce_tpu/ops/pallas/kernels.py:639"),
                "fused_fill_rotate_serve": ("srsran_ce_tpu_torch/csrc/fill_rotate_serve.cu",
@@ -706,10 +1043,13 @@ def main() -> int:
                "ldpc_posterior": ("srsran_ce_tpu_torch/csrc/ldpc.cu",
                                   "srsran_ce_tpu/ops/pallas/kernels.py:1220"),
                "ldpc_stream_posterior": ("srsran_ce_tpu_torch/csrc/ldpc_stream.cu",
-                                         "srsran_ce_tpu/ops/pallas/kernels.py:1139")}
+                                         "srsran_ce_tpu/ops/pallas/kernels.py:1139"),
+               "inpaint_stack": ("srsran_ce_tpu_torch/csrc/inpaint.cu",
+                                 "srsran_ce_tpu/ops/pallas/kernels.py:852")}
     launches = dict(counts)
     launches.update({k: pallas_counts[k] for k in ("rc_smooth", "fused_fill_rotate")})
     launches.update(ldpc_launches)
+    launches["inpaint_stack"] = k7_launches
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
          "launches": launches[k], "max_abs_err": results[k], "ms": times[k][0],

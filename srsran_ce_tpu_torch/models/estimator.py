@@ -725,6 +725,15 @@ def _estimate_impl(
             _write_block(channel, block if serve else block.permute(0, 3, 2, 1), at)
         elif serve and out_dtype is not None:
             _write_block(channel, _serve_fill_xla_ri(hp, ht, h_p, rot_slice), at)
+        elif serve and kernels == "pallas":
+            # the JAX tier's per-problem K2 fill (estimator.py:1155-1156), every
+            # problem of the batch in one launch; the receiver's route (the
+            # BatchedEstimator takes the deferred fill instead)
+            blk = _k2.fused_fill_rotate_serve(
+                _complex_to_ri(h_p).contiguous(), ht["interp"],
+                _complex_to_ri(rot_slice).contiguous(), layer_slices=hp.layer_slices,
+            )  # (B, 2, nL, n_alloc, n_sc_hop)
+            _write_block(channel, blk, at)
         elif serve:
             full = _grid_fill(hp, ht, config, h_p)  # (B, nL, n_sc_hop)
             _write_block(channel, full[:, :, None, :] * rot_slice[:, None, :, None], at)

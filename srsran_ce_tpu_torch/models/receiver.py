@@ -1,0 +1,286 @@
+"""Joint multi-RX-port MMSE receiver of the port: `srsran_ce_tpu/models/receiver.py`
+in torch.
+
+An uplink receiver runs the estimator once per receive antenna and then jointly
+MMSE-equalizes the data REs across ports (ops/equalize), optionally demapping
+to int8 LLRs in the same call (ops/demap). The JAX module vmaps its
+`_estimate_impl` over the RX axis; here the (B, n_rx) pairs fold into B·n_rx
+problems of the port's batched `_estimate_impl` (one estimator code path) and
+unfold after it. With `kernels="pallas"` that fold reaches K5 (the RC
+smoothing FIR) and, in the dense layout, K2 (the serve fill), as the JAX tier
+does.
+
+Factored fast path (`mode="auto"` with time_interp="none"): each port's grid
+is rank-1 in time per hop, the per-port CFO rotations cancel in the Gram
+matrix, and the MMSE inverse is built once per subcarrier, exactly
+(`equalize.mmse_equalize_factored_serve`).
+
+Measurements (noise, RSRP, EPRE, TA, CFO) are means over the ports.
+
+Shapes (ri layout, a leading re/im axis of 2, as every build_* of the port):
+rg_ri (2, n_rx, n_sc, n_sym); pil_ri (2, n_re, n_dsym, nL), shared by the
+ports; x (2, nL, n_sym, n_sc). Batched adds a leading problem axis B.
+
+Not ported yet: the tracked receiver (ROADMAP.md queue 1, item 9) and learned
+smoothing (item 8); both raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, fields
+from typing import Optional
+
+import torch
+
+from .. import devices
+from ..config import EstimatorConfig, HopConfig
+from ..ops import demap, dsp, equalize
+from ..ops.kernels import full_f32_matmul
+from .estimator import _complex_to_ri, _estimate_impl, _ri_to_complex
+from .plan import make_plan, plan_tensors
+
+
+@dataclass
+class ReceiverResult:
+    """Equalized symbols, SINR and the estimator's five measurements (port
+    means), each with the problem axis leading when batched.
+
+    x: (2, nL, n_sym, n_sc) ri, noise-normalized symbol estimates, zero
+    outside the hop allocations. sinr: post-MMSE SINR (linear), (nL, n_sym,
+    n_sc) dense, (n_hops, nL, n_sc) factored (time-invariant per hop)."""
+
+    x: torch.Tensor
+    sinr: torch.Tensor
+    noise_est: torch.Tensor
+    rsrp: torch.Tensor
+    epre: torch.Tensor
+    time_alignment: torch.Tensor
+    cfo_hz: torch.Tensor
+
+
+@dataclass
+class LlrResult:
+    """Soft-bit receiver output: llr is a TUPLE of nbits int8 planes, each
+    (nL, n_sym, n_sc), in TS 38.211 word order, round(llr * llr_scale)
+    clipped to [-127, 127] (positive = bit 0 likelier; 0 outside the hop
+    allocations). sinr keeps ReceiverResult's shape."""
+
+    llr: tuple
+    sinr: torch.Tensor
+    noise_est: torch.Tensor
+    rsrp: torch.Tensor
+    epre: torch.Tensor
+    time_alignment: torch.Tensor
+    cfo_hz: torch.Tensor
+
+
+def receiver_impl(
+    plan,
+    pt: dict,
+    rg: torch.Tensor,
+    pil: torch.Tensor,
+    beta: torch.Tensor,
+    factored: bool,
+    data_beta: float = 1.0,
+    kernels: str = "xla",
+    modulation: Optional[str] = None,
+    llr_scale: float = 8.0,
+):
+    """Estimate + equalize (+ demap) over a batch: rg (B, n_rx, n_sc, n_sym)
+    complex, pil (B, n_re, n_dsym, nL) complex, beta (B,). `pt` holds the
+    plan's tensors on the inputs' device and dtype. Problem b's ports are the
+    estimator's problems b·n_rx ... b·n_rx + n_rx - 1."""
+    B, n_rx, n_sc, n_sym = rg.shape
+    est = _estimate_impl(
+        plan, pt, rg.reshape(B * n_rx, n_sc, n_sym),
+        pil.repeat_interleave(n_rx, dim=0), beta.repeat_interleave(n_rx, dim=0),
+        kernels, "factored" if factored else "serve",
+    )
+    return _equalize_tail(plan, rg, est, factored, data_beta, modulation, llr_scale)
+
+
+def _equalize_tail(plan, rg, est, factored, data_beta, modulation, llr_scale):
+    """Cross-port MMSE equalization (+ the demap) of the folded estimator
+    output `est` (B·n_rx problems, ri layout). Internally the tiny axes lead:
+    y (n_rx, B, n_sym, n_sc), x (nL, B, n_sym, n_sc)."""
+    B, n_rx, n_sc, n_sym = rg.shape
+    hop_plans = [plan.hop1] + ([plan.hop2] if plan.hop2 is not None else [])
+    nL = plan.n_layers
+    port_mean = lambda t: t.reshape(B, n_rx).mean(dim=1)
+    noise = port_mean(est.noise_est)
+    y = rg.permute(1, 0, 3, 2)
+    if factored:
+        prof = _ri_to_complex(est.profiles).reshape(B, n_rx, len(hop_plans), nL, n_sc)
+        rot = _ri_to_complex(est.sym_rot).reshape(B, n_rx, n_sym).transpose(0, 1)
+        x = rg.new_zeros((nL, B, n_sym, n_sc))
+        sinr_lead = []
+        for h, hp in enumerate(hop_plans):
+            xh, sh = equalize.mmse_equalize_factored_serve(
+                y, prof[:, :, h].permute(1, 2, 0, 3), rot, noise[:, None],
+                hp.sym_start, hp.n_alloc_syms, beta=data_beta,
+            )
+            x[:, :, hp.sym_start : hp.sym_start + hp.n_alloc_syms] = xh
+            sinr_lead.append(sh)  # (nL, B, n_sc)
+        sinr = torch.stack(sinr_lead, dim=1).permute(2, 1, 0, 3)  # (B, n_hops, nL, n_sc)
+    else:
+        ch = _ri_to_complex(est.channel_est_rg).reshape(B, n_rx, nL, n_sym, n_sc)
+        x, sinr_lead = equalize.mmse_equalize_serve(
+            y, ch.permute(1, 2, 0, 3, 4), noise[:, None, None], beta=data_beta
+        )
+        sinr = sinr_lead.transpose(0, 1)  # (B, nL, n_sym, n_sc)
+    meas = dict(
+        noise_est=noise,
+        rsrp=port_mean(est.rsrp),
+        epre=port_mean(est.epre),
+        time_alignment=port_mean(est.time_alignment),
+        cfo_hz=port_mean(est.cfo_hz),
+    )
+    if modulation is None:
+        return ReceiverResult(x=_complex_to_ri(x.transpose(0, 1)), sinr=sinr, **meas)
+    nbits = demap.bits_per_symbol(modulation)
+    # jnp.round and torch.round both round half to even
+    quant = lambda l: torch.clamp(torch.round(l * llr_scale), -127.0, 127.0).to(torch.int8)
+    if factored:
+        # each hop's symbols demapped against its per-subcarrier SINR
+        # (broadcast over the symbols); zeros outside the allocations = erasures
+        planes = [rg.new_zeros((nL, B, n_sym, n_sc), dtype=torch.int8) for _ in range(nbits)]
+        for h, hp in enumerate(hop_plans):
+            syms = slice(hp.sym_start, hp.sym_start + hp.n_alloc_syms)
+            lst = demap._llr_list(x[:, :, syms], sinr_lead[h][:, :, None, :], modulation)
+            for k in range(nbits):
+                planes[k][:, :, syms] = quant(lst[k])
+    else:
+        planes = [quant(l) for l in demap._llr_list(x, sinr_lead, modulation)]
+    llr = tuple(p.transpose(0, 1).contiguous() for p in planes)  # (B, nL, n_sym, n_sc)
+    return LlrResult(llr=llr, sinr=sinr, **meas)
+
+
+class BatchedReceiver:
+    """`fn(rg_ri, pil_ri, beta)` of `build_receiver_ri`. Tensors stay on their
+    device (CUDA tensors run the kernels of the tier, CPU tensors their plain
+    versions); numpy inputs go to the device given to `build_receiver_ri`.
+    The plan's tensors are built once per (device, dtype) and kept here."""
+
+    def __init__(self, plan, n_rx: int, batched: bool, factored: bool, data_beta: float,
+                 kernels: str, modulation: Optional[str], llr_scale: float, device: torch.device):
+        self.plan = plan
+        self.n_rx = n_rx
+        self.batched = batched
+        self.factored = factored
+        self.data_beta = data_beta
+        self.kernels = kernels
+        self.modulation = modulation
+        self.llr_scale = llr_scale
+        self.device = device
+        self._tensors: dict = {}
+
+    def plan_tensors(self, device, dtype) -> dict:
+        key = (torch.device(device), dtype)
+        pt = self._tensors.get(key)
+        if pt is None:
+            pt = self._tensors[key] = plan_tensors(self.plan, key[0], dtype)
+        return pt
+
+    def __call__(self, rg_ri, pil_ri, beta):
+        rg_ri = rg_ri if torch.is_tensor(rg_ri) else torch.as_tensor(rg_ri, device=self.device)
+        dev, dt = rg_ri.device, rg_ri.dtype
+        if dt not in (torch.float32, torch.float64):
+            raise TypeError(f"the receiver takes float32 or float64 ri tensors, not {dt}")
+        if self.kernels != "xla" and dev.type == "cuda" and dt != torch.float32:
+            raise TypeError(f"kernels={self.kernels!r} runs CUDA kernels, which take float32, not {dt}")
+        pil_ri = torch.as_tensor(pil_ri, device=dev, dtype=dt)
+        beta = torch.as_tensor(beta, device=dev, dtype=dt)
+        if not self.batched:
+            rg_ri, pil_ri, beta = rg_ri[None], pil_ri[None], beta.reshape(1)
+        if rg_ri.dim() != 5 or rg_ri.shape[1] != 2 or rg_ri.shape[2] != self.n_rx:
+            raise ValueError(
+                f"rg_ri must be ([B,] 2, n_rx={self.n_rx}, n_sc, n_sym), got {tuple(rg_ri.shape)}"
+            )
+        with full_f32_matmul():
+            res = receiver_impl(
+                self.plan, self.plan_tensors(dev, dt), _ri_to_complex(rg_ri),
+                _ri_to_complex(pil_ri), beta, self.factored, self.data_beta, self.kernels,
+                self.modulation, self.llr_scale,
+            )
+        if not self.batched:
+            res = type(res)(*(
+                tuple(p[0] for p in v) if isinstance(v, tuple) else v[0]
+                for v in (getattr(res, f.name) for f in fields(res))
+            ))
+        return res
+
+
+@functools.lru_cache(maxsize=128)
+def _build_receiver_cached(plan_key, n_rx, batched, mode, data_beta, kernels, modulation,
+                           llr_scale, device):
+    hop1, hop2, config, n_layers = plan_key
+    plan = make_plan(hop1, hop2, config, n_layers)
+    factored = mode == "factored" or (mode == "auto" and config.time_interp == "none")
+    return BatchedReceiver(plan, n_rx, batched, factored, data_beta, kernels, modulation,
+                           llr_scale, device)
+
+
+def build_receiver_ri(
+    hop1: HopConfig,
+    hop2: Optional[HopConfig],
+    config: EstimatorConfig,
+    n_layers: int,
+    n_rx: int,
+    batched: bool = False,
+    mode: str = "auto",
+    data_beta: float = 1.0,
+    kernels: str = "xla",
+    modulation: Optional[str] = None,
+    llr_scale: float = 8.0,
+    device="cuda",
+) -> BatchedReceiver:
+    """`fn(rg_ri, pil_ri, beta) -> ReceiverResult | LlrResult` in ri layout, the
+    signature of `srsran_ce_tpu.models.receiver.build_receiver_ri` (cached per
+    arguments).
+
+    rg_ri (2, n_rx, n_sc, n_sym), one received grid per RX port; pil_ri
+    (2, n_re, n_dsym, n_layers), shared; beta the pilot amplitude scale. With
+    batched=True each gains a leading problem axis. Numpy inputs go to
+    `device` (the card by default; the build raises when there is none);
+    tensors stay on their own device.
+
+    mode: "dense" equalizes the full per-RE grid; "factored" (time_interp
+    "none" only) builds the filter once per subcarrier; "auto" picks factored
+    exactly when time_interp="none". kernels: "xla" (plain torch) or "pallas"
+    (K5 smoothing and, dense, the K2 fill). `data_beta` scales the data REs
+    (the DM-RS boost `beta` scales only the pilots). `modulation` (one of
+    ops/demap.MODULATIONS) adds the exact max-log demapper: an LlrResult with
+    int8 LLRs quantized by `llr_scale`."""
+    device = devices.resolve(device)
+    if hop2 is not None and hop2.is_empty:
+        hop2 = None
+    if mode not in ("auto", "dense", "factored"):
+        raise ValueError(f"mode={mode!r}: one of 'auto', 'dense', 'factored'")
+    if kernels not in ("xla", "pallas"):
+        raise ValueError(f"kernels={kernels!r}: one of 'xla', 'pallas'")
+    if n_rx < 1:
+        raise ValueError(f"n_rx must be >= 1: {n_rx}")
+    if mode == "factored" and config.time_interp != "none":
+        raise ValueError("mode='factored' requires time_interp='none'")
+    if config.smoothing in ("learned", "learned2d"):
+        raise NotImplementedError(
+            f"smoothing={config.smoothing!r} needs the denoisers (ROADMAP.md queue 1, item 8)"
+        )
+    dsp.precision_of(config.matmul_precision)  # "high"/"highest" -> full f32; "default" raises
+    if modulation is not None:
+        demap.bits_per_symbol(modulation)  # validate early
+    return _build_receiver_cached(
+        (hop1, hop2, config, n_layers), int(n_rx), batched, mode, float(data_beta), kernels,
+        modulation, float(llr_scale), device,
+    )
+
+
+def tracked_receiver_impl(*args, **kwargs):
+    """The multi-slot tracked receiver (`srsran_ce_tpu.models.receiver`), not
+    ported yet."""
+    raise NotImplementedError("the tracked receiver is ROADMAP.md queue 1, item 9")
+
+
+def build_tracked_receiver_ri(*args, **kwargs):
+    """`build_tracked_receiver_ri` of the JAX package, not ported yet."""
+    raise NotImplementedError("the tracked receiver is ROADMAP.md queue 1, item 9")

@@ -8,9 +8,8 @@ oracle (`srsran_ce_tpu_torch.utils.oracle`) run on these cases is the golden out
 port's estimator must match within tight NMSE bounds.
 
 A numpy copy of `srsran_ce_tpu/utils/synthetic.py` (the port cannot import the JAX
-package): `make_case` draws bit-identical cases for every pilot source.
-`make_mimo_case` needs `ops/demap.py` and `transport.py`, which are not ported
-yet, and raises NotImplementedError.
+package): `make_case` and `make_mimo_case` draw bit-identical cases (held so by
+tests/test_torch_plan.py and tests/test_torch_receiver.py).
 
 Case geometry mirrors the shapes exercised by the reference harness
 (scripts/validation/validate_all.py:366-571): SCS 15/30 kHz, 1-4 layers, comb-2 /
@@ -309,12 +308,135 @@ def symbol_cfo_rotation(config: EstimatorConfig, cfo_hz: float, n_sym: int) -> n
     return np.exp(1j * 2.0 * np.pi * np.cumsum(vec) * (cfo_hz / config.scs_hz))[:n_sym]
 
 
-def make_mimo_case(*args, **kwargs):
-    """MIMO link case (`srsran_ce_tpu.utils.synthetic.make_mimo_case`): needs the
-    receiver chain's modulation and scrambling, which the port does not carry
-    yet."""
-    raise NotImplementedError(
-        "make_mimo_case needs ops/demap.py and transport.py (ROADMAP.md queue 1, items 6-7)"
+@dataclass
+class MimoLinkCase:
+    """One end-to-end MIMO uplink problem: known transmitted bits through
+    independent per-RX-port channels, for link-level evaluation of the whole
+    receiver chain (estimate -> MMSE equalize -> soft demap -> descramble)."""
+
+    received_rg: np.ndarray  # (n_rx, n_sc, n_sym) complex128
+    pilots: np.ndarray  # (n_re, n_dsym_total, n_layers) complex128 (shared by ports)
+    beta: float
+    hop1: HopConfig
+    hop2: Optional[HopConfig]
+    config: EstimatorConfig
+    true_channels: np.ndarray  # (n_rx, n_sc, n_sym, n_layers) complex128
+    bits: np.ndarray  # (n_sc, n_sym, n_layers, nbits) uint8 — PRE-scrambling payload bits
+    scramble_c: Optional[np.ndarray]  # same shape — Gold scrambling bits (None if unscrambled)
+    payload: np.ndarray  # (n_sc, n_sym, n_layers) complex128 — transmitted data symbols
+    data_mask: np.ndarray  # (n_sc, n_sym) bool — payload REs the link is scored on
+    modulation: str
+    snr_db: float
+    cfo_hz: float
+    noise_var: float  # true per-complex-RE noise variance (the perfect-CSI bound's N0)
+
+
+def make_mimo_case(
+    seed: int = 0,
+    n_rx: int = 2,
+    modulation: str = "16qam",
+    scramble: bool = True,
+    rnti: int = 0x4601,
+    snr_db: float = 30.0,
+    cfo_hz: float = 200.0,
+    bits: Optional[np.ndarray] = None,
+    **case_kwargs,
+) -> MimoLinkCase:
+    """Build a full MIMO link: bits -> (scramble) -> Gray-QAM payload + DM-RS
+    pilots -> n_rx independent TDL channels (+ shared CFO, AWGN).
+
+    Geometry kwargs go to `make_case` (n_prbs, n_layers, two_hops, ...). RX
+    port r draws its channel from `make_case(seed + 7919 r)`; pilots, config
+    and hops come from port 0's case. The payload bits are drawn from
+    `seed ^ 0x5EED` unless `bits` (n_sc, n_sym, nL, nbits) injects them.
+    Scrambling: one Gold stream per layer, c_init =
+    pusch_scrambling_c_init(rnti, seed % 1024) (`transport.scramble_planes`);
+    `scramble_c` comes back aligned with `bits`. Port r's AWGN is drawn from
+    `(nseed + 1) * 1_000_003 + r`, nseed = case_kwargs' noise_seed or `seed`.
+
+    data_mask marks the scored payload REs: each hop's PRB band over its
+    allocated symbols, minus that hop's DM-RS symbols entirely."""
+    from .. import transport
+    from ..ops import demap, sequences
+
+    case_kwargs.setdefault("cfo_hz", cfo_hz)
+    case_kwargs.setdefault("snr_db", snr_db)
+    cases = [make_case(seed=seed + 7919 * r, **case_kwargs) for r in range(n_rx)]
+    case = cases[0]
+    pil = case.pilots
+    nL = pil.shape[2]
+    n_sc, n_sym = case.received_rg.shape
+    hops = [case.hop1] + ([case.hop2] if case.hop2 is not None else [])
+    nbits = demap.bits_per_symbol(modulation)
+
+    if bits is None:
+        rng = np.random.default_rng(seed ^ 0x5EED)
+        bits = rng.integers(0, 2, (n_sc, n_sym, nL, nbits), dtype=np.uint8)
+    else:
+        bits = np.asarray(bits, np.uint8)
+        if bits.shape != (n_sc, n_sym, nL, nbits):
+            raise ValueError(f"bits {bits.shape}, expected {(n_sc, n_sym, nL, nbits)}")
+    if scramble:
+        c_init = sequences.pusch_scrambling_c_init(rnti, seed % 1024, q=0)
+        scramble_c = transport.scramble_planes(c_init, n_sc, n_sym, nL, nbits)
+        tx_bits = bits ^ scramble_c
+    else:
+        scramble_c = None
+        tx_bits = bits
+    payload = demap.modulate(tx_bits, modulation)[..., 0]  # (n_sc, n_sym, nL)
+
+    cfo_rot = symbol_cfo_rotation(case.config, case_kwargs["cfo_hz"], n_sym)
+    noise_std = 10.0 ** (-case_kwargs["snr_db"] / 20.0)
+    n_cdm = math.ceil(nL / 2)
+    data_mask = np.zeros((n_sc, n_sym), dtype=bool)
+    rgs = []
+    for r, c in enumerate(cases):
+        H = c.true_channel  # (n_sc, n_sym, nL)
+        rx = np.einsum("ksl,ksl->ks", H, payload)
+        dsym_off = 0
+        for hop in hops:
+            dmrs_syms = np.nonzero(hop.dmrs_symbol_mask_np)[0]
+            for cdm in range(n_cdm):
+                re_full = np.kron(hop.prb_mask_np, hop.dmrs_re_mask_np[:, cdm])
+                re_idx = np.nonzero(re_full)[0]
+                l0, l1 = cdm * 2, min(nL, (cdm + 1) * 2)
+                for j, s in enumerate(dmrs_syms):
+                    tx = np.zeros(re_idx.size, np.complex128)
+                    for l in range(l0, l1):
+                        tx += case.beta * pil[:, dsym_off + j, l] * H[re_idx, s, l]
+                    rx[re_idx, s] = tx
+            dsym_off += dmrs_syms.size
+            if r == 0:
+                band = np.kron(hop.prb_mask_np, np.ones(NRE, dtype=bool))
+                alloc = np.zeros(n_sym, dtype=bool)
+                alloc[hop.start_symbol : hop.start_symbol + hop.n_allocated_symbols] = True
+                alloc[dmrs_syms] = False
+                data_mask |= band[:, None] & alloc[None, :]
+        rx *= cfo_rot[None, :]
+        _ns = case_kwargs.get("noise_seed")
+        nseed = seed if _ns is None else _ns
+        nrng = np.random.default_rng((nseed + 1) * 1_000_003 + r)
+        rx += noise_std * (
+            nrng.standard_normal(rx.shape) + 1j * nrng.standard_normal(rx.shape)
+        ) / np.sqrt(2.0)
+        rgs.append(rx)
+
+    return MimoLinkCase(
+        received_rg=np.stack(rgs),
+        pilots=pil,
+        beta=case.beta,
+        hop1=case.hop1,
+        hop2=case.hop2,
+        config=case.config,
+        true_channels=np.stack([c.true_channel for c in cases]),
+        bits=bits,
+        scramble_c=scramble_c,
+        payload=payload,
+        data_mask=data_mask,
+        modulation=modulation,
+        snr_db=float(case_kwargs["snr_db"]),
+        cfo_hz=float(case_kwargs["cfo_hz"]),
+        noise_var=float(noise_std**2),
     )
 
 

@@ -359,3 +359,104 @@ def test_ldpc_wrappers_reject_what_the_kernels_do_not_take():
     dec = tl.build_decoder(code, n_iters=2, kernels="pallas", device="cuda")
     with pytest.raises(TypeError, match="float32"):
         dec(ch.double())
+
+
+# ---------------------------------------------------------------------------
+# K7 (inpaint_stack): the kernel keeps the plain version's order of
+# operations (products by 1/4 and 1/2 are exact), bar relative 1e-5; the
+# receiver on the card against the float64 CPU run of the same port (x NMSE
+# 1e-9, SINR relative 1e-4 over max |SINR|); decoded serving host vs device.
+# ---------------------------------------------------------------------------
+
+from srsran_ce_tpu_torch import serving, transport  # noqa: E402
+from srsran_ce_tpu_torch.models import receiver as rcv  # noqa: E402
+from srsran_ce_tpu_torch.ops.kernels import inpaint as k7  # noqa: E402
+
+K7_SHAPES = [  # name, B, C, n, comb, n_iters
+    ("jax_48_comb2", 2, 4, 48, 2, 6), ("jax_96_comb4", 2, 4, 96, 4, 12),
+    ("chain_11prb_nL4", 128, 8, 132, 2, 16), ("c3_273prb_nL1", 16, 2, 3276, 2, 409),
+]
+
+
+def k7_inputs(B, C, n, comb, seed=0):
+    known = np.zeros(n, dtype=bool)
+    known[::comb] = True
+    x = np.where(known, np.random.default_rng(seed).standard_normal((B, C, n)), 0.0)
+    return known, torch.as_tensor(x, dtype=torch.float32, device="cuda")
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("name,B,C,n,comb,n_iters", K7_SHAPES, ids=[s[0] for s in K7_SHAPES])
+def test_inpaint_stack_kernel_matches_plain(name, B, C, n, comb, n_iters):
+    known, x = k7_inputs(B, C, n, comb)
+    n0 = k7.launches
+    got = k7.inpaint_stack(x, known, n_iters)
+    assert k7.launches == n0 + 1
+    want = k7.inpaint_stack_plain(x, known, n_iters)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and rel(got, want) <= 1e-5
+    assert torch.equal(got[..., ::comb], x[..., ::comb])  # known positions pinned
+
+
+@NEEDS_GPU
+def test_inpaint_stack_rejects_what_the_kernel_does_not_take():
+    known, x = k7_inputs(2, 4, 48, 2)
+    with pytest.raises(TypeError, match="float32"):
+        k7.inpaint_stack(x.double(), known, 6)
+    with pytest.raises(ValueError, match="contiguous"):
+        k7.inpaint_stack(x.transpose(0, 1), known, 6)
+    with pytest.raises(ValueError, match="known_mask"):
+        k7.inpaint_stack(x, known[:-1], 6)
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("kernels", ["xla", "pallas"])
+@pytest.mark.parametrize("mode", ["auto", "dense"])
+def test_receiver_on_card_matches_cpu_f64(mode, kernels):
+    cases = [synthetic.make_mimo_case(seed=s, n_rx=4, modulation="qpsk", n_prbs=12, n_layers=2)
+             for s in (3, 4)]
+    c = cases[0]
+    rg = np.stack([est.split_ri(k.received_rg) for k in cases])
+    pil = np.stack([est.split_ri(k.pilots) for k in cases])
+    beta = np.ones(2)
+    fn = rcv.build_receiver_ri(c.hop1, c.hop2, c.config, 2, 4, batched=True, mode=mode,
+                               kernels=kernels)
+    want = fn(torch.as_tensor(rg), torch.as_tensor(pil), torch.as_tensor(beta))  # CPU, float64
+    n2, n5 = k2.launches, k5.launches
+    t32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    got = fn(t32(rg), t32(pil), t32(beta))
+    torch.cuda.synchronize()
+    assert (k5.launches - n5 >= 1) == (kernels == "pallas")
+    assert (k2.launches - n2 >= 1) == (kernels == "pallas" and mode == "dense")
+    x, xw = got.x.double().cpu(), want.x
+    assert float(((x - xw) ** 2).sum() / (xw**2).sum()) <= 1e-9
+    assert rel(got.sinr, want.sinr) <= 1e-4
+
+
+@NEEDS_GPU
+def test_decoded_serving_host_and_device_on_card():
+    code = tl.array_code(8, 16, 61)
+    plan = tl.make_ldpc_plan(code)
+    coding = transport.TransportCoding(code=code, n_iters=30, interleave_seed=77, crc="crc16",
+                                       early_iters=None)
+    probe = synthetic.make_mimo_case(seed=5100, n_rx=2, modulation="16qam", scramble=False,
+                                     n_prbs=12, n_layers=2, snr_db=20.0)
+    n_sc, n_sym = probe.data_mask.shape
+    lay = transport.layout(coding, probe.hop1, probe.hop2, n_sc, n_sym, 2, 4)
+    rng = np.random.default_rng(1)
+    u = rng.integers(0, 2, (lay.c_words, transport.payload_bits(coding, plan.k)), dtype=np.uint8)
+    bits = transport.place_codewords(lay, tl.encode(code, transport.crc_attach(u, "crc16")), 2, 4,
+                                     fill_rng=rng)
+    case = synthetic.make_mimo_case(seed=5100, n_rx=2, modulation="16qam", scramble=False,
+                                    n_prbs=12, n_layers=2, snr_db=20.0, bits=bits)
+    prob = serving.Problem(case.received_rg.astype(np.complex64), case.pilots.astype(np.complex64),
+                           case.beta, case.hop1, case.hop2, case.config)
+    kw = dict(batch_size=2, out="decoded", modulation="16qam", coding=coding)
+    out = {}
+    for on_device in (False, True):
+        n4 = k4.launches
+        out[on_device] = serving.process([prob] * 3, decode_on_device=on_device, **kw)
+        assert k4.launches - n4 == (2 if on_device else 1)  # one decode per chunk / per call
+    for rh, rd in zip(out[False], out[True]):
+        assert rd.soft is None and np.array_equal(rh.info, rd.info) and np.array_equal(rh.ok, rd.ok)
+        assert np.array_equal(rd.info, u) and bool(np.all(rd.ok))

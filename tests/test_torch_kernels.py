@@ -2,8 +2,8 @@
 
 On the CPU each wrapper runs its plain PyTorch version (CPU tensors never reach
 a CUDA kernel), so these tests hold `fused_front_plain`,
-`fused_fill_rotate_serve_plain`, `rc_smooth_plain` and
-`fused_fill_rotate_plain` against `srsran_ce_tpu.ops.pallas.kernels` run in
+`fused_fill_rotate_serve_plain`, `rc_smooth_plain`, `fused_fill_rotate_plain`
+and `inpaint_stack_plain` against `srsran_ce_tpu.ops.pallas.kernels` run in
 interpret mode, as the JAX package's own tests run it. Inputs come from
 numpy seeds and feed both sides.
 
@@ -37,6 +37,7 @@ from srsran_ce_tpu_torch.ops.kernels import _build
 from srsran_ce_tpu_torch.ops.kernels import fill_rotate as k6
 from srsran_ce_tpu_torch.ops.kernels import fill_rotate_serve as k2
 from srsran_ce_tpu_torch.ops.kernels import front as k1
+from srsran_ce_tpu_torch.ops.kernels import inpaint as k7
 from srsran_ce_tpu_torch.ops.kernels import rc_smooth as k5
 from srsran_ce_tpu_torch.utils import synthetic
 
@@ -303,3 +304,38 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
     assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.parametrize("n,comb", [(48, 2), (96, 4)])
+def test_inpaint_stack_plain_matches_jax(n, comb):
+    """K7's plain version against the JAX `inpaint_stack` in interpret mode,
+    float64, at the JAX test's shapes (tests/test_pallas_kernels.py:49-66)."""
+    rng = np.random.default_rng(n)
+    known = np.zeros(n, dtype=bool)
+    known[::comb] = True
+    n_iters = max(6, n // 8)
+    vals = rng.standard_normal((2, 4, n))
+    x_ri = np.where(known, vals, 0.0)
+    want = np.asarray(jk.inpaint_stack(jnp.asarray(x_ri), known, n_iters))
+    n0 = k7.launches
+    got = k7.inpaint_stack(torch.as_tensor(x_ri), known, n_iters)
+    assert k7.launches == n0  # the plain version on a CPU tensor
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+    schedule = jdsp.make_inpaint_schedule(known, n_iters)
+    got_s = k7.inpaint_stack_plain(torch.as_tensor(x_ri), known, n_iters, schedule=schedule)
+    assert torch.equal(got_s, got)
+
+
+def test_inpaint_stack_plain_all_known_pins_every_value():
+    """Every position known: the JAX kernel pins the whole row, and so does the
+    plain version (dsp.cnn_inpaint would low-pass it instead)."""
+    x = np.random.default_rng(2).standard_normal((1, 2, 12))
+    known = np.ones(12, bool)
+    want = np.asarray(jk.inpaint_stack(jnp.asarray(x), known, 6))
+    np.testing.assert_array_equal(want, x)
+    assert torch.equal(k7.inpaint_stack(torch.as_tensor(x), known, 6), torch.as_tensor(x))
+
+
+def test_inpaint_stack_rejects_other_devices():
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        k7.inpaint_stack(torch.empty((2, 4, 30), device="meta"), np.ones(30, bool), 6)

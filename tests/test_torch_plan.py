@@ -132,11 +132,11 @@ def test_sequences_identical():
 
 
 def test_unported_pilot_sources_raise():
-    """Every pilot source of make_case is ported; the MIMO link case (which
-    needs ops/demap and transport) still raises."""
+    """Every pilot source of make_case is ported, and so is the MIMO link case
+    (ops/demap and transport are in the port): make_mimo_case draws the JAX
+    package's case bit for bit instead of raising."""
     tsyn.make_case(seed=1, n_prbs=4, pilot_source="dmrs")
-    with pytest.raises(NotImplementedError, match="demap"):
-        tsyn.make_mimo_case(seed=1)
+    assert_same(tsyn.make_mimo_case(seed=1, n_prbs=4), jsyn.make_mimo_case(seed=1, n_prbs=4))
 
 
 def test_vector_suite_and_parse_identical(tmp_path):
@@ -175,6 +175,8 @@ def test_port_imports_no_jax():
         "import srsran_ce_tpu_torch.ops.ldpc, srsran_ce_tpu_torch.ops.nr_ldpc\n"
         "import srsran_ce_tpu_torch.transport, srsran_ce_tpu_torch.devices\n"
         "import srsran_ce_tpu_torch.ops.kernels.ldpc, srsran_ce_tpu_torch.ops.kernels.ldpc_stream\n"
+        "import srsran_ce_tpu_torch.ops.equalize, srsran_ce_tpu_torch.ops.demap\n"
+        "import srsran_ce_tpu_torch.models.receiver, srsran_ce_tpu_torch.ops.kernels.inpaint\n"
         "from srsran_ce_tpu_torch.validation import cli\n"
         "assert cli.main(['selftest', '--device', 'cpu']) == 0\n"
         "from srsran_ce_tpu_torch.ops import ldpc, nr_ldpc\n"
@@ -182,6 +184,20 @@ def test_port_imports_no_jax():
         "res = ldpc.build_decoder(code, n_iters=2, kernels='auto', schedule='layered',\n"
         "                         device='cpu')(8.0 - 16.0 * ldpc.encode(code, [[1] * 160]))\n"
         "assert bool(res.ok.all()) and res.info.sum() == 160\n"
+        "import numpy as np\n"
+        "from srsran_ce_tpu_torch import serving, transport\n"
+        "from srsran_ce_tpu_torch.utils import synthetic\n"
+        "code = ldpc.array_code(3, 8, 13)\n"
+        "coding = transport.TransportCoding(code=code, n_iters=8, early_iters=None)\n"
+        "case = synthetic.make_mimo_case(seed=3, n_rx=1, modulation='qpsk', scramble=False,\n"
+        "                                n_prbs=4, snr_db=30.0)\n"
+        "prob = serving.Problem(case.received_rg.astype(np.complex64),\n"
+        "                       case.pilots.astype(np.complex64), case.beta, case.hop1, case.hop2,\n"
+        "                       case.config)\n"
+        "for dev_decode in (False, True):\n"
+        "    r = serving.process([prob], out='decoded', modulation='qpsk', coding=coding,\n"
+        "                        decode_on_device=dev_decode, device='cpu')[0]\n"
+        "    assert r.info.shape == (r.ok.shape[0], ldpc.make_ldpc_plan(code).k)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'srsran_ce_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
