@@ -6,6 +6,7 @@
 Phases, one line each or more, any failure ends the run with a non-zero exit code:
   1. device: the card's name and `nvidia-smi` name / power limit;
   2. build: nvcc builds every kernel from srsran_ce_tpu_torch/csrc/, all at once;
+     ptxas must report no spills for any K5 or K7 instantiation;
   3. K1 (fused front) against its plain PyTorch version at c2 shapes, B=128;
   4. K2 (serve fill) against its plain version, equal and unequal CDM groups;
   5. `build_ri(..., batched=True, out_layout="serve", kernels="pallas_front")`
@@ -48,14 +49,20 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      rate 1/2 onto a 273-PRB single-hop QPSK grid, Gaussian LLRs at 3.5 dB,
      extract_streams, the auto decoder (K3, bfloat16 messages), every CRC ok;
  20. times with CUDA events: K3 and K4 against their plain versions at the
-     rows above, K5's one-call PyTorch counterpart (F.conv1d), and every
-     kernel's bound (the larger of its bytes over 3.35 TB/s and its float32
-     operations over 67 TFLOP/s);
+     rows above, K5's one-call PyTorch counterpart (F.conv1d), K5 and
+     F.conv1d three ways (cold-L2 events, device-only kernel time from the
+     profiler, host us per call), K2's and K6's one-call yardstick (one
+     torch.einsum over the ri operands, held to the plain version at
+     relative 1e-5), and every kernel's bound (the larger of its bytes over
+     3.35 TB/s and its float32 operations over 67 TFLOP/s);
  21. K7 (inpaint_stack) against its plain version at the JAX test's shapes
      (n, comb) = (48, 2) and (96, 4), the estimator's chain regime (11 PRB,
-     nL=4, B=128) and c3 width (n=3276, 409 iterations, B=16), relative
-     error <= 1e-5; then its own entry once at c3 with the count set to 0
-     (no estimator path reaches K7, in the JAX package neither);
+     nL=4, B=128), c3 width (n=3276, 409 iterations, B=16; and at row
+     counts that run it one block a row and over clusters of 2 blocks), every
+     route boundary of its route table, n = 3, an odd n and an all-known row:
+     bit-identical (torch.equal); then its own entry once at c3 with the
+     count set to 0 (no estimator path reaches K7, in the JAX package
+     neither);
  22. the receiver `build_receiver_ri` at the bench's c2_receiver_4rx4l width
      (106 PRB, 4 RX x 4 layers, batch 128, make_mimo_case inputs), modes
      auto (factored) and dense, kernels "xla" and "pallas" with K5/K2 launch
@@ -72,18 +79,25 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      decode_on_device=True, 8 and 24 slots: every word ok and payload-exact,
      both paths identical, K3 launched in every decode call;
  25. times: K7 (kernel, plain, bound, and its one-call counterpart, the
-     operator matmul), the receiver's ms per batch (CUDA events, both modes,
-     both tiers), the e2e ms per slot (host wall clock over the 8 -> 24 slot
-     slope, both paths), and the device idle share of one e2e call
-     (torch.profiler).
+     operator matmul; K7 and the matmul at c3 and in the chain regime three
+     ways, as in phase 20), the receiver's ms per batch (CUDA events, both
+     modes, both tiers), the e2e ms per slot (host wall clock over the 8 ->
+     24 slot slope, both paths), the CRC's share of one device-path call
+     (cProfile, the bit-serial form and the port's GF(2) product) and the
+     functions with the most own time, K7's ns per pass at c3 width one
+     block a row and over clusters of 2 and 4 blocks, and the device idle
+     share of one e2e call (torch.profiler).
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import cProfile
 import dataclasses
 import json
+import pstats
+import re
 import subprocess
 import sys
 import tempfile
@@ -110,6 +124,28 @@ def errs(a, b):
     return d, d / max(float(b.double().abs().max()), 1e-30)
 
 
+def _crc_bits_serial(bits, kind):
+    """The CRC as a bit-serial register over the message, as the port computed
+    it before the GF(2) product (and as the JAX package does): phase 25's
+    "before" of the CRC's share of a device-path call."""
+    from srsran_ce_tpu_torch.transport import _CRC_POLYS
+
+    deg, poly = _CRC_POLYS[kind]
+    b = np.asarray(bits, np.uint8)
+    lead = b.shape[:-1]
+    b = b.reshape(-1, b.shape[-1])
+    reg = np.zeros(b.shape[0], np.uint64)
+    gen, top = np.uint64(poly), np.uint64(1) << np.uint64(deg - 1)
+    mask = (np.uint64(1) << np.uint64(deg)) - np.uint64(1)
+    for j in range(b.shape[1]):
+        fb = ((reg & top) != 0).astype(np.uint64) ^ b[:, j].astype(np.uint64)
+        reg = ((reg << np.uint64(1)) & mask) ^ (fb * gen)
+    out = np.empty(b.shape[:1] + (deg,), np.uint8)
+    for i in range(deg):
+        out[:, i] = ((reg >> np.uint64(deg - 1 - i)) & np.uint64(1)).astype(np.uint8)
+    return out.reshape(lead + (deg,))
+
+
 def check_rtol(name, got, want, rtol, atol=0.0):
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
@@ -121,6 +157,8 @@ def check_rtol(name, got, want, rtol, atol=0.0):
 
 def main() -> int:
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -177,6 +215,14 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}")
+    for src in ("rc_smooth", "inpaint"):  # the redesigned kernels: every instantiation in registers
+        spills = [ln.strip() for ln in _build.build_logs.get(src, "").splitlines()
+                  if any(int(b) for b in re.findall(r"(\d+) bytes spill", ln))]
+        if spills:
+            fail(f"ptxas spills in {src}: {spills}")
+        if src not in _build.build_logs:
+            print(f"phase 2 ptxas: {src} was built before this run; its spills not checked")
+    print("phase 2 ptxas: no spills in any rc_smooth (K5) or inpaint (K7) instantiation")
 
     # cases: four seeds, tiled to the batch
     def tiled(kw, batch):
@@ -368,6 +414,41 @@ def main() -> int:
             end.record()
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in evs) / iters
+
+    def device_ms(fn, n=50):
+        """Device-only ms of one call: the profiler's CUDA kernel time over n
+        calls, over n (no host time, whatever the L2 holds)."""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                 for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        if not us > 0:
+            fail("the profiler saw no device time")
+        return us / n / 1e3
+
+    def host_us(fn, n=1000):
+        """Host us per call: perf_counter over n calls without a synchronise
+        (the synchronise after them is not timed)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / n * 1e6
+
+    def three(fn, iters=20):
+        """(cold-L2 event ms, device-only ms, host us per call) of one call."""
+        return time_ms(fn, iters), device_ms(fn), host_us(fn)
+
+    def print_three(phase, label, t):
+        print(f"phase {phase} {label}: cold-L2 events {t[0]:.4f} ms, device-only {t[1]:.4f} ms, "
+              f"host {t[2]:.2f} us/call {card}")
 
     def ab(kernel, plain, iters=20):
         p1, k1_, k2_, p2 = (time_ms(plain, iters), time_ms(kernel, iters), time_ms(kernel, iters),
@@ -717,8 +798,36 @@ def main() -> int:
     _, lib_err = errs(lib_out, k5.rc_smooth_plain(x5, taps))
     if not lib_err <= 1e-5:
         fail(f"F.conv1d vs K5's plain version: relative error {lib_err:.3e}")
+    # K5 and F.conv1d side by side: cold-L2 events (host time shows through
+    # when the host takes longer than the flush), device-only, host per call
+    t_conv = three(conv)
+    print_three(20, "K5 rc_smooth c2 rows (128, 8, 650) K=15", three(lambda: k5.rc_smooth(x5, taps)))
+    print_three(20, "F.conv1d same rows and taps", t_conv)
     library = {k: None for k in times}
-    library["rc_smooth"] = time_ms(conv)
+    library["rc_smooth"] = t_conv[0]
+
+    # K2's and K6's one-call yardstick: one einsum over the ri operands, the
+    # complex product as a fixed (2, 2, 2) tensor (out c from h a and rot d),
+    # the CDM groups equal at c2 so W stacks per group
+    cprod = torch.zeros((2, 2, 2), dtype=torch.float32, device=dev)
+    cprod[0, 0, 0], cprod[0, 1, 1], cprod[1, 0, 1], cprod[1, 1, 0] = 1.0, -1.0, 1.0, 1.0
+    for k, mod, plain, args, spec in (
+            ("fused_fill_rotate_serve", k2, k2.fused_fill_rotate_serve_plain, k2_args,
+             "cad,baglp,gpt,bdy->bcglyt"),
+            ("fused_fill_rotate", k6, k6.fused_fill_rotate_plain, (h6, w6, r6),
+             "cad,baglp,gpt,bdy->bctygl")):
+        h_, w_, r_ = args
+        G = w_.shape[0]
+        h_g = h_.reshape(h_.shape[0], 2, G, h_.shape[2] // G, h_.shape[3])
+        ein = lambda: torch.einsum(spec, cprod, h_g, w_, r_)
+        want = plain(h_, w_, r_, hp.layer_slices)
+        got = ein().reshape(want.shape)
+        _, e_err = errs(got, want)
+        if not e_err <= 1e-5:
+            fail(f"einsum vs {k}'s plain version: relative error {e_err:.3e} > 1e-5")
+        library[k] = time_ms(ein)
+        print(f"phase 20 {k} one-call yardstick torch.einsum('{spec}') c2 B=128: rel err vs plain "
+              f"{e_err:.2e}, cold-L2 events {library[k]:.4f} ms, kernel {times[k][0]:.4f} ms {card}")
     for k in ("fused_front", "fused_fill_rotate_serve", "rc_smooth", "fused_fill_rotate"):
         ms, plain_ms, _, _, b_ms, b_by = times[k]
         print(f"phase 20 {k} c2 B=128: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; bytes "
@@ -732,6 +841,7 @@ def main() -> int:
         x = np.where(known, np.random.default_rng(seed).standard_normal((B, C, n)), 0.0)
         return known, torch.as_tensor(x, dtype=torch.float32, device=dev)
 
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     k7_shapes = (  # label, B, C = 2 nL, n, comb, iterations (max(6, n // 8), plan.py:323)
         ("JAX test (48, comb 2)", 2, 4, 48, 2, 6),
         ("JAX test (96, comb 4)", 2, 4, 96, 4, 12),
@@ -745,13 +855,44 @@ def main() -> int:
         want = k7.inpaint_stack_plain(x, known, iters)
         torch.cuda.synchronize()
         abs_err, err = errs(got, want)
-        if not (err <= 1e-5 and bool(torch.isfinite(got).all())):
-            fail(f"K7 {label}: relative error {err:.3e} > 1e-5 or not finite")
+        if not (torch.equal(got, want) and bool(torch.isfinite(got).all())):
+            fail(f"K7 {label}: not bit-identical to plain (max abs err {abs_err:.3e}) or not finite")
         k7_err = max(k7_err, abs_err)
-        print(f"phase 21 K7 vs plain ({label}, x {tuple(x.shape)}, {iters} iterations): max abs "
-              f"err {abs_err:.3e}, rel err {err:.3e} (<= 1e-5)")
-    results["inpaint_stack"] = k7_err
+        print(f"phase 21 K7 vs plain ({label}, x {tuple(x.shape)}, {iters} iterations, route "
+              f"{k7.ROUTES[k7.route_for(n)]}, {k7.cluster_for(k7.route_for(n), B * C, n, n_sms)} "
+              "block(s) a row): bit-identical (torch.equal)")
     k7_c3 = (x, known, iters)
+    # c3 rows at the other cluster sizes: more rows than SMs (one block a
+    # row) and a third of the SMs' worth (clusters of 2)
+    for rows in (n_sms + 8, n_sms // 3 // 2 * 2):
+        known, x = k7_inputs(rows // 2, 2, 3276, 2, seed=rows)
+        got = k7.inpaint_stack(x, known, 409)
+        want = k7.inpaint_stack_plain(x, known, 409)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"K7 c3 width, {rows} rows: max abs err {float((got - want).abs().max()):.3e} vs plain")
+        print(f"phase 21 K7 vs plain (c3 width, {rows} rows, "
+              f"{k7.cluster_for(k7.route_for(3276), rows, 3276, n_sms)} block(s) a row): bit-identical "
+              "(torch.equal)")
+    # every route boundary (the last n a route holds and the first it hands
+    # on), n = 3, an odd n, and a row with every position known
+    edge_ns = sorted({c + d for r in range(len(k7.ROUTES)) for d in (0, 1)
+                      for c in (k7.capacity(r),) if c + d <= k7.MAX_N} | {3, 1001})
+    for i, n in enumerate(edge_ns):
+        known, x = k7_inputs(2, 2, n, 2 + i % 3, seed=230 + i)
+        got = k7.inpaint_stack(x, known, max(6, n // 8))
+        want = k7.inpaint_stack_plain(x, known, max(6, n // 8))
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"K7 n={n}: max abs err {float((got - want).abs().max()):.3e} vs plain")
+        k7_err = max(k7_err, errs(got, want)[0])
+    x = torch.as_tensor(np.random.default_rng(229).standard_normal((2, 4, 48)), dtype=torch.float32,
+                        device=dev)
+    if not torch.equal(k7.inpaint_stack(x, np.ones(48, bool), 6), x):
+        fail("K7 with every position known: the row is not returned as it was")
+    results["inpaint_stack"] = k7_err
+    print(f"phase 21 K7 vs plain at n = {edge_ns} (combs 2-4, max(6, n // 8) iterations) and an "
+          "all-known row: bit-identical (torch.equal)")
     reset_counts()
     k7.inpaint_stack(*k7_c3)
     torch.cuda.synchronize()
@@ -990,7 +1131,8 @@ def main() -> int:
     xk = x7[..., torch.as_tensor(np.nonzero(known7)[0], device=dev)].reshape(B7 * C7, -1)
     lib_out = torch.matmul(xk, w_op)
     _, lib_err = errs(lib_out.reshape(B7, C7, n7), k7.inpaint_stack_plain(x7, known7, it7))
-    library["inpaint_stack"] = time_ms(lambda: torch.matmul(xk, w_op))
+    t_mm = three(lambda: torch.matmul(xk, w_op), iters=10)
+    library["inpaint_stack"] = t_mm[0]
     ms7, plain7, turns7, warm7 = times["inpaint_stack"][:4]
     print(f"phase 25 K7 c3 (B={B7}, C={C7}, n={n7}, {it7} iterations, {n_tr} transient), cold L2: "
           f"kernel {ms7:.4f} ms, plain {plain7:.4f} ms (turns {[round(t, 4) for t in turns7]}), "
@@ -1003,6 +1145,36 @@ def main() -> int:
                  lambda: k7.inpaint_stack_plain(x_c, known_c, 16), iters=10)
     print(f"phase 25 K7 chain regime (B=128, C=8, n=132, 16 iterations), cold L2: kernel "
           f"{t_chain[0]:.4f} ms, plain {t_chain[1]:.4f} ms {card}")
+    # K7 and its one-call counterpart side by side, three ways each
+    w_op_c = dsp.inpaint_operator(known_c, 16, torch.float32, dev)  # (66, 132)
+    xk_c = x_c[..., torch.as_tensor(np.nonzero(known_c)[0], device=dev)].reshape(128 * 8, -1)
+    print_three(25, f"K7 c3 ({B7}, {C7}, {n7}), {it7} iterations",
+                three(lambda: k7.inpaint_stack(x7, known7, it7), iters=10))
+    print_three(25, f"torch.matmul c3 {tuple(xk.shape)} @ {tuple(w_op.shape)}", t_mm)
+    print_three(25, "K7 chain (128, 8, 132), 16 iterations",
+                three(lambda: k7.inpaint_stack(x_c, known_c, 16), iters=10))
+    print_three(25, f"torch.matmul chain {tuple(xk_c.shape)} @ {tuple(w_op_c.shape)}",
+                three(lambda: torch.matmul(xk_c, w_op_c), iters=10))
+    # K7's cluster choice at c3 width (32 rows of 3276): ns per steady pass
+    # (the slope from 2400 to 4800 passes) and the rest of a call, one block
+    # a row and clusters of 2 and 4 blocks, through the C entry with the
+    # cluster forced (warm L2)
+    from srsran_ce_tpu_torch.ops.kernels import bind, launch as c_launch
+    k7_c = bind("inpaint", "srs_inpaint_f32", k7._ARGTYPES)
+    # (and rows of 960, one block of 4 warps a row: a pass's latency alone)
+    for n_s, cl in ((3276, 1), (3276, 2), (3276, 4), (960, 1)):
+        x_s = torch.randn(32, n_s, device=dev)
+        out_s = torch.empty_like(x_s)
+        known_s = torch.as_tensor((np.arange(n_s) % 2 == 0).astype(np.float32), device=dev)
+        t_s = {st: time_ms(lambda: c_launch("inpaint_stack", k7_c, dev, x_s.data_ptr(),
+                                            known_s.data_ptr(), 0, 32, n_s, 0, st, 1.0,
+                                            k7.route_for(n_s), cl, out_s.data_ptr()),
+                           iters=10, cold=False)
+               for st in (48, 2400, 4800)}
+        per = (t_s[4800] - t_s[2400]) / 2400
+        print(f"phase 25 K7 32 rows of {n_s}, {cl} block(s) a row: {per * 1e6:.1f} ns per steady "
+              f"pass, {(t_s[48] - 48 * per) * 1e3:.2f} us the rest of a call (slope over 2400 -> "
+              f"4800 passes, warm L2) {card}")
     for key, fn in rx_fns.items():
         ev, wall = call_ms(fn, (rx_rg, rx_pil, rx_beta))
         label = "/".join(key) if isinstance(key, tuple) else key
@@ -1017,9 +1189,30 @@ def main() -> int:
               f"{card}")
         if on_device:
             wall8 = t_lo
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    # the CRC's share of one device-path call (8 slots), cProfile: the
+    # bit-serial register (the form before the GF(2) product, kept below)
+    # and the port's transport.crc_bits
+    crc_port = transport.crc_bits
+    for form, fn in (("bit-serial", _crc_bits_serial), ("GF(2) product", crc_port)):
+        transport.crc_bits = fn
+        try:
+            run_slots(8, True)  # warm: the generator matrix is built once per (kind, length)
+            prof_c = cProfile.Profile()
+            t0 = time.perf_counter()
+            prof_c.enable()
+            run_slots(8, True)
+            prof_c.disable()
+            wall_c = time.perf_counter() - t0
+        finally:
+            transport.crc_bits = crc_port
+        stats = pstats.Stats(prof_c).stats
+        crc_s = sum(st[3] for key, st in stats.items()
+                    if key[2] == "crc_check" and key[0].endswith("transport.py"))
+        print(f"phase 25 e2e device path, 8 slots, cProfile: CRC ({form}) {crc_s * 1e3:.2f} ms "
+              f"cumulative of the call's {wall_c * 1e3:.1f} ms ({100 * crc_s / wall_c:.1f} %) {card}")
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:6]  # the GF(2) run: own time
+    print("phase 25 e2e device path, 8 slots, cProfile, most own time: " + ", ".join(
+        f"{key[2]} ({key[0].rsplit('/', 1)[-1]}:{key[1]}) {st[2] * 1e3:.2f} ms" for key, st in top))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run_slots(8, True)
         torch.cuda.synchronize()

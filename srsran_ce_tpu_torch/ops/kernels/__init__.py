@@ -7,6 +7,7 @@ tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 
 import torch
 
@@ -50,3 +51,34 @@ def check_cuda_f32(**tensors) -> torch.device:
 def check_shape(name: str, t: torch.Tensor, shape) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+_bound: dict = {}
+
+
+def bind(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """`symbol` of the built `csrc/<source>.cu`, its argtypes set and an int
+    (a CUDA error code) as its result, bound once per process."""
+    fn = _bound.get((source, symbol))
+    if fn is None:
+        from . import _build
+
+        fn = getattr(_build.load(source), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _bound[(source, symbol)] = fn
+    return fn
+
+
+def launch(name: str, fn, device: torch.device, *args) -> None:
+    """Call the C entry `fn(*args, stream)` on `device`'s current stream and
+    raise if it returns a CUDA error. The device is made current for the call
+    only when it is not already, never silently replaced."""
+    idx = device.index
+    if idx == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

@@ -12,20 +12,30 @@ fill takes `dsp.cnn_inpaint` for chains of at most 16 iterations and the
 exact operator matmul beyond. It is the standalone conv-stack counterpart,
 held against its plain version.
 
-CUDA kernel (csrc/inpaint.cu): one 256-thread block per row; the row and the
-next pass in shared memory (2 n floats, 26 KB at n = 3276) beside the known
-mask (n bytes); the per-iteration (mask, reciprocal denominator) rows read
-from global memory, where they stay in L2; each pass one `__syncthreads()`
-apart. What bounds it on the H100: neither bytes nor operations — its
-passes are a chain of dependent steps (409 at 273 PRB), each a block-wide
-barrier, so it is latency-bound; the bound computed from bytes and
-operations is far below its time.
+CUDA kernel (csrc/inpaint.cu): the row in registers, S consecutive cells
+per thread (S a template parameter), neighbours by warp shuffles, each
+cell's pin an all-ones / all-zeros word in a register. Rows of up to 512
+values run one row per warp (four per block) with no block barrier. Longer
+rows run one block per row, each warp's window overlapping its neighbours'
+by one lane (H = S cells) on each side, so a warp runs H passes on shuffles
+alone before one `__syncthreads()` swaps the boundary cells through shared
+memory; or, when the rows are too few to fill the SMs (`cluster_for`), one
+cluster of 2 or 4 blocks per row, whose edge warps swap through the
+neighbour block's shared memory behind the cluster barrier, with wider
+halos (3 lanes at S = 8), since that barrier costs far more. ROUTES below
+is the route table: the first route whose capacity holds n runs. What
+bounds it on the H100: neither bytes nor operations. Its passes are a chain
+of dependent steps (411 at 273 PRB), each ~4 instructions a cell: with one
+block a row it is bound by the instruction rate of the SM that holds the
+row (c3 has 32 rows, so 32 SMs), with a cluster by the latency of a pass
+and of the cluster barrier; the bound from bytes and operations is far
+below its time.
 
-Sum order: 0.25 left + 0.5 middle + 0.25 right, each product and sum
-rounded apart (the products by 1/4 and 1/2 are exact, so no FMA contraction
-could move a bit); the transient product x * m comes first and the
-reciprocal denominator last, as in the plain version. Kernel and plain
-version agree bit for bit barring subnormals.
+Sum order: 0.25 left + 0.5 middle + 0.25 right, each sum rounded apart
+(the products by 1/4 and 1/2 are exact for normal floats, so the kernel's
+FMAs round where the separate product and add do); the transient product x
+* m comes first and the reciprocal denominator last, as in the plain
+version. Kernel and plain version agree bit for bit barring subnormals.
 """
 from __future__ import annotations
 
@@ -36,7 +46,7 @@ import numpy as np
 import torch
 
 from .. import dsp
-from . import _build, check_cuda_f32
+from . import bind, check_cuda_f32, launch
 
 #: kernel launches since the count was last set to 0 (incremented only where
 #: the CUDA kernel is launched, never by the plain version)
@@ -45,9 +55,57 @@ launches = 0
 _EPS = 1e-12
 _PTR = ctypes.c_void_p
 _ARGTYPES = [_PTR, _PTR, _PTR, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_float, _PTR, _PTR]
-#: a block's shared memory limit on the H100 (227 KB opt-in)
-SMEM_LIMIT = 232448
+             ctypes.c_float, ctypes.c_int, ctypes.c_int, _PTR, _PTR]
+_BLOCK_WARPS = 16  # csrc/inpaint.cu kMaxBlockThreads / 32
+#: warps a block holds before its pass is bound by the SM's instruction rate
+#: rather than by the latency of a pass (one per SM sub-partition)
+_LATENCY_WARPS = 4
+
+#: the route table of csrc/inpaint.cu kRoutes, in its order: (cells per
+#: thread S, halo lanes). Halo 0: one row per warp, 32 S cells; halo 1: one
+#: block of up to 16 warps per row, (32 - 2) S cells a warp.
+ROUTES = ((1, 0), (2, 0), (3, 0), (4, 0), (5, 0), (6, 0), (8, 0), (10, 0), (12, 0), (16, 0),
+          (8, 1), (16, 1))
+
+
+def capacity(route: int) -> int:
+    """Cells of a row that route `route` holds."""
+    s, halo = ROUTES[route]
+    return _BLOCK_WARPS * (32 - 2 * halo) * s if halo else 32 * s
+
+
+#: the longest row any route holds
+MAX_N = max(capacity(r) for r in range(len(ROUTES)))
+
+
+def route_for(n: int) -> int:
+    """The first route of ROUTES whose capacity holds a row of n values;
+    raises for a row that none holds."""
+    if 3 <= n <= MAX_N:
+        for r in range(len(ROUTES)):
+            if capacity(r) >= n:
+                return r
+    raise ValueError(f"kernel takes rows of 3..{MAX_N} values, got {n}")
+
+
+def cluster_for(route: int, rows: int, n: int, n_sms: int) -> int:
+    """Blocks a row on route `route`. A halo route's row of more warps (one
+    block a row) than one per SM sub-partition is split over a cluster of 2
+    or 4 blocks, as long as every row's blocks still fit the card's `n_sms`
+    SMs at once; else 1."""
+    s, halo = ROUTES[route]
+    if not halo:
+        return 1
+    warps = -(-n // ((32 - 2 * halo) * s))
+    blocks = 1
+    while blocks < 4 and -(-warps // blocks) > _LATENCY_WARPS and rows * blocks * 2 <= n_sms:
+        blocks *= 2
+    return blocks
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def inpaint_stack_plain(x_ri: torch.Tensor, known_mask, n_iters: int, schedule=None) -> torch.Tensor:
@@ -81,20 +139,12 @@ def _tables(known_key: bytes, n_iters: int, device):
     return _device_tables(known, dsp.make_inpaint_schedule(known, n_iters), device)
 
 
-def _lib():
-    fn = _build.load("inpaint").srs_inpaint_f32
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def inpaint_stack(x_ri: torch.Tensor, known_mask, n_iters: int, schedule=None) -> torch.Tensor:
     """Partial-conv inpainting of (B, C, n) real rows, the signature of the JAX
     `inpaint_stack`: `known_mask` (n,) bool, `n_iters` the chain length,
     `schedule` the precomputed (transient, steady) pair or None. CPU tensors
     go through the plain version; CUDA tensors launch the kernel (float32,
-    contiguous, n >= 3) or raise."""
+    contiguous, 3 <= n <= MAX_N) or raise."""
     if x_ri.device.type == "cpu":
         return inpaint_stack_plain(x_ri, known_mask, n_iters, schedule)
     if x_ri.device.type != "cuda":
@@ -106,23 +156,18 @@ def inpaint_stack(x_ri: torch.Tensor, known_mask, n_iters: int, schedule=None) -
     known = np.asarray(known_mask, dtype=bool).reshape(-1)
     if known.size != n:
         raise ValueError(f"known_mask has {known.size} entries, x_ri rows {n}")
-    smem = 2 * n * 4 + -(-n // 4) * 4
-    if n < 3 or B * C < 1 or smem > SMEM_LIMIT:
-        raise ValueError(f"kernel takes rows of 3..{(SMEM_LIMIT * 4) // 9} values and B*C >= 1, "
-                         f"got x {tuple(x_ri.shape)}")
+    if B * C < 1:
+        raise ValueError(f"kernel takes B*C >= 1, got x {tuple(x_ri.shape)}")
+    route = route_for(n)
+    cluster = cluster_for(route, B * C, n, _sm_count(device.index))
     if schedule is None:
         known_t, trans_t, n_transient, steady = _tables(known.tobytes(), int(n_iters), device)
     else:
         known_t, trans_t, n_transient, steady = _device_tables(known, schedule, device)
     out = torch.empty_like(x_ri)
-    fn = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(x_ri.data_ptr(), known_t.data_ptr(), trans_t.data_ptr(), B * C, n,
-                n_transient, steady, float(np.float32(1.0 / (1.0 + _EPS))),
-                out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"inpaint_stack kernel launch failed: CUDA error {rc}")
+    launch("inpaint_stack", bind("inpaint", "srs_inpaint_f32", _ARGTYPES), device,
+           x_ri.data_ptr(), known_t.data_ptr(), trans_t.data_ptr(), B * C, n, n_transient,
+           steady, float(np.float32(1.0 / (1.0 + _EPS))), route, cluster, out.data_ptr())
     global launches
     launches += 1
     return out

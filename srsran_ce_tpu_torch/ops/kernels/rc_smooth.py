@@ -9,13 +9,19 @@ over (B, C, n_ext) real rows, where the caller stacks re/im and layers (and,
 with time interpolation, the DM-RS symbols) into C. `models.estimator._smooth`
 reaches it for `kernels="pallas"` with filter smoothing.
 
-CUDA kernel (csrc/rc_smooth.cu): one thread per output element over
-(B, C, n_out), taps passed by value in the launch arguments (K <= 15 at every
-plan geometry; the kernel takes up to 32). Neighbouring threads read
-neighbouring inputs, so each warp's K loads hit the same few L1 lines. What
-bounds it on the H100: the bytes, one read and one write of the rows (c2 at
-batch 128: 8 rows of 650 in, 636 out, 5.3 MB in all, under 2 us at
-3.35 TB/s); at that size the launch itself is most of its time.
+CUDA kernel (csrc/rc_smooth.cu): one block per tile of 4 T outputs of a
+row (T threads, a multiple of 32 up to 256, so a c2 row of 636 outputs is
+one 160-thread tile and 1024 rows fill the 132 SMs in one wave), the tile
+and its K - 1 halo staged in shared memory by coalesced loads, each thread
+4 consecutive outputs from a register window of its K + 3 inputs read as
+16-byte vectors (no bank conflicts), stored as one vector where the row
+allows; taps by value in the launch arguments (K <= 15 at every plan
+geometry; the kernel takes up to 32). What bounds it on the H100: the
+bytes, one read and one write of the rows (c2 at batch 128: 8 rows of 650
+in, 636 out, 5.3 MB in all, 1.6 us at 3.35 TB/s); at that size the launch
+is most of its time. The wrapper keeps its host path short: the reversed
+taps struct is cached per taps, the C entry bound once, and the device
+switched only when it is not current.
 
 Sum order: the TPU kernel's, taps[K-1] * x[n] first; the kernel folds each
 further tap with an FMA, the plain version rounds the product and the sum
@@ -24,12 +30,13 @@ apart, so the two differ by an ulp or so.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from .. import dsp
-from . import _build, check_cuda_f32
+from . import bind, check_cuda_f32, launch
 
 #: kernel launches since the count was last set to 0 (incremented only where
 #: the CUDA kernel is launched, never by the plain version)
@@ -54,12 +61,23 @@ def rc_smooth_plain(x_ext_ri: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     return dsp.conv_valid(x_ext_ri, taps)
 
 
-def _lib():
-    fn = _build.load("rc_smooth").srs_rc_smooth_f32
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+@functools.lru_cache(maxsize=64)
+def _taps_struct_of(key: bytes) -> _RcTaps:
+    taps = np.frombuffer(key, dtype=np.float64)
+    tab = _RcTaps()
+    tab.k = taps.size
+    tab.t[: taps.size] = taps[::-1].astype(np.float32).tolist()
+    return tab
+
+
+def taps_struct(taps: np.ndarray) -> _RcTaps:
+    """The kernel's taps argument: K and the taps reversed into convolution
+    order in float32, cached per taps (keyed by their float64 bytes), so
+    equal taps share one struct and no Python loop runs per call."""
+    taps = np.ascontiguousarray(taps, dtype=np.float64).reshape(-1)
+    if not 1 <= taps.size <= _MAX_TAPS:
+        raise ValueError(f"kernel takes 1..{_MAX_TAPS} taps, got K={taps.size}")
+    return _taps_struct_of(taps.tobytes())
 
 
 def rc_smooth(x_ext_ri: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
@@ -70,25 +88,16 @@ def rc_smooth(x_ext_ri: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     if x_ext_ri.device.type != "cuda":
         raise ValueError(f"rc_smooth runs on CPU or CUDA tensors, not {x_ext_ri.device}")
     device = check_cuda_f32(x_ext_ri=x_ext_ri)
-    taps = np.asarray(taps, dtype=np.float64).reshape(-1)
-    K = taps.size
     if x_ext_ri.dim() != 3:
         raise ValueError(f"x_ext_ri must be (B, C, n_ext), got {tuple(x_ext_ri.shape)}")
+    tab = taps_struct(taps)
     B, C, n_ext = x_ext_ri.shape
-    if not 1 <= K <= _MAX_TAPS or n_ext < K or B * C < 1:
-        raise ValueError(f"kernel takes 1..{_MAX_TAPS} taps over rows of at least K, "
-                         f"got K={K}, x {tuple(x_ext_ri.shape)}")
-    tab = _RcTaps()
-    tab.k = K
-    for i, t in enumerate(taps[::-1]):
-        tab.t[i] = float(t)
-    out = torch.empty((B, C, n_ext - K + 1), dtype=torch.float32, device=device)
-    fn = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(x_ext_ri.data_ptr(), out.data_ptr(), B * C, n_ext, ctypes.byref(tab), stream)
-    if rc != 0:
-        raise RuntimeError(f"rc_smooth kernel launch failed: CUDA error {rc}")
+    if n_ext < tab.k or B * C < 1:
+        raise ValueError(f"kernel takes rows of at least K values, "
+                         f"got K={tab.k}, x {tuple(x_ext_ri.shape)}")
+    out = torch.empty((B, C, n_ext - tab.k + 1), dtype=torch.float32, device=device)
+    launch("rc_smooth", bind("rc_smooth", "srs_rc_smooth_f32", _ARGTYPES), device,
+           x_ext_ri.data_ptr(), out.data_ptr(), B * C, n_ext, tab)
     global launches
     launches += 1
     return out

@@ -3,8 +3,9 @@
 A numpy copy of `srsran_ce_tpu/transport.py` (the port cannot import the JAX
 package, whose `__init__` imports `jax`), held bit-identical to it by
 tests/test_torch_ldpc.py; it builds on the port's own `config`, `ops/ldpc`,
-`ops/nr_ldpc` and `ops/sequences`. `serving.process` is not ported yet
-(ROADMAP.md queue 1, item 5).
+`ops/nr_ldpc` and `ops/sequences`, and the port's `serving.process` decodes
+through it. One function differs in form, not in result: `crc_bits` is one
+cached GF(2) product instead of a bit-serial register loop.
 
 The reference framework stops at the channel estimate; this framework's chain
 continues through equalization, soft demapping (int8 LLRs) and QC-LDPC
@@ -31,6 +32,7 @@ Everything here is host-side numpy; the device work stays in models/receiver
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -349,24 +351,39 @@ _CRC_POLYS = {
 }
 
 
+@functools.lru_cache(maxsize=32)
+def _crc_matrix(kind: str, m: int) -> np.ndarray:
+    """(m, deg) float64 0/1 generator of the CRC over m-bit messages: row i is
+    x^(m-1-i+deg) mod P, its coefficients MSB-first. Built by stepping the
+    register once per bit from x^deg mod P (the last message bit's row)."""
+    deg, poly = _CRC_POLYS[kind]
+    top, mask = 1 << (deg - 1), (1 << deg) - 1
+    rows = np.empty(m, np.int64)
+    r = poly
+    for i in range(m - 1, -1, -1):
+        rows[i] = r
+        r = ((r << 1) & mask) ^ (poly if r & top else 0)
+    shifts = np.arange(deg - 1, -1, -1, dtype=np.int64)
+    g = ((rows[:, None] >> shifts) & 1).astype(np.float64)
+    g.setflags(write=False)
+    return g
+
+
 def crc_bits(bits: np.ndarray, kind: str) -> np.ndarray:
     """CRC parity bits for message `bits` (..., m) in {0,1}, MSB-first
     (TS 38.212 §5.1 conventions: a0 is the highest-order coefficient and the
-    parity bits follow the message). Vectorized over leading axes."""
-    deg, poly = _CRC_POLYS[kind]
+    parity bits follow the message). Vectorized over leading axes.
+
+    The CRC with a zero register is linear over GF(2), so the parity is one
+    product `bits @ G mod 2` with G cached per (kind, m); the float64 sums
+    are exact integers (at most m < 2^53). Bit-identical to the bit-serial
+    register of the JAX package's `transport.crc_bits`."""
+    deg, _ = _CRC_POLYS[kind]
     b = np.asarray(bits, np.uint8)
     lead = b.shape[:-1]
-    b = b.reshape(-1, b.shape[-1])
-    reg = np.zeros(b.shape[0], np.uint64)
-    gen = np.uint64(poly)
-    top = np.uint64(1) << np.uint64(deg - 1)
-    mask = (np.uint64(1) << np.uint64(deg)) - np.uint64(1)
-    for j in range(b.shape[1]):
-        fb = ((reg & top) != 0).astype(np.uint64) ^ b[:, j].astype(np.uint64)
-        reg = ((reg << np.uint64(1)) & mask) ^ (fb * gen)
-    out = np.empty(b.shape[:1] + (deg,), np.uint8)
-    for i in range(deg):
-        out[:, i] = ((reg >> np.uint64(deg - 1 - i)) & np.uint64(1)).astype(np.uint8)
+    b = b.reshape(-1, b.shape[-1])  # raises at m = 0, as the JAX function does
+    acc = b.astype(np.float64) @ _crc_matrix(kind, b.shape[1])
+    out = (acc.astype(np.int64) & 1).astype(np.uint8)
     return out.reshape(lead + (deg,))
 
 

@@ -157,7 +157,10 @@ def test_unbatched_single_problem_on_cuda():
 
 
 @NEEDS_GPU
-@pytest.mark.parametrize("batch,C,n_ext,K", [(128, 8, 650, 15), (128, 32, 650, 15), (3, 2, 20, 5), (1, 1, 1, 1)])
+@pytest.mark.parametrize("batch,C,n_ext,K", [
+    (128, 8, 650, 15), (128, 32, 650, 15), (3, 2, 20, 5), (1, 1, 1, 1),
+    (4, 2, 651, 15), (7, 3, 1203, 32), (2, 32, 2050, 7), (3, 1, 32, 32),
+])
 def test_rc_smooth_kernel_matches_plain(batch, C, n_ext, K):
     rng = np.random.default_rng(K)
     x = torch.as_tensor(rng.standard_normal((batch, C, n_ext)), dtype=torch.float32, device="cuda")
@@ -169,6 +172,22 @@ def test_rc_smooth_kernel_matches_plain(batch, C, n_ext, K):
     torch.cuda.synchronize()
     assert got.shape == (batch, C, n_ext - K + 1)
     assert rel(got, want) <= 1e-5
+
+
+@NEEDS_GPU
+def test_rc_smooth_rejects_what_the_kernel_does_not_take():
+    x = torch.zeros((2, 4, 30), device="cuda")
+    taps = np.ones(5)
+    with pytest.raises(TypeError, match="float32"):
+        k5.rc_smooth(x.double(), taps)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.rc_smooth(x.transpose(0, 1), taps)
+    with pytest.raises(ValueError, match=r"\(B, C, n_ext\)"):
+        k5.rc_smooth(x[0], taps)
+    with pytest.raises(ValueError, match="1..32 taps"):
+        k5.rc_smooth(x, np.ones(33))
+    with pytest.raises(ValueError, match="at least K"):
+        k5.rc_smooth(x[..., :4].contiguous(), taps)
 
 
 @NEEDS_GPU
@@ -363,7 +382,7 @@ def test_ldpc_wrappers_reject_what_the_kernels_do_not_take():
 
 # ---------------------------------------------------------------------------
 # K7 (inpaint_stack): the kernel keeps the plain version's order of
-# operations (products by 1/4 and 1/2 are exact), bar relative 1e-5; the
+# operations (products by 1/4 and 1/2 are exact), bit-identical; the
 # receiver on the card against the float64 CPU run of the same port (x NMSE
 # 1e-9, SINR relative 1e-4 over max |SINR|); decoded serving host vs device.
 # ---------------------------------------------------------------------------
@@ -394,8 +413,55 @@ def test_inpaint_stack_kernel_matches_plain(name, B, C, n, comb, n_iters):
     assert k7.launches == n0 + 1
     want = k7.inpaint_stack_plain(x, known, n_iters)
     torch.cuda.synchronize()
-    assert torch.isfinite(got).all() and rel(got, want) <= 1e-5
+    assert torch.isfinite(got).all() and torch.equal(got, want)
     assert torch.equal(got[..., ::comb], x[..., ::comb])  # known positions pinned
+
+
+# every route boundary (the last n a route holds, the first it hands on), n = 3, an odd n
+K7_EDGE_NS = sorted({k7.capacity(r) + d for r in range(len(k7.ROUTES)) for d in (0, 1)
+                     if k7.capacity(r) + d <= k7.MAX_N} | {3, 1001})
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("n", K7_EDGE_NS)
+def test_inpaint_stack_kernel_bit_identical_at_route_edges(n):
+    known, x = k7_inputs(2, 2, n, 2 + n % 3, seed=n)
+    got = k7.inpaint_stack(x, known, max(6, n // 8))
+    want = k7.inpaint_stack_plain(x, known, max(6, n // 8))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("share,blocks", [(8, 4), (3, 2), (0, 1)])
+def test_inpaint_stack_kernel_bit_identical_over_clusters(share, blocks):
+    """c3 rows (n = 3276, 409 iterations) one block a row and over clusters
+    of 2 and 4 blocks: the row count picks the cluster (n_sms // share rows,
+    or more rows than SMs for share 0)."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = n_sms // share // 2 * 2 if share else n_sms + 8
+    assert k7.cluster_for(k7.route_for(3276), rows, 3276, n_sms) == blocks
+    known, x = k7_inputs(rows // 2, 2, 3276, 2, seed=blocks)
+    got = k7.inpaint_stack(x, known, 409)
+    want = k7.inpaint_stack_plain(x, known, 409)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@NEEDS_GPU
+def test_inpaint_stack_all_known_row_comes_back_as_it_was():
+    x = torch.randn(2, 4, 48, device="cuda")
+    assert torch.equal(k7.inpaint_stack(x, np.ones(48, bool), 6), x)
+
+
+@NEEDS_GPU
+def test_inpaint_route_table_matches_the_built_kernel():
+    from srsran_ce_tpu_torch.ops.kernels import _build
+
+    lib = _build.load("inpaint")
+    assert lib.srs_inpaint_num_routes() == len(k7.ROUTES)
+    assert [lib.srs_inpaint_capacity(r) for r in range(len(k7.ROUTES))] == [
+        k7.capacity(r) for r in range(len(k7.ROUTES))]
 
 
 @NEEDS_GPU
@@ -407,6 +473,11 @@ def test_inpaint_stack_rejects_what_the_kernel_does_not_take():
         k7.inpaint_stack(x.transpose(0, 1), known, 6)
     with pytest.raises(ValueError, match="known_mask"):
         k7.inpaint_stack(x, known[:-1], 6)
+    n = k7.MAX_N + 1
+    with pytest.raises(ValueError, match="rows of 3"):
+        k7.inpaint_stack(torch.zeros((1, 1, n), device="cuda"), np.arange(n) % 2 == 0, 6)
+    with pytest.raises(ValueError, match="rows of 3"):
+        k7.inpaint_stack(torch.zeros((1, 1, 2), device="cuda"), np.array([True, False]), 6)
 
 
 @NEEDS_GPU

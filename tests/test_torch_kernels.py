@@ -20,6 +20,8 @@ Tolerances:
 The CUDA kernels themselves are held against their plain versions on the card
 by tests/test_torch_gpu.py (no JAX there) and chip_smoke.py.
 """
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -339,3 +341,53 @@ def test_inpaint_stack_plain_all_known_pins_every_value():
 def test_inpaint_stack_rejects_other_devices():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         k7.inpaint_stack(torch.empty((2, 4, 30), device="meta"), np.ones(30, bool), 6)
+
+
+def test_inpaint_route_table_covers_every_row_length():
+    """K7's route table: every n from 3 to the largest the wrapper accepts
+    goes to the first route whose capacity (a warp's 32 S cells, or a block's
+    16 warps of 30 S core cells) holds it; shorter and longer rows raise."""
+    caps = [k7.capacity(r) for r in range(len(k7.ROUTES))]
+    assert k7.MAX_N == max(caps)
+    for n in range(3, k7.MAX_N + 1):
+        r = k7.route_for(n)
+        assert caps[r] >= n and all(c < n for c in caps[:r]), n
+    for n in (0, 1, 2, k7.MAX_N + 1):
+        with pytest.raises(ValueError, match="rows of 3"):
+            k7.route_for(n)
+
+
+def test_inpaint_route_table_matches_the_kernel_source():
+    """ROUTES mirrors csrc/inpaint.cu's kRoutes entry by entry (the C entry
+    takes the route id), read from the source: no nvcc here."""
+    src = (_build.CSRC_DIR / "inpaint.cu").read_text()
+    table = src[src.index("kRoutes[] = {"): src.index("};", src.index("kRoutes[] = {"))]
+    entries = [tuple(int(v) for v in m)
+               for m in re.findall(r"\{inpaint_kernel<(\d+), (\d+), false>", table)]
+    assert tuple(entries) == k7.ROUTES
+    assert f"kMaxBlockThreads = {32 * k7._BLOCK_WARPS};" in src
+
+
+@pytest.mark.parametrize("n,rows,blocks", [
+    (3276, 32, 4), (3276, 16, 4), (3276, 33, 4), (3276, 34, 2), (3276, 66, 2), (3276, 67, 1),
+    (3276, 132, 1), (1201, 32, 2), (1200, 4, 2), (960, 4, 1), (600, 4, 1), (3841, 8, 4), (3841, 40, 2), (7680, 8, 4), (132, 4, 1), (512, 1, 1),
+])
+def test_inpaint_cluster_choice(n, rows, blocks):
+    """Blocks a row (132 SMs): a halo route's row of more than 4 warps' cores
+    is split over 2 or 4 blocks while every row's blocks fit the SMs at once;
+    rows of one warp each (n <= 512) never are."""
+    assert k7.cluster_for(k7.route_for(n), rows, n, 132) == blocks
+
+
+def test_rc_smooth_taps_struct_is_cached_and_reversed():
+    """K5's launch argument: K and the taps reversed in float32, one struct per
+    taps (by their float64 bytes), reused for equal taps."""
+    taps = np.random.default_rng(3).standard_normal(15)
+    tab = k5.taps_struct(taps)
+    assert tab.k == 15
+    np.testing.assert_array_equal(np.array(tab.t[:15], np.float32), taps[::-1].astype(np.float32))
+    assert k5.taps_struct(taps.copy()) is tab and k5.taps_struct(list(taps)) is tab
+    assert k5.taps_struct(taps * 2) is not tab
+    assert k5.taps_struct(np.ones(32)).k == 32
+    with pytest.raises(ValueError, match="1..32 taps"):
+        k5.taps_struct(np.ones(33))

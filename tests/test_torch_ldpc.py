@@ -208,6 +208,33 @@ def test_crc_identical(kind):
     assert ttr.crc_check(words, kind).tolist() == [True, False, True, True, True]
 
 
+@pytest.mark.parametrize("shape", [(24, 8424), (3, 1), (7, 2), (5, 33), (4, 3, 8424), (2, 8, 5),
+                                   (1,), (8424,)],
+                         ids=["e2e_span", "m1", "m2", "m33", "3d_e2e", "3d_m5", "1d_m1", "1d_e2e"])
+@pytest.mark.parametrize("kind", ["crc24a", "crc24b", "crc16", "crc11", "crc6"])
+def test_crc_identical_across_spans(kind, shape):
+    """The port's CRC (one cached GF(2) product) against the JAX package's
+    bit-serial register: the e2e row's 24 words of 8424 bits, message length
+    1 and other short lengths, leading axes of 0-2 dimensions."""
+    bits = np.random.default_rng(sum(shape) + len(kind)).integers(0, 2, shape, dtype=np.uint8)
+    same(jtr.crc_bits(bits, kind), ttr.crc_bits(bits, kind))
+    words = ttr.crc_attach(bits, kind)
+    same(jtr.crc_attach(bits, kind), words)
+    assert ttr.crc_check(words, kind).all()
+    words[..., -1] ^= 1  # every word's last parity bit flipped
+    same(jtr.crc_check(words, kind), ttr.crc_check(words, kind))
+    assert not ttr.crc_check(words, kind).any()
+
+
+@pytest.mark.parametrize("kind", ["crc24b", "crc6"])
+def test_crc_empty_message_raises_like_jax(kind):
+    empty = np.zeros((3, 0), np.uint8)
+    with pytest.raises(ValueError):
+        jtr.crc_bits(empty, kind)
+    with pytest.raises(ValueError):
+        ttr.crc_bits(empty, kind)
+
+
 @pytest.mark.parametrize("rate_match,n_filler,tx_bits,nbits", [
     ("nr", 16, None, 2), ("nr", 0, 1000, 4), ("nr", 0, 2400, 2), ("circular", 0, None, 2),
     ("circular", 0, 900, 2),
