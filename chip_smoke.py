@@ -58,8 +58,8 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
  21. K7 (inpaint_stack) against its plain version at the JAX test's shapes
      (n, comb) = (48, 2) and (96, 4), the estimator's chain regime (11 PRB,
      nL=4, B=128), c3 width (n=3276, 409 iterations, B=16; and at row
-     counts that run it one block a row and over clusters of 2 blocks), every
-     route boundary of its route table, n = 3, an odd n and an all-known row:
+     counts more than the SMs), every route boundary of its route table,
+     n = 3, an odd n and an all-known row:
      bit-identical (torch.equal); then its own entry once at c3 with the
      count set to 0 (no estimator path reaches K7, in the JAX package
      neither);
@@ -82,11 +82,13 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      operator matmul; K7 and the matmul at c3 and in the chain regime three
      ways, as in phase 20), the receiver's ms per batch (CUDA events, both
      modes, both tiers), the e2e ms per slot (host wall clock over the 8 ->
-     24 slot slope, both paths), the CRC's share of one device-path call
-     (cProfile, the bit-serial form and the port's GF(2) product) and the
-     functions with the most own time, K7's ns per pass at c3 width one
-     block a row and over clusters of 2 and 4 blocks, and the device idle
-     share of one e2e call (torch.profiler).
+     24 slot slope, both paths, with the CRC as the bit-serial register
+     that the port ran before and as the port's byte table, the two taking
+     turns call by call), the CRC's share of one device-path call (cProfile,
+     both forms) and the
+     functions with the most own time, K7's ns per pass at c3 width (one
+     block a row), and the device idle share of one e2e call
+     (torch.profiler).
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -126,8 +128,8 @@ def errs(a, b):
 
 def _crc_bits_serial(bits, kind):
     """The CRC as a bit-serial register over the message, as the port computed
-    it before the GF(2) product (and as the JAX package does): phase 25's
-    "before" of the CRC's share of a device-path call."""
+    it before its byte table (and as the JAX package does): phase 25's
+    "before" of the e2e slopes and of the CRC's share of a device-path call."""
     from srsran_ce_tpu_torch.transport import _CRC_POLYS
 
     deg, poly = _CRC_POLYS[kind]
@@ -211,18 +213,27 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s for {list(_build.SOURCES)}")
+    # K5 and K7 keep every instantiation in registers: a library built before
+    # this run left no ptxas report here, so it is rebuilt to give one
+    checked = ("rc_smooth", "inpaint")
+    unlogged = [src for src in checked if src not in _build.build_logs]
+    if unlogged:
+        _build.build_all(unlogged, force=True)
+        print(f"phase 2 build: rebuilt {unlogged} for their ptxas reports")
     for src, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}")
-    for src in ("rc_smooth", "inpaint"):  # the redesigned kernels: every instantiation in registers
-        spills = [ln.strip() for ln in _build.build_logs.get(src, "").splitlines()
+    for src in checked:
+        log = _build.build_logs.get(src)
+        if not log or "registers" not in log:
+            fail(f"no ptxas report for {src}")
+        spills = [ln.strip() for ln in log.splitlines()
                   if any(int(b) for b in re.findall(r"(\d+) bytes spill", ln))]
         if spills:
             fail(f"ptxas spills in {src}: {spills}")
-        if src not in _build.build_logs:
-            print(f"phase 2 ptxas: {src} was built before this run; its spills not checked")
-    print("phase 2 ptxas: no spills in any rc_smooth (K5) or inpaint (K7) instantiation")
+    print("phase 2 ptxas: no spills in any rc_smooth (K5) or inpaint (K7) instantiation "
+          "(this run's ptxas reports read)")
 
     # cases: four seeds, tiled to the batch
     def tiled(kw, batch):
@@ -859,21 +870,17 @@ def main() -> int:
             fail(f"K7 {label}: not bit-identical to plain (max abs err {abs_err:.3e}) or not finite")
         k7_err = max(k7_err, abs_err)
         print(f"phase 21 K7 vs plain ({label}, x {tuple(x.shape)}, {iters} iterations, route "
-              f"{k7.ROUTES[k7.route_for(n)]}, {k7.cluster_for(k7.route_for(n), B * C, n, n_sms)} "
-              "block(s) a row): bit-identical (torch.equal)")
+              f"{k7.ROUTES[k7.route_for(n)]}): bit-identical (torch.equal)")
     k7_c3 = (x, known, iters)
-    # c3 rows at the other cluster sizes: more rows than SMs (one block a
-    # row) and a third of the SMs' worth (clusters of 2)
-    for rows in (n_sms + 8, n_sms // 3 // 2 * 2):
-        known, x = k7_inputs(rows // 2, 2, 3276, 2, seed=rows)
-        got = k7.inpaint_stack(x, known, 409)
-        want = k7.inpaint_stack_plain(x, known, 409)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            fail(f"K7 c3 width, {rows} rows: max abs err {float((got - want).abs().max()):.3e} vs plain")
-        print(f"phase 21 K7 vs plain (c3 width, {rows} rows, "
-              f"{k7.cluster_for(k7.route_for(3276), rows, 3276, n_sms)} block(s) a row): bit-identical "
-              "(torch.equal)")
+    # c3 width at more rows than the SMs
+    rows = n_sms + 8
+    known, x = k7_inputs(rows // 2, 2, 3276, 2, seed=rows)
+    got = k7.inpaint_stack(x, known, 409)
+    want = k7.inpaint_stack_plain(x, known, 409)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"K7 c3 width, {rows} rows: max abs err {float((got - want).abs().max()):.3e} vs plain")
+    print(f"phase 21 K7 vs plain (c3 width, {rows} rows): bit-identical (torch.equal)")
     # every route boundary (the last n a route holds and the first it hands
     # on), n = 3, an odd n, and a row with every position known
     edge_ns = sorted({c + d for r in range(len(k7.ROUTES)) for d in (0, 1)
@@ -1155,24 +1162,23 @@ def main() -> int:
                 three(lambda: k7.inpaint_stack(x_c, known_c, 16), iters=10))
     print_three(25, f"torch.matmul chain {tuple(xk_c.shape)} @ {tuple(w_op_c.shape)}",
                 three(lambda: torch.matmul(xk_c, w_op_c), iters=10))
-    # K7's cluster choice at c3 width (32 rows of 3276): ns per steady pass
-    # (the slope from 2400 to 4800 passes) and the rest of a call, one block
-    # a row and clusters of 2 and 4 blocks, through the C entry with the
-    # cluster forced (warm L2)
+    # K7 at c3 width (32 rows of 3276, one 16-warp block a row): ns per steady
+    # pass (the slope from 2400 to 4800 passes) and the rest of a call,
+    # through the C entry (warm L2); and rows of 960, one 4-warp block a row
+    # (a pass's latency with most of the SM's issue slots free)
     from srsran_ce_tpu_torch.ops.kernels import bind, launch as c_launch
     k7_c = bind("inpaint", "srs_inpaint_f32", k7._ARGTYPES)
-    # (and rows of 960, one block of 4 warps a row: a pass's latency alone)
-    for n_s, cl in ((3276, 1), (3276, 2), (3276, 4), (960, 1)):
+    for n_s in (3276, 960):
         x_s = torch.randn(32, n_s, device=dev)
         out_s = torch.empty_like(x_s)
         known_s = torch.as_tensor((np.arange(n_s) % 2 == 0).astype(np.float32), device=dev)
         t_s = {st: time_ms(lambda: c_launch("inpaint_stack", k7_c, dev, x_s.data_ptr(),
-                                            known_s.data_ptr(), 0, 32, n_s, 0, st, 1.0,
-                                            k7.route_for(n_s), cl, out_s.data_ptr()),
+                                            known_s.data_ptr(), 0, 32, n_s, 0, st,
+                                            k7.route_for(n_s), out_s.data_ptr()),
                            iters=10, cold=False)
                for st in (48, 2400, 4800)}
         per = (t_s[4800] - t_s[2400]) / 2400
-        print(f"phase 25 K7 32 rows of {n_s}, {cl} block(s) a row: {per * 1e6:.1f} ns per steady "
+        print(f"phase 25 K7 32 rows of {n_s}, one block a row: {per * 1e6:.1f} ns per steady "
               f"pass, {(t_s[48] - 48 * per) * 1e3:.2f} us the rest of a call (slope over 2400 -> "
               f"4800 passes, warm L2) {card}")
     for key, fn in rx_fns.items():
@@ -1180,20 +1186,35 @@ def main() -> int:
         label = "/".join(key) if isinstance(key, tuple) else key
         print(f"phase 25 receiver c2_receiver_4rx4l {label} B={B_RX}: {ev:.4f} ms/batch on CUDA "
               f"events, cold L2; {wall:.4f} ms/batch host wall clock back-to-back {card}")
-    for on_device in (False, True):
-        t_lo = min(run_slots(8, on_device)[0] for _ in range(3))
-        t_hi = min(run_slots(24, on_device)[0] for _ in range(3))
-        path = "device" if on_device else "host"
-        print(f"phase 25 e2e decoded {path} path: {(t_hi - t_lo) / 16 * 1e3:.3f} ms/slot (host wall "
-              f"clock, slope 8 -> 24 slots, min of 3: {t_lo * 1e3:.1f} ms / {t_hi * 1e3:.1f} ms) "
-              f"{card}")
-        if on_device:
-            wall8 = t_lo
-    # the CRC's share of one device-path call (8 slots), cProfile: the
-    # bit-serial register (the form before the GF(2) product, kept below)
-    # and the port's transport.crc_bits
+    # the e2e slope of each path with the CRC as the bit-serial register (the
+    # port's form before) and as the port's transport.crc_bits, the rest of
+    # the path unchanged. The two take turns call by call (8 slots, then 24;
+    # six rounds, which form goes first alternating), so a slow spell of the
+    # host falls on both alike
     crc_port = transport.crc_bits
-    for form, fn in (("bit-serial", _crc_bits_serial), ("GF(2) product", crc_port)):
+    forms = {"bit-serial": _crc_bits_serial, "byte table": crc_port}
+    for on_device in (False, True):
+        path = "device" if on_device else "host"
+        t_call = {(form, n): [] for form in forms for n in (8, 24)}
+        for rnd in range(6):
+            for n in (8, 24):
+                for form in sorted(forms, reverse=bool(rnd % 2)):
+                    transport.crc_bits = forms[form]
+                    try:
+                        t_call[(form, n)].append(run_slots(n, on_device)[0])
+                    finally:
+                        transport.crc_bits = crc_port
+        for form in forms:
+            lo, hi = t_call[(form, 8)], t_call[(form, 24)]
+            print(f"phase 25 e2e decoded {path} path, CRC {form}: "
+                  f"{(min(hi) - min(lo)) / 16 * 1e3:.3f} ms/slot (host wall clock, slope 8 -> 24 "
+                  f"slots over the min of 6: {min(lo) * 1e3:.1f} ms / {min(hi) * 1e3:.1f} ms; over "
+                  f"the medians {(np.median(hi) - np.median(lo)) / 16 * 1e3:.3f}) {card}")
+        if on_device:
+            wall8 = min(t_call[("byte table", 8)])
+    # the CRC's share of one device-path call (8 slots), cProfile: the
+    # bit-serial register and the port's transport.crc_bits
+    for form, fn in (("bit-serial", _crc_bits_serial), ("byte table", crc_port)):
         transport.crc_bits = fn
         try:
             run_slots(8, True)  # warm: the generator matrix is built once per (kind, length)
@@ -1210,7 +1231,7 @@ def main() -> int:
                     if key[2] == "crc_check" and key[0].endswith("transport.py"))
         print(f"phase 25 e2e device path, 8 slots, cProfile: CRC ({form}) {crc_s * 1e3:.2f} ms "
               f"cumulative of the call's {wall_c * 1e3:.1f} ms ({100 * crc_s / wall_c:.1f} %) {card}")
-    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:6]  # the GF(2) run: own time
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:6]  # the byte-table run: own time
     print("phase 25 e2e device path, 8 slots, cProfile, most own time: " + ", ".join(
         f"{key[2]} ({key[0].rsplit('/', 1)[-1]}:{key[1]}) {st[2] * 1e3:.2f} ms" for key, st in top))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

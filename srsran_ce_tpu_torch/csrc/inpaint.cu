@@ -6,10 +6,12 @@
 //
 // Per row (one problem's ri channel, n values):
 //   transient t:  x = known ? x0 : conv3(x * m_t) * inv_t
-//   steady (x `steady`): x = known ? x0 : conv3(x) * inv_c
+//   steady (x `steady`): x = known ? x0 : conv3(x)
 //   low-pass:     out = known ? x0 : conv3(conv3(x))
 // conv3(v)[i] = 0.25 * v[i-1] + 0.5 * v[i] + 0.25 * v[i+1], summed in that
-// order, reflect-padded (v[-1] = v[1], v[n] = v[n-2]).
+// order, reflect-padded (v[-1] = v[1], v[n] = v[n-2]). The plain version
+// multiplies a steady pass by 1 / (1 + 1e-12), which rounds to 1.0f in
+// float32; x * 1 is x, so the kernel leaves the product out.
 //
 // Layouts (row-major, contiguous): x, out (rows, n); known (n,) 0/1;
 // trans (n_transient, 2, n), row t holding (m_t, inv_t).
@@ -22,16 +24,12 @@
 // the 7 predicate registers). Two shapes of launch:
 //   * kHalo == 0 (rows of up to 32 S): one row per warp, several rows per
 //     block, no block barrier at all;
-//   * kHalo > 0 (longer rows): one block, or one cluster of 2 or 4 blocks
-//     (kClustered), per row, each warp's window of 32 S cells overlapping its
-//     neighbours' by kHalo lanes (H = kHalo S cells) on each side. A window's
-//     outermost cells go stale one cell per pass, so a warp runs H passes on
-//     shuffles alone, then the boundary lanes swap their cells through shared
-//     memory behind one barrier: __syncthreads() in a block, the cluster
-//     barrier in a cluster, where a block's edge warps read their neighbour
-//     block's shared memory (two buffers in turn, so no second barrier guards
-//     the rewrite). The host takes a cluster when the rows are too few to
-//     fill the SMs: one row's pass is then spread over 2 or 4 SMs.
+//   * kHalo > 0 (longer rows): one block per row, each warp's window of
+//     32 S cells overlapping its neighbours' by kHalo lanes (H = kHalo S
+//     cells) on each side. A window's outermost cells go stale one cell per
+//     pass, so a warp runs H passes on shuffles alone, then the boundary lanes
+//     swap their cells through shared memory behind one __syncthreads() (two
+//     buffers in turn, so no second barrier guards the rewrite).
 // The passes between two swaps are unrolled, so ptxas renames the cells'
 // registers instead of copying them back at every pass. The steady passes
 // come in two copies, with and without the mirror below, and a warp runs the
@@ -42,10 +40,7 @@
 // slot when n-1 is its last or first slot, else from the padding slot above
 // n-1, which a bitwise select keeps equal to v[n-2] after every pass.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -54,12 +49,7 @@ constexpr int kWarpRowsPerBlock = 4;  // one-row-per-warp launches: 128 threads
 constexpr int kMaxBlockThreads = 512;
 constexpr int kWarpRound = 4;  // passes unrolled together in a one-row-per-warp launch
 
-enum PassKind { kTransient, kSteady, kSteadyUnit, kLowpass1, kLowpass2 };
-
-template <int K>
-struct Kind {
-  static constexpr int value = K;
-};
+enum PassKind { kTransient, kSteady, kLowpass1, kLowpass2 };
 
 // 0.25 l + 0.5 c + 0.25 r, each sum rounded apart. The products by 1/4 and
 // 1/2 are exact for normal floats, so the FMAs round exactly where
@@ -108,8 +98,7 @@ __device__ __forceinline__ void mirror(Cells<S>& t) {
 template <int S, int kKind, bool kMirror>
 __device__ __forceinline__ void run_pass(Cells<S>& t, const float (&keep)[S],
                                          const float* __restrict__ m_row,
-                                         const float* __restrict__ inv_row, float inv_c, int g0,
-                                         int n) {
+                                         const float* __restrict__ inv_row, int g0, int n) {
   float p[S];
   float inv[S];
 #pragma unroll
@@ -138,7 +127,6 @@ __device__ __forceinline__ void run_pass(Cells<S>& t, const float (&keep)[S],
   for (int c = 0; c < S; ++c) {
     float e = s[c];
     if (kKind == kTransient) e = __fmul_rn(e, inv[c]);
-    if (kKind == kSteady) e = __fmul_rn(e, inv_c);
     if (kKind == kLowpass1)
       t.v[c] = e;
     else if (kKind == kLowpass2)
@@ -150,48 +138,30 @@ __device__ __forceinline__ void run_pass(Cells<S>& t, const float (&keep)[S],
 }
 
 // The boundary lanes' swap. The first and last kHalo core lanes write their
-// cells to their block's buffer at li0 (the buffer starts H cells before the
-// block's first core cell); after the barrier the halo lanes read their
-// neighbour warp's cells, at a block's edge warp from the neighbour block's
-// buffer in the cluster. Halo cells beyond the row's ends are padding and
-// keep their pinned values.
-template <int S, int kHalo, bool kClustered>
+// cells to the block's buffer at li0 (the buffer starts H cells before the
+// row's first cell); after the barrier the halo lanes read their neighbour
+// warp's cells. Halo cells beyond the row's ends are padding and keep their
+// pinned values.
+template <int S, int kHalo>
 __device__ __forceinline__ void exchange(float (&v)[S], float* buf, int lane, int warp,
-                                         int warps, int rank, int blocks, int li0) {
-  constexpr int kCore = (32 - 2 * kHalo) * S;
+                                         int warps, int li0) {
   if ((lane >= kHalo && lane < 2 * kHalo) || (lane >= 32 - 2 * kHalo && lane < 32 - kHalo)) {
 #pragma unroll
     for (int c = 0; c < S; ++c) buf[li0 + c] = v[c];
   }
-  const float* src = nullptr;
-  if constexpr (kClustered) {
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
-    if (lane < kHalo)
-      src = warp > 0 ? buf + li0
-            : rank > 0 ? cluster.map_shared_rank(buf, rank - 1) + li0 + warps * kCore
-                       : nullptr;
-    else if (lane >= 32 - kHalo)
-      src = warp < warps - 1 ? buf + li0
-            : rank < blocks - 1 ? cluster.map_shared_rank(buf, rank + 1) + li0 - warps * kCore
-                                : nullptr;
-  } else {
-    __syncthreads();
-    if ((lane < kHalo && warp > 0) || (lane >= 32 - kHalo && warp < warps - 1)) src = buf + li0;
-  }
-  if (src != nullptr) {
+  __syncthreads();
+  if ((lane < kHalo && warp > 0) || (lane >= 32 - kHalo && warp < warps - 1)) {
 #pragma unroll
-    for (int c = 0; c < S; ++c) v[c] = src[c];
+    for (int c = 0; c < S; ++c) v[c] = buf[li0 + c];
   }
 }
 
-template <int S, int kHalo, bool kClustered>
+template <int S, int kHalo>
 __global__ void __launch_bounds__(kHalo ? kMaxBlockThreads : 32 * kWarpRowsPerBlock)
 inpaint_kernel(const float* __restrict__ x, const float* __restrict__ known,
                const float* __restrict__ trans, long long rows, int n, int n_transient,
-               int steady, float inv_c, float* __restrict__ out) {
+               int steady, float* __restrict__ out) {
   static_assert(S >= 2 || kHalo == 0, "a halo of one-cell lanes cannot hold its stale cells");
-  static_assert(kHalo > 0 || !kClustered, "a one-row-per-warp launch takes no cluster");
   extern __shared__ float smem[];
   constexpr int H = kHalo * S;
   constexpr int kCore = (32 - 2 * kHalo) * S;
@@ -199,11 +169,6 @@ inpaint_kernel(const float* __restrict__ x, const float* __restrict__ known,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  int rank = 0, blocks = 1;  // this block's place in its row's cluster
-  if constexpr (kClustered) {
-    rank = static_cast<int>(cg::this_cluster().block_rank());
-    blocks = static_cast<int>(cg::this_cluster().num_blocks());
-  }
   long long row;
   int g0;
   if (kHalo == 0) {
@@ -211,10 +176,10 @@ inpaint_kernel(const float* __restrict__ x, const float* __restrict__ known,
     if (row >= rows) return;  // whole warps only: no block barrier follows
     g0 = lane * S;
   } else {
-    row = blockIdx.x / blocks;  // a cluster's blocks are consecutive
-    g0 = (rank * warps + warp) * kCore - H + lane * S;
+    row = blockIdx.x;
+    g0 = warp * kCore - H + lane * S;
   }
-  const int li0 = g0 - rank * warps * kCore + H;  // the first cell's index in the block's buffer
+  const int li0 = g0 + H;  // the first cell's index in the block's buffer
   const float* xr = x + row * n;
   Cells<S> t;
   const int c_hi = in_row(n - 1 - g0, S) ? n - 1 - g0 : -1;
@@ -236,7 +201,7 @@ inpaint_kernel(const float* __restrict__ x, const float* __restrict__ known,
   float* buf_next = smem + (kHalo ? warps * kCore + 2 * H : 0);
   int since = 0;  // passes since the window was last whole
   auto swap_halos = [&]() {
-    exchange<S, kHalo, kClustered>(t.v, buf, lane, warp, warps, rank, blocks, li0);
+    exchange<S, kHalo>(t.v, buf, lane, warp, warps, li0);
     float* tmp = buf; buf = buf_next; buf_next = tmp;
     since = 0;
   };
@@ -244,84 +209,60 @@ inpaint_kernel(const float* __restrict__ x, const float* __restrict__ known,
     if (kHalo > 0 && ++since == H) swap_halos();
   };
   float keep[S];
-  // whole rounds come in two copies, with and without the mirror; a warp
-  // takes one as a whole, and both run the same barriers in the same order
-  auto steady_passes = [&](auto kind) {
-    constexpr int K = decltype(kind)::value;
-    int left = steady;
-    for (; left > 0 && since != 0; --left) {  // close the open round
-      run_pass<S, K, true>(t, keep, nullptr, nullptr, inv_c, g0, n);
-      after_pass();
-    }
-    for (; left >= kRound; left -= kRound) {  // whole rounds, unrolled
-      if (warp_mirrors) {
-#pragma unroll
-        for (int i = 0; i < kRound; ++i)
-          run_pass<S, K, true>(t, keep, nullptr, nullptr, inv_c, g0, n);
-      } else {
-#pragma unroll
-        for (int i = 0; i < kRound; ++i)
-          run_pass<S, K, false>(t, keep, nullptr, nullptr, inv_c, g0, n);
-      }
-      if (kHalo > 0) swap_halos();
-    }
-    for (; left > 0; --left) {
-      run_pass<S, K, true>(t, keep, nullptr, nullptr, inv_c, g0, n);
-      after_pass();
-    }
-  };
-
   for (int i = 0; i < n_transient; ++i) {
     const float* m_row = trans + static_cast<long long>(i) * 2 * n;
-    run_pass<S, kTransient, true>(t, keep, m_row, m_row + n, inv_c, g0, n);
+    run_pass<S, kTransient, true>(t, keep, m_row, m_row + n, g0, n);
     after_pass();
   }
-  if (inv_c == 1.0f)  // x * 1 is x: the float32 1 / (1 + 1e-12)
-    steady_passes(Kind<kSteadyUnit>());
-  else
-    steady_passes(Kind<kSteady>());
+  // whole rounds come in two copies, with and without the mirror; a warp
+  // takes one as a whole, and both run the same barriers in the same order
+  int left = steady;
+  for (; left > 0 && since != 0; --left) {  // close the open round
+    run_pass<S, kSteady, true>(t, keep, nullptr, nullptr, g0, n);
+    after_pass();
+  }
+  for (; left >= kRound; left -= kRound) {  // whole rounds, unrolled
+    if (warp_mirrors) {
+#pragma unroll
+      for (int i = 0; i < kRound; ++i) run_pass<S, kSteady, true>(t, keep, nullptr, nullptr, g0, n);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRound; ++i) run_pass<S, kSteady, false>(t, keep, nullptr, nullptr, g0, n);
+    }
+    if (kHalo > 0) swap_halos();
+  }
+  for (; left > 0; --left) {
+    run_pass<S, kSteady, true>(t, keep, nullptr, nullptr, g0, n);
+    after_pass();
+  }
 #pragma unroll
   for (int c = 0; c < S; ++c) keep[c] = t.v[c];
-  run_pass<S, kLowpass1, true>(t, keep, nullptr, nullptr, inv_c, g0, n);
+  run_pass<S, kLowpass1, true>(t, keep, nullptr, nullptr, g0, n);
   after_pass();
-  run_pass<S, kLowpass2, true>(t, keep, nullptr, nullptr, inv_c, g0, n);
+  run_pass<S, kLowpass2, true>(t, keep, nullptr, nullptr, g0, n);
   if (lane >= kHalo && lane < 32 - kHalo) {
     float* o = out + row * n;
 #pragma unroll
     for (int c = 0; c < S; ++c)
       if (in_row(g0 + c, n)) o[g0 + c] = t.v[c];
   }
-  // no block of the cluster leaves while a neighbour may still read its buffer
-  if constexpr (kClustered) cg::this_cluster().sync();
 }
 
 using KernelFn = void (*)(const float*, const float*, const float*, long long, int, int, int,
-                          float, float*);
+                          float*);
 
 struct Route {
   KernelFn fn;
-  KernelFn clustered;  // the same cells over a cluster of blocks (halo routes only)
   int s;
   int halo;
-  int cluster_halo;  // halo lanes of the clustered kernel
 };
 
 // The route table: ids as in ops/kernels/inpaint.py ROUTES.
 const Route kRoutes[] = {
-    {inpaint_kernel<1, 0, false>, nullptr, 1, 0, 0},
-    {inpaint_kernel<2, 0, false>, nullptr, 2, 0, 0},
-    {inpaint_kernel<3, 0, false>, nullptr, 3, 0, 0},
-    {inpaint_kernel<4, 0, false>, nullptr, 4, 0, 0},
-    {inpaint_kernel<5, 0, false>, nullptr, 5, 0, 0},
-    {inpaint_kernel<6, 0, false>, nullptr, 6, 0, 0},
-    {inpaint_kernel<8, 0, false>, nullptr, 8, 0, 0},
-    {inpaint_kernel<10, 0, false>, nullptr, 10, 0, 0},
-    {inpaint_kernel<12, 0, false>, nullptr, 12, 0, 0},
-    {inpaint_kernel<16, 0, false>, nullptr, 16, 0, 0},
-    // a cluster's barrier costs far more than a block's: its rounds are
-    // longer (24 and 16 passes, the best measured)
-    {inpaint_kernel<8, 1, false>, inpaint_kernel<8, 3, true>, 8, 1, 3},
-    {inpaint_kernel<16, 1, false>, inpaint_kernel<16, 1, true>, 16, 1, 1},
+    {inpaint_kernel<1, 0>, 1, 0},   {inpaint_kernel<2, 0>, 2, 0},   {inpaint_kernel<3, 0>, 3, 0},
+    {inpaint_kernel<4, 0>, 4, 0},   {inpaint_kernel<5, 0>, 5, 0},   {inpaint_kernel<6, 0>, 6, 0},
+    {inpaint_kernel<8, 0>, 8, 0},   {inpaint_kernel<10, 0>, 10, 0}, {inpaint_kernel<12, 0>, 12, 0},
+    {inpaint_kernel<16, 0>, 16, 0}, {inpaint_kernel<8, 1>, 8, 1},   {inpaint_kernel<16, 1>, 16, 1},
 };
 constexpr int kNumRoutes = static_cast<int>(sizeof(kRoutes) / sizeof(kRoutes[0]));
 
@@ -329,57 +270,37 @@ constexpr int kNumRoutes = static_cast<int>(sizeof(kRoutes) / sizeof(kRoutes[0])
 
 extern "C" int srs_inpaint_num_routes() { return kNumRoutes; }
 
-// Cells one launch of `route` covers in a row with one block a row (0 for an
-// unknown route).
+// Cells one launch of `route` covers in a row (0 for an unknown route).
 extern "C" int srs_inpaint_capacity(int route) {
   if (route < 0 || route >= kNumRoutes) return 0;
   const Route& r = kRoutes[route];
   return r.halo ? (kMaxBlockThreads / 32) * (32 - 2 * r.halo) * r.s : 32 * r.s;
 }
 
-// `cluster` blocks a row: 1, or 2 or 4 on a halo route.
 extern "C" int srs_inpaint_f32(const float* x, const float* known, const float* trans,
-                               long long rows, int n, int n_transient, int steady,
-                               float inv_c, int route, int cluster, float* out, void* stream) {
-  if (rows < 1 || n < 3 || n > srs_inpaint_capacity(route) || n_transient < 0 || steady < 0 ||
-      (n_transient > 0 && trans == nullptr))
+                               long long rows, int n, int n_transient, int steady, int route,
+                               float* out, void* stream) {
+  if (rows < 1 || rows > 0x7fffffffLL || n < 3 || n > srs_inpaint_capacity(route) ||
+      n_transient < 0 || steady < 0 || (n_transient > 0 && trans == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Route& r = kRoutes[route];
-  if ((cluster != 1 && (r.halo == 0 || (cluster != 2 && cluster != 4))) ||
-      rows * cluster > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (r.halo == 0) {
     const unsigned blocks =
         static_cast<unsigned>((rows + kWarpRowsPerBlock - 1) / kWarpRowsPerBlock);
     r.fn<<<blocks, 32 * kWarpRowsPerBlock, 0, st>>>(x, known, trans, rows, n, n_transient,
-                                                    steady, inv_c, out);
+                                                    steady, out);
     return static_cast<int>(cudaGetLastError());
   }
-  const int halo = cluster == 1 ? r.halo : r.cluster_halo;
-  const int core = (32 - 2 * halo) * r.s;
-  const int warps = ((n + core - 1) / core + cluster - 1) / cluster;  // a block's
-  if (32 * warps > kMaxBlockThreads) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 2 * (warps * core + 2 * halo * r.s) * static_cast<int>(sizeof(float));
-  const KernelFn fn = cluster == 1 ? r.fn : r.clustered;
+  const int core = (32 - 2 * r.halo) * r.s;
+  const int warps = (n + core - 1) / core;  // at most kMaxBlockThreads / 32: n <= capacity
+  const int smem = 2 * (warps * core + 2 * r.halo * r.s) * static_cast<int>(sizeof(float));
   if (smem > 48 * 1024) {
     const cudaError_t err =
-        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncSetAttribute(r.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(rows * cluster));
-  cfg.blockDim = dim3(32 * warps);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = cluster > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, fn, x, known, trans, rows, n, n_transient,
-                                             steady, inv_c, out);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  r.fn<<<static_cast<unsigned>(rows), 32 * warps, smem, st>>>(x, known, trans, rows, n,
+                                                              n_transient, steady, out);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -53,13 +53,14 @@ def _target(name: str):
     return src, BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
-def build_all(names=SOURCES) -> float:
-    """Compile every source of `names` that has no up-to-date library yet, all
-    nvcc processes in parallel. Returns the seconds spent."""
+def build_all(names=SOURCES, force: bool = False) -> float:
+    """Compile every source of `names` that has no up-to-date library yet (with
+    `force`, every one, so that `build_logs` holds its ptxas report), all nvcc
+    processes in parallel. Returns the seconds spent."""
     t0 = time.perf_counter()
     with _lock:
         todo = [(n, *_target(n)) for n in names]
-        todo = [(n, src, so) for n, src, so in todo if not so.exists()]
+        todo = [(n, src, so) for n, src, so in todo if force or not so.exists()]
         if not todo:
             return 0.0
         nvcc = nvcc_path()

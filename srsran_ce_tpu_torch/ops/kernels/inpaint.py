@@ -19,17 +19,15 @@ values run one row per warp (four per block) with no block barrier. Longer
 rows run one block per row, each warp's window overlapping its neighbours'
 by one lane (H = S cells) on each side, so a warp runs H passes on shuffles
 alone before one `__syncthreads()` swaps the boundary cells through shared
-memory; or, when the rows are too few to fill the SMs (`cluster_for`), one
-cluster of 2 or 4 blocks per row, whose edge warps swap through the
-neighbour block's shared memory behind the cluster barrier, with wider
-halos (3 lanes at S = 8), since that barrier costs far more. ROUTES below
-is the route table: the first route whose capacity holds n runs. What
-bounds it on the H100: neither bytes nor operations. Its passes are a chain
-of dependent steps (411 at 273 PRB), each ~4 instructions a cell: with one
-block a row it is bound by the instruction rate of the SM that holds the
-row (c3 has 32 rows, so 32 SMs), with a cluster by the latency of a pass
-and of the cluster barrier; the bound from bytes and operations is far
-below its time.
+memory. ROUTES below is the route table: the first route whose capacity
+holds n runs. What bounds it on the H100: neither bytes nor operations. Its
+passes are a chain of dependent steps (411 at 273 PRB), each ~4
+instructions a cell, so one block a row is bound by the instruction rate of
+the SM that holds the row (c3 has 32 rows, so 32 of the 132 SMs work); the
+bound from bytes and operations is far below its time.
+
+The steady passes leave out the plain version's product by 1 / (1 + eps):
+in float32 that factor is 1.0, and x * 1 is x.
 
 Sum order: 0.25 left + 0.5 middle + 0.25 right, each sum rounded apart
 (the products by 1/4 and 1/2 are exact for normal floats, so the kernel's
@@ -55,11 +53,8 @@ launches = 0
 _EPS = 1e-12
 _PTR = ctypes.c_void_p
 _ARGTYPES = [_PTR, _PTR, _PTR, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_float, ctypes.c_int, ctypes.c_int, _PTR, _PTR]
+             ctypes.c_int, _PTR, _PTR]
 _BLOCK_WARPS = 16  # csrc/inpaint.cu kMaxBlockThreads / 32
-#: warps a block holds before its pass is bound by the SM's instruction rate
-#: rather than by the latency of a pass (one per SM sub-partition)
-_LATENCY_WARPS = 4
 
 #: the route table of csrc/inpaint.cu kRoutes, in its order: (cells per
 #: thread S, halo lanes). Halo 0: one row per warp, 32 S cells; halo 1: one
@@ -86,26 +81,6 @@ def route_for(n: int) -> int:
             if capacity(r) >= n:
                 return r
     raise ValueError(f"kernel takes rows of 3..{MAX_N} values, got {n}")
-
-
-def cluster_for(route: int, rows: int, n: int, n_sms: int) -> int:
-    """Blocks a row on route `route`. A halo route's row of more warps (one
-    block a row) than one per SM sub-partition is split over a cluster of 2
-    or 4 blocks, as long as every row's blocks still fit the card's `n_sms`
-    SMs at once; else 1."""
-    s, halo = ROUTES[route]
-    if not halo:
-        return 1
-    warps = -(-n // ((32 - 2 * halo) * s))
-    blocks = 1
-    while blocks < 4 and -(-warps // blocks) > _LATENCY_WARPS and rows * blocks * 2 <= n_sms:
-        blocks *= 2
-    return blocks
-
-
-@functools.lru_cache(maxsize=16)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def inpaint_stack_plain(x_ri: torch.Tensor, known_mask, n_iters: int, schedule=None) -> torch.Tensor:
@@ -159,7 +134,6 @@ def inpaint_stack(x_ri: torch.Tensor, known_mask, n_iters: int, schedule=None) -
     if B * C < 1:
         raise ValueError(f"kernel takes B*C >= 1, got x {tuple(x_ri.shape)}")
     route = route_for(n)
-    cluster = cluster_for(route, B * C, n, _sm_count(device.index))
     if schedule is None:
         known_t, trans_t, n_transient, steady = _tables(known.tobytes(), int(n_iters), device)
     else:
@@ -167,7 +141,7 @@ def inpaint_stack(x_ri: torch.Tensor, known_mask, n_iters: int, schedule=None) -
     out = torch.empty_like(x_ri)
     launch("inpaint_stack", bind("inpaint", "srs_inpaint_f32", _ARGTYPES), device,
            x_ri.data_ptr(), known_t.data_ptr(), trans_t.data_ptr(), B * C, n, n_transient,
-           steady, float(np.float32(1.0 / (1.0 + _EPS))), route, cluster, out.data_ptr())
+           steady, route, out.data_ptr())
     global launches
     launches += 1
     return out

@@ -539,8 +539,8 @@ def _process_decoded_device(problems, coding, batch_size, matmul_precision, data
         ok_h = blob[..., -1].astype(bool)
         info_h = np.unpackbits(blob[..., :-1], axis=-1)[..., :k_full]
         if coding.crc is not None:
-            # one batched CRC pass per chunk: a GF(2) product, its
-            # generator cached per (kind, length)
+            # one batched CRC pass per chunk: one table entry per message
+            # byte, the table cached per (kind, length)
             B = info_h.shape[0]
             ok_h = ok_h & transport.crc_check(
                 info_h[:, :, :k_eff].reshape(B * info_h.shape[1], k_eff), coding.crc

@@ -4,8 +4,9 @@ A numpy copy of `srsran_ce_tpu/transport.py` (the port cannot import the JAX
 package, whose `__init__` imports `jax`), held bit-identical to it by
 tests/test_torch_ldpc.py; it builds on the port's own `config`, `ops/ldpc`,
 `ops/nr_ldpc` and `ops/sequences`, and the port's `serving.process` decodes
-through it. One function differs in form, not in result: `crc_bits` is one
-cached GF(2) product instead of a bit-serial register loop.
+through it. One function differs in form, not in result: `crc_bits` XORs
+one cached table entry per message byte instead of running a bit-serial
+register loop.
 
 The reference framework stops at the channel estimate; this framework's chain
 continues through equalization, soft demapping (int8 LLRs) and QC-LDPC
@@ -352,21 +353,24 @@ _CRC_POLYS = {
 
 
 @functools.lru_cache(maxsize=32)
-def _crc_matrix(kind: str, m: int) -> np.ndarray:
-    """(m, deg) float64 0/1 generator of the CRC over m-bit messages: row i is
-    x^(m-1-i+deg) mod P, its coefficients MSB-first. Built by stepping the
-    register once per bit from x^deg mod P (the last message bit's row)."""
+def _crc_table(kind: str, m: int) -> np.ndarray:
+    """(ceil(m / 8), 256) uint32 table of the CRC over m-bit messages, by
+    byte: entry [j, v] is the parity that byte j of the message (bits 8j ..
+    8j + 7, MSB first) adds when it holds v. Built from the per-bit parities
+    x^(m-1-i+deg) mod P, reached by stepping the register once per bit from
+    x^deg mod P (the last message bit's)."""
     deg, poly = _CRC_POLYS[kind]
     top, mask = 1 << (deg - 1), (1 << deg) - 1
-    rows = np.empty(m, np.int64)
+    n_bytes = -(-m // 8)
+    rows = np.zeros(8 * n_bytes, np.int64)  # bits past m (the packing's zero fill) add nothing
     r = poly
     for i in range(m - 1, -1, -1):
         rows[i] = r
         r = ((r << 1) & mask) ^ (poly if r & top else 0)
-    shifts = np.arange(deg - 1, -1, -1, dtype=np.int64)
-    g = ((rows[:, None] >> shifts) & 1).astype(np.float64)
-    g.setflags(write=False)
-    return g
+    bit = (np.arange(256)[:, None] >> np.arange(7, -1, -1)) & 1  # (256, 8), MSB first
+    table = np.bitwise_xor.reduce(bit * rows.reshape(n_bytes, 1, 8), axis=-1).astype(np.uint32)
+    table.setflags(write=False)
+    return table
 
 
 def crc_bits(bits: np.ndarray, kind: str) -> np.ndarray:
@@ -374,16 +378,18 @@ def crc_bits(bits: np.ndarray, kind: str) -> np.ndarray:
     (TS 38.212 §5.1 conventions: a0 is the highest-order coefficient and the
     parity bits follow the message). Vectorized over leading axes.
 
-    The CRC with a zero register is linear over GF(2), so the parity is one
-    product `bits @ G mod 2` with G cached per (kind, m); the float64 sums
-    are exact integers (at most m < 2^53). Bit-identical to the bit-serial
+    The CRC with a zero register is linear over GF(2), so the parity is the
+    XOR of one table entry per message byte, the table cached per (kind, m):
+    integer numpy only, no BLAS call. Bit-identical to the bit-serial
     register of the JAX package's `transport.crc_bits`."""
     deg, _ = _CRC_POLYS[kind]
     b = np.asarray(bits, np.uint8)
     lead = b.shape[:-1]
     b = b.reshape(-1, b.shape[-1])  # raises at m = 0, as the JAX function does
-    acc = b.astype(np.float64) @ _crc_matrix(kind, b.shape[1])
-    out = (acc.astype(np.int64) & 1).astype(np.uint8)
+    table = _crc_table(kind, b.shape[1])
+    parity = table[np.arange(table.shape[0]), np.packbits(b, axis=1)]  # (words, bytes)
+    reg = np.bitwise_xor.reduce(parity, axis=1).astype(np.int64)
+    out = ((reg[:, None] >> np.arange(deg - 1, -1, -1)) & 1).astype(np.uint8)
     return out.reshape(lead + (deg,))
 
 

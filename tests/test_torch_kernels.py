@@ -363,20 +363,48 @@ def test_inpaint_route_table_matches_the_kernel_source():
     src = (_build.CSRC_DIR / "inpaint.cu").read_text()
     table = src[src.index("kRoutes[] = {"): src.index("};", src.index("kRoutes[] = {"))]
     entries = [tuple(int(v) for v in m)
-               for m in re.findall(r"\{inpaint_kernel<(\d+), (\d+), false>", table)]
+               for m in re.findall(r"\{inpaint_kernel<(\d+), (\d+)>", table)]
     assert tuple(entries) == k7.ROUTES
     assert f"kMaxBlockThreads = {32 * k7._BLOCK_WARPS};" in src
 
 
-@pytest.mark.parametrize("n,rows,blocks", [
-    (3276, 32, 4), (3276, 16, 4), (3276, 33, 4), (3276, 34, 2), (3276, 66, 2), (3276, 67, 1),
-    (3276, 132, 1), (1201, 32, 2), (1200, 4, 2), (960, 4, 1), (600, 4, 1), (3841, 8, 4), (3841, 40, 2), (7680, 8, 4), (132, 4, 1), (512, 1, 1),
-])
-def test_inpaint_cluster_choice(n, rows, blocks):
-    """Blocks a row (132 SMs): a halo route's row of more than 4 warps' cores
-    is split over 2 or 4 blocks while every row's blocks fit the SMs at once;
-    rows of one warp each (n <= 512) never are."""
-    assert k7.cluster_for(k7.route_for(n), rows, n, 132) == blocks
+def _k7_kernel_arithmetic(x, known, n_iters):
+    """K7's arithmetic as csrc/inpaint.cu performs it, in numpy float32: each
+    conv3 sum rounded apart (0.25 l + 0.5 c, then + 0.25 r), x * m_t before the
+    conv and 1 / (den_t + eps) after it, and the steady passes without the
+    plain version's product by 1 / (1 + eps)."""
+    f32 = np.float32
+
+    def conv3(v):
+        vp = np.concatenate([v[..., 1:2], v, v[..., -2:-1]], axis=-1)
+        return (f32(0.25) * vp[..., :-2] + f32(0.5) * vp[..., 1:-1]) + f32(0.25) * vp[..., 2:]
+
+    transient, steady = dsp.make_inpaint_schedule(known, n_iters)
+    y = x
+    for m, den in transient:
+        y = np.where(known, x, conv3(y * m.astype(f32)) * (1.0 / (den + 1e-12)).astype(f32))
+    for _ in range(steady):
+        y = np.where(known, x, conv3(y))
+    return np.where(known, x, conv3(conv3(y)))
+
+
+# every route boundary of K7's table (the last n a route holds, the first it
+# hands on), n = 3 and an odd n
+K7_EDGE_NS = sorted({k7.capacity(r) + d for r in range(len(k7.ROUTES)) for d in (0, 1)
+                     if k7.capacity(r) + d <= k7.MAX_N} | {3, 1001})
+
+
+@pytest.mark.parametrize("n", K7_EDGE_NS)
+def test_inpaint_kernel_arithmetic_matches_plain_float32(n):
+    """The float32 steady factor 1 / (1 + 1e-12) is exactly 1, so the kernel's
+    steady passes, which leave it out, stay bit-identical to the plain
+    version at every route boundary (combs 2-4, max(6, n // 8) iterations)."""
+    assert np.float32(1.0 / (1.0 + k7._EPS)) == 1.0
+    known = np.zeros(n, dtype=bool)
+    known[:: 2 + n % 3] = True
+    x = np.where(known, np.random.default_rng(n).standard_normal((2, 2, n)), 0.0).astype(np.float32)
+    want = k7.inpaint_stack_plain(torch.as_tensor(x), known, max(6, n // 8)).numpy()
+    np.testing.assert_array_equal(_k7_kernel_arithmetic(x, known, max(6, n // 8)), want)
 
 
 def test_rc_smooth_taps_struct_is_cached_and_reversed():

@@ -209,13 +209,15 @@ def test_crc_identical(kind):
 
 
 @pytest.mark.parametrize("shape", [(24, 8424), (3, 1), (7, 2), (5, 33), (4, 3, 8424), (2, 8, 5),
-                                   (1,), (8424,)],
-                         ids=["e2e_span", "m1", "m2", "m33", "3d_e2e", "3d_m5", "1d_m1", "1d_e2e"])
+                                   (1,), (8424,), (6, 8), (6, 9), (6, 16)],
+                         ids=["e2e_span", "m1", "m2", "m33", "3d_e2e", "3d_m5", "1d_m1", "1d_e2e",
+                              "m8", "m9", "m16"])
 @pytest.mark.parametrize("kind", ["crc24a", "crc24b", "crc16", "crc11", "crc6"])
 def test_crc_identical_across_spans(kind, shape):
-    """The port's CRC (one cached GF(2) product) against the JAX package's
-    bit-serial register: the e2e row's 24 words of 8424 bits, message length
-    1 and other short lengths, leading axes of 0-2 dimensions."""
+    """The port's CRC (one cached table entry per message byte) against the
+    JAX package's bit-serial register: the e2e row's 24 words of 8424 bits,
+    message length 1, other short lengths and whole and part bytes, leading
+    axes of 0-2 dimensions."""
     bits = np.random.default_rng(sum(shape) + len(kind)).integers(0, 2, shape, dtype=np.uint8)
     same(jtr.crc_bits(bits, kind), ttr.crc_bits(bits, kind))
     words = ttr.crc_attach(bits, kind)
