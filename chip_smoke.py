@@ -6,7 +6,8 @@
 Phases, one line each or more, any failure ends the run with a non-zero exit code:
   1. device: the card's name and `nvidia-smi` name / power limit;
   2. build: nvcc builds every kernel from srsran_ce_tpu_torch/csrc/, all at once;
-     ptxas must report no spills for any K5 or K7 instantiation;
+     each instantiation's registers and static shared memory are printed, and
+     ptxas must report no spills for any K5, K7, K4 or K3 instantiation;
   3. K1 (fused front) against its plain PyTorch version at c2 shapes, B=128;
   4. K2 (serve fill) against its plain version, equal and unequal CDM groups;
   5. `build_ri(..., batched=True, out_layout="serve", kernels="pallas_front")`
@@ -38,10 +39,12 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
  16. K4 (ldpc_posterior) against its plain version at the JAX bench's decode
      rows (array_code(6,16,61) B=512, NR BG2 Z=208 and BG1 Z=52 at B=128),
      flooding and layered at the row's default layered_group: bit-identical
-     (the plain flooding is the "xla" tier), payload-exact;
+     (the plain flooding is the "xla" tier), payload-exact, with each launch
+     plan (route, codewords a block, dynamic shared memory);
  17. K3 (ldpc_stream_posterior) against its plain version at NR BG1 Z=384
-     (n = 26112), B=128, 8 layered sweeps: float32 messages bit-identical,
-     bfloat16 messages with identical bits, both payload-exact;
+     (n = 26112), B=128, 8 layered sweeps, float32 and bfloat16 messages, and
+     at the e2e decode shape (B=24, 16 sweeps, bfloat16): bit-identical
+     (int32 views), payload-exact;
  18. `ops.ldpc.build_decoder(kernels="auto")` on the card for the bench's
      five decode rows: the tier taken, K3/K4 launches of one call (counts set
      to 0 just before it), payload-exactness, ms per batch;
@@ -49,7 +52,8 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      rate 1/2 onto a 273-PRB single-hop QPSK grid, Gaussian LLRs at 3.5 dB,
      extract_streams, the auto decoder (K3, bfloat16 messages), every CRC ok;
  20. times with CUDA events: K3 and K4 against their plain versions at the
-     rows above, K5's one-call PyTorch counterpart (F.conv1d), K5 and
+     rows above (K3 also at the e2e shape), with their device-only times
+     from the profiler, K5's one-call PyTorch counterpart (F.conv1d), K5 and
      F.conv1d three ways (cold-L2 events, device-only kernel time from the
      profiler, host us per call), K2's and K6's one-call yardstick (one
      torch.einsum over the ri operands, held to the plain version at
@@ -87,8 +91,8 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      turns call by call), the CRC's share of one device-path call (cProfile,
      both forms) and the
      functions with the most own time, K7's ns per pass at c3 width (one
-     block a row), and the device idle share of one e2e call
-     (torch.profiler).
+     block a row), and the device busy time and idle share of one e2e
+     device-path call with K3's share of the busy time (torch.profiler).
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -100,6 +104,7 @@ import dataclasses
 import json
 import pstats
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -146,6 +151,32 @@ def _crc_bits_serial(bits, kind):
     for i in range(deg):
         out[:, i] = ((reg >> np.uint64(deg - 1 - i)) & np.uint64(1)).astype(np.uint8)
     return out.reshape(lead + (deg,))
+
+
+def ptxas_kernels(log):
+    """(kernel, registers, static shared memory bytes, spill line) of each
+    entry function in an nvcc -Xptxas -v report, names demangled by c++filt."""
+    rows, name, regs, smem = [], None, None, 0
+    spill = ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name, regs, smem, spill = m.group(1), None, 0, ""
+        elif name and "spill" in ln:
+            spill = ln.strip()
+        elif name and "Used" in ln and "registers" in ln:
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            smem = int(sm.group(1)) if sm else 0
+            rows.append([name, regs, smem, spill])
+            name = None
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, nm in zip(rows, names):
+                r[0] = nm
+    return rows
 
 
 def check_rtol(name, got, want, rtol, atol=0.0):
@@ -213,17 +244,16 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s for {list(_build.SOURCES)}")
-    # K5 and K7 keep every instantiation in registers: a library built before
-    # this run left no ptxas report here, so it is rebuilt to give one
-    checked = ("rc_smooth", "inpaint")
+    # K5, K7, K4 and K3 keep every instantiation in registers: a library built
+    # before this run left no ptxas report here, so it is rebuilt to give one
+    checked = ("rc_smooth", "inpaint", "ldpc", "ldpc_stream")
     unlogged = [src for src in checked if src not in _build.build_logs]
     if unlogged:
         _build.build_all(unlogged, force=True)
         print(f"phase 2 build: rebuilt {unlogged} for their ptxas reports")
     for src, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}")
+        for kern, regs, smem_s, spill in ptxas_kernels(log):
+            print(f"  ptxas {src}: {kern}: {regs} registers, {smem_s} B static smem, {spill}")
     for src in checked:
         log = _build.build_logs.get(src)
         if not log or "registers" not in log:
@@ -232,8 +262,8 @@ def main() -> int:
                   if any(int(b) for b in re.findall(r"(\d+) bytes spill", ln))]
         if spills:
             fail(f"ptxas spills in {src}: {spills}")
-    print("phase 2 ptxas: no spills in any rc_smooth (K5) or inpaint (K7) instantiation "
-          "(this run's ptxas reports read)")
+    print("phase 2 ptxas: no spills in any rc_smooth (K5), inpaint (K7), ldpc (K4) or "
+          "ldpc_stream (K3) instantiation (this run's ptxas reports read)")
 
     # cases: four seeds, tiled to the batch
     def tiled(kw, batch):
@@ -432,15 +462,16 @@ def main() -> int:
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-                 for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-        if not us > 0:
-            fail("the profiler saw no device time")
-        return us / n / 1e3
+        for _ in range(3):  # a profiler session now and then records no kernel: take another
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                     for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+            if us > 0:
+                return us / n / 1e3
+        fail("the profiler saw no device time in 3 sessions")
 
     def host_us(fn, n=1000):
         """Host us per call: perf_counter over n calls without a synchronise
@@ -635,6 +666,16 @@ def main() -> int:
         return bool(ldpc._parity_ok(bits, w).all()) and np.array_equal(
             bits[:, w.info_cols].cpu().numpy(), u)
 
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def plan_text(plan, batch, msg_bytes, layered, group):
+        """The K3/K4 launch plan of a call: route, codewords a block, threads, smem."""
+        lp = k4.launch_plan(k4.wiring(plan, dev), batch, msg_bytes, layered,
+                            min(group, plan.code.n_check_blocks), n_sms)
+        return (f"route {lp.route}, {lp.cpb} codeword(s) a block, {lp.blocks} blocks of "
+                f"{lp.threads} threads, {lp.smem} B dynamic smem (<= {k4.SMEM_LIMIT})"
+                + (f", {lp.scratch} B of records per codeword in L2" if lp.scratch else ""))
+
     def ldpc_ops(plan, batch, iters, schedule):
         """float32 operations of min-sum on these words: per edge lane and sweep,
         flooding 8 (the posterior add; v = L - c2v, |v|, its sign, the two-min
@@ -672,25 +713,27 @@ def main() -> int:
             label = f"{row} {sched}-{iters} G={grp} B={batch}"
             k4_cfgs.append((label, plan, ch, iters, sched, grp))
             print(f"phase 16 K4 vs plain ({label}, z={code.z}, {len(plan.edges)} edges): "
-                  "bit-identical, payload-exact")
+                  f"bit-identical, payload-exact; {plan_text(plan, batch, 4, sched == 'layered', grp)}")
 
-    # 17. K3 vs plain at the largest NR code block
+    # 17. K3 vs plain at the largest NR code block, and at the e2e decode shape
     code384 = nr_ldpc.nr_base_graph(1, 384)
     plan384, u384, ch384 = words(code384, 128, 3.5)
+    _, u24w, ch24 = words(code384, 24, 3.5, seed=1)
     k3_err = 0.0
-    for c2v in (None, "bfloat16"):
-        got = k3.ldpc_stream_posterior(ch384, plan384, 8, 0.75, 1, c2v)
-        want = k3.ldpc_stream_posterior_plain(ch384, plan384, 8, 0.75, 1, c2v)
+    for ch_, u_, sweeps, c2v in ((ch384, u384, 8, None), (ch384, u384, 8, "bfloat16"),
+                                 (ch24, u24w, 16, "bfloat16")):
+        got = k3.ldpc_stream_posterior(ch_, plan384, sweeps, 0.75, 1, c2v)
+        want = k3.ldpc_stream_posterior_plain(ch_, plan384, sweeps, 0.75, 1, c2v)
         torch.cuda.synchronize()
-        equal = torch.equal(got, want)
-        if (c2v is None and not equal) or not torch.equal(got < 0, want < 0):
-            fail(f"K3 c2v={c2v}: max abs diff {float((got - want).abs().max()):.3e} vs plain")
-        if not payload_exact(got, plan384, u384):
-            fail(f"K3 c2v={c2v}: not payload-exact")
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"K3 B={ch_.shape[0]} c2v={c2v}: max abs diff {float((got - want).abs().max()):.3e} "
+                 "vs plain, expected bit-identical")
+        if not payload_exact(got, plan384, u_):
+            fail(f"K3 B={ch_.shape[0]} c2v={c2v}: not payload-exact")
         k3_err = max(k3_err, float((got - want).abs().max()))
-        print(f"phase 17 K3 vs plain (NR BG1 Z=384 n={code384.n}, B=128, layered-8 G=1, "
-              f"c2v {c2v or 'float32'}): posterior {'bit-identical' if equal else 'differs'}, "
-              "bits identical, payload-exact")
+        print(f"phase 17 K3 vs plain (NR BG1 Z=384 n={code384.n}, B={ch_.shape[0]}, layered-{sweeps} "
+              f"G=1, c2v {c2v or 'float32'}): posterior bit-identical (int32 views), payload-exact; "
+              f"{plan_text(plan384, ch_.shape[0], 4 if c2v is None else 2, True, 1)}")
     results["ldpc_posterior"] = 0.0
     results["ldpc_stream_posterior"] = k3_err
 
@@ -762,21 +805,25 @@ def main() -> int:
           f"launches K3 {cnt['ldpc_stream_posterior']}")
 
     # 20. times and bounds
+    # K4 and K3: cold-L2 events against the plain version, device-only beside them
     for label, plan, ch, iters, sched, grp in k4_cfgs:
-        t = ab(lambda: k4.ldpc_posterior(ch, plan, iters, 0.75, sched, grp),
-               lambda: k4.ldpc_posterior_plain(ch, plan, iters, 0.75, sched, grp), iters=5)
+        fn = lambda: k4.ldpc_posterior(ch, plan, iters, 0.75, sched, grp)
+        t = ab(fn, lambda: k4.ldpc_posterior_plain(ch, plan, iters, 0.75, sched, grp), iters=5)
         b_ms, b_by, tb, to = bound(2 * ch.numel() * 4, ldpc_ops(plan, ch.shape[0], iters, sched))
         times.setdefault("ldpc_posterior", t + (b_ms, b_by))
-        print(f"phase 20 K4 {label}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}; bytes {tb:.4f}, operations {to:.4f}), cold L2 {card}")
-    for c2v in ("bfloat16", None):
-        t = ab(lambda: k3.ldpc_stream_posterior(ch384, plan384, 8, 0.75, 1, c2v),
-               lambda: k3.ldpc_stream_posterior_plain(ch384, plan384, 8, 0.75, 1, c2v), iters=5)
-        b_ms, b_by, tb, to = bound(2 * ch384.numel() * 4, ldpc_ops(plan384, 128, 8, "layered"))
-        times.setdefault("ldpc_stream_posterior", t + (b_ms, b_by))
-        print(f"phase 20 K3 BG1 Z=384 B=128 layered-8 G=1 c2v {c2v or 'float32'}: kernel {t[0]:.4f} ms, "
+        print(f"phase 20 K4 {label}: kernel {t[0]:.4f} ms, device-only {device_ms(fn, 20):.4f} ms, "
               f"plain {t[1]:.4f} ms, bound {b_ms:.4f} ms ({b_by}; bytes {tb:.4f}, operations "
               f"{to:.4f}), cold L2 {card}")
+    for ch_, sweeps, c2v in ((ch384, 8, "bfloat16"), (ch384, 8, None), (ch24, 16, "bfloat16")):
+        B_ = ch_.shape[0]
+        fn = lambda: k3.ldpc_stream_posterior(ch_, plan384, sweeps, 0.75, 1, c2v)
+        t = ab(fn, lambda: k3.ldpc_stream_posterior_plain(ch_, plan384, sweeps, 0.75, 1, c2v),
+               iters=5)
+        b_ms, b_by, tb, to = bound(2 * ch_.numel() * 4, ldpc_ops(plan384, B_, sweeps, "layered"))
+        times.setdefault("ldpc_stream_posterior", t + (b_ms, b_by))
+        print(f"phase 20 K3 BG1 Z=384 B={B_} layered-{sweeps} G=1 c2v {c2v or 'float32'}: kernel "
+              f"{t[0]:.4f} ms, device-only {device_ms(fn, 20):.4f} ms, plain {t[1]:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; bytes {tb:.4f}, operations {to:.4f}), cold L2 {card}")
 
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     rx, pil_f, beta_f, mats = f_args
@@ -852,7 +899,6 @@ def main() -> int:
         x = np.where(known, np.random.default_rng(seed).standard_normal((B, C, n)), 0.0)
         return known, torch.as_tensor(x, dtype=torch.float32, device=dev)
 
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     k7_shapes = (  # label, B, C = 2 nL, n, comb, iterations (max(6, n // 8), plan.py:323)
         ("JAX test (48, comb 2)", 2, 4, 48, 2, 6),
         ("JAX test (96, comb 4)", 2, 4, 96, 4, 12),
@@ -1237,12 +1283,15 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run_slots(8, True)
         torch.cuda.synchronize()
-    busy_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-                  for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    dev_us = {e.key: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+              for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    busy_us = sum(dev_us.values())
+    k3_us = sum(us for key, us in dev_us.items() if "layered_kernel" in key)  # K3's kernels
     if busy_us > 0:
         print(f"phase 25 e2e device path, 8 slots: device busy {busy_us / 1e3:.3f} ms of "
               f"{wall8 * 1e3:.1f} ms unprofiled wall, idle share "
-              f"{100 * (1 - busy_us / 1e3 / (wall8 * 1e3)):.1f} % (torch.profiler) {card}")
+              f"{100 * (1 - busy_us / 1e3 / (wall8 * 1e3)):.1f} %; K3 {k3_us / 1e3:.3f} ms of the "
+              f"busy time ({100 * k3_us / busy_us:.1f} %) (torch.profiler) {card}")
     else:
         print("phase 25 e2e idle share: not measured (the profiler saw no device time)")
 

@@ -7,22 +7,37 @@ the posterior, bit-identical to the `"xla"` tier of `ops/ldpc.build_decoder`
 (same edge order, same association, the first-minimum tie of `argmin`).
 `ops/ldpc.build_decoder(kernels="pallas")` reaches it.
 
-CUDA kernel (csrc/ldpc.cu): one thread block per codeword, the posterior L
-(n floats, 43 KB at BG2 Z=208) in shared memory and the check-to-variable
-messages c2v (n_edges x z floats, 219 KB at BG2 Z=208, more than a block's
-shared memory) in a global scratch that stays in L2 (28 MB at B=128). The
-wiring comes from one int32 table (per edge its variable block and shift,
-the row and column edge lists); a cyclic shift is index math mod z.
+CUDA kernel (csrc/ldpc.cu, with csrc/ldpc_common.cuh): the messages are
+kept as records, one per (check row, lane): every message a row stores at a
+lane is +-r1 or +-r2 (r1, r2 its stored normalized minima; r2 at the first
+minimum), so {r1, r2, a word of the first-minimum slot and the messages' sign
+bits} rebuilds each of them bit for bit, -0.0 included. At BG2 Z=208 that is
+42 x 208 x 12 B = 105 KB per codeword instead of 219 KB of per-edge
+messages. The wiring (packed per edge and per column edge, about 4 KB) is
+copied into shared memory once per block; the slot loops are unrolled over
+a degree bucket (8, 16 or 27) and leave at the row's degree, so a row's L
+reads are in flight together.
+`launch_plan` (mirroring `ldpc::make_plan`) picks one of two routes:
+- chip: L, the records and (flooding) the LLRs all in shared memory, the
+  TPU kernel's all-in-VMEM layout (BG2 Z=208 flooding: 191 KB; BG1 Z=52:
+  57 KB; n976: 12 KB), several codewords a block where z is small (lanes
+  filling warps while the blocks still cover the SMs);
+- stream: L in shared memory, the records in a global scratch that L2 holds,
+  for codes whose state does not fit one block (227 KB); the layered sweep
+  brings each row group's records in a step ahead with `cp.async`, into a
+  double buffer.
+A code whose posterior and row buffers exceed the limit is refused. No route
+is chosen by catching an error, and no call falls back.
 - Flooding: one thread per variable bit sums ch + the column's messages in
-  edge order (no atomics: their order is not fixed), then one thread per
-  check lane folds its row's two minima and writes the row's messages.
-- Layered: one thread per check lane of the group's rows computes its
-  messages from the L snapshot and the change to L (into a global delta
-  scratch when group > 1), then the rows are applied in order, one
-  `__syncthreads()` apart. Within one row each variable block appears once
-  (a QC base matrix has one shift per (row, column)), so a row's update
-  touches distinct L elements. With group == 1 each lane applies its own
-  change at once.
+  edge order, each rebuilt from its row's record at lane (a - s) mod z (no
+  atomics: their order is not fixed), then one thread per check lane folds
+  its row's two minima and rewrites its record in place.
+- Layered: one thread per check lane of the group's rows computes its new
+  record from the L snapshot. With group == 1 each lane applies new - old
+  to L at once (within one row each variable block appears once: a QC base
+  matrix has one shift per (row, column)); with group > 1 the old records are
+  kept and the rows are applied in order, one `__syncthreads()` apart, each
+  delta rebuilt from the old and the new record (no delta scratch).
 Every add, subtract and product is a `__fadd_rn`/`__fsub_rn`/`__fmul_rn`, so
 no FMA contraction moves a bit against the plain version.
 
@@ -30,8 +45,10 @@ What bounds it on the H100: the bytes are tiny (the LLRs read once, the
 posterior written once: 11 MB at BG2 Z=208, B=128); the work is about 10
 operations per edge lane per sweep, serial through the sweeps and, in the
 layered schedule, through the rows. So it is bound by the latency of its
-row steps, not by a roofline (see PERF.md). The TPU's sublane-z / lane-z
-tilings and batch tiles are TPU layouts and have no counterpart.
+row steps (a barrier, one lane's slot loop and its two-min fold) and, with
+wide rows, by one SM's issue rate, not by a roofline (see PERF.md). The
+TPU's sublane-z / lane-z tilings and batch tiles are TPU layouts and have no
+counterpart.
 
 The wiring tables (`Wiring`, per code and device) serve every tier of
 `ops/ldpc.build_decoder`, the plain ones included.
@@ -45,7 +62,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from . import _build, check_cuda_f32
+from . import bind, check_cuda_f32, launch
 
 #: kernel launches since the count was last set to 0 (incremented only where
 #: the CUDA kernel is launched, never by the plain version)
@@ -54,11 +71,17 @@ launches = 0
 BIG = 1e30  # the JAX package's mask value for padded check slots (never wins a min)
 #: dynamic shared memory one block may use on the H100 (227 KB)
 SMEM_LIMIT = 232448
-MAX_DEGREE = 32  # the kernels keep a row's sign bits in one 32-bit word
+#: a record's word holds the first-minimum slot in 5 bits and one message
+#: sign bit per slot in the other 27
+MAX_DEGREE = 27
+MAX_ROWS = 2048  # a packed column edge holds its row in 11 bits
+MAX_THREADS = 512
+ROUTES = ("chip", "stream")  # route 0: every record in shared memory; 1: records in L2
 
 _PTR = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_PTR] * 5 + [_I] * 7 + [ctypes.c_float, _I, _I, _PTR]
+PLAN_ARGTYPES = [ctypes.POINTER(ctypes.c_longlong)] + [_I] * 9
 
 
 @dataclass(frozen=True)
@@ -231,6 +254,74 @@ def ldpc_posterior_plain(ch: torch.Tensor, plan, n_iters: int, norm: float,
     return flooding_plain(ch, plan, w, n_iters, norm)
 
 
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one call runs (`launch_plan`): the route (`ROUTES`), codewords per
+    block, threads per block, blocks, one block's dynamic shared memory, the
+    stream route's global record bytes per codeword (0 on the chip route),
+    and one codeword's shared-memory region."""
+
+    route: str
+    cpb: int
+    threads: int
+    blocks: int
+    smem: int
+    scratch: int
+    per_cw: int
+
+
+def _pad16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def record_stride(z: int, msg_bytes: int) -> int:
+    """Bytes of one check row's records: the {r1, r2} plane (2 messages a
+    lane) and the word plane, each padded to 16 bytes."""
+    return _pad16(2 * msg_bytes * z) + _pad16(4 * z)
+
+
+def launch_plan(w: Wiring, batch: int, msg_bytes: int, layered: bool, group: int,
+                n_sm: int) -> LaunchPlan:
+    """The route, codewords per block and shared memory of a launch, as
+    `ldpc::make_plan` (csrc/ldpc_common.cuh) computes them; raises when
+    neither route fits one block's shared memory.
+
+    Shared memory: the packed wiring, then per codeword L (and, flooding on
+    the chip route, the LLRs) and the records: all of them on the chip route
+    (plus the group's old records when layered with group > 1), two row-group
+    buffers (plus the group's new records when group > 1) on the stream
+    route. A block takes the most codewords, c, such that its shared memory
+    fits, c times the threads of one row step (one a check lane layered, one
+    a bit or check lane flooding) fill at most MAX_THREADS, and
+    ceil(batch / c) blocks still cover the `n_sm` SMs."""
+    mb, nb, z, E = w.mb, w.nb, w.z, w.n_edges
+    n = nb * z
+    G = group if layered else 1
+    stride = record_stride(z, msg_bytes)
+    # row_ptr, the packed edges, and (flooding) the column lists
+    wiring_b = _pad16(4 * (mb + 1)) + _pad16(4 * E) + (0 if layered else _pad16(4 * (nb + 1 + E)))
+    lb = _pad16(4 * n)
+    chip = lb + (0 if layered else lb) + mb * stride + (G * stride if layered and G > 1 else 0)
+    stream = lb + ((3 if G > 1 else 2) * G * stride if layered else 0)
+    lanes = G * z if layered else max(mb * z, n)  # threads of one row step
+    if wiring_b + chip <= SMEM_LIMIT:
+        route, per = "chip", chip
+    elif wiring_b + stream <= SMEM_LIMIT:
+        route, per = "stream", stream
+    else:
+        raise ValueError(
+            f"the decoder state does not fit one block's shared memory ({SMEM_LIMIT} B): "
+            f"z={z}, n={n}, group={G}, {msg_bytes}-byte messages need {wiring_b + stream} B "
+            "on the stream route")
+    c = 1
+    while (wiring_b + (c + 1) * per <= SMEM_LIMIT and (c + 1) * lanes <= MAX_THREADS
+           and (batch + c) // (c + 1) >= n_sm):
+        c += 1
+    return LaunchPlan(route=route, cpb=c, threads=min(MAX_THREADS, -(-c * lanes // 32) * 32),
+                      blocks=-(-batch // c), smem=wiring_b + c * per,
+                      scratch=mb * stride if route == "stream" else 0, per_cw=per)
+
+
 def check_args(ch: torch.Tensor, plan, group: int):
     """Validate what the LDPC kernels take; returns (device, Wiring)."""
     device = check_cuda_f32(ch=ch)
@@ -240,6 +331,8 @@ def check_args(ch: torch.Tensor, plan, group: int):
         raise ValueError(f"ch must be (B >= 1, n={n}), got {tuple(ch.shape)}")
     if w.d > MAX_DEGREE:
         raise ValueError(f"the kernels take check rows of degree <= {MAX_DEGREE}, got {w.d}")
+    if w.mb >= MAX_ROWS:
+        raise ValueError(f"the kernels take fewer than {MAX_ROWS} check rows, got {w.mb}")
     if 4 * n > SMEM_LIMIT:
         raise ValueError(f"the posterior ({4 * n} B) must fit one block's shared memory "
                          f"({SMEM_LIMIT} B)")
@@ -248,12 +341,17 @@ def check_args(ch: torch.Tensor, plan, group: int):
     return device, w
 
 
-def _lib():
-    fn = _build.load("ldpc").srs_ldpc_posterior_f32
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+def prepare(w: Wiring, device, batch: int, msg_bytes: int, layered: bool, group: int):
+    """(LaunchPlan, record scratch or None) of a launch on `device`: the plan
+    for its SM count, its shared memory checked against SMEM_LIMIT, and the
+    stream route's uint8 scratch (batch x plan.scratch bytes)."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    lp = launch_plan(w, batch, msg_bytes, layered, group, n_sm)
+    if lp.smem > SMEM_LIMIT:
+        raise ValueError(f"launch needs {lp.smem} B of shared memory, a block has {SMEM_LIMIT}")
+    rec = (torch.empty(batch * lp.scratch, dtype=torch.uint8, device=device)
+           if lp.scratch else None)
+    return lp, rec
 
 
 def ldpc_posterior(ch: torch.Tensor, plan, n_iters: int, norm: float,
@@ -271,19 +369,12 @@ def ldpc_posterior(ch: torch.Tensor, plan, n_iters: int, norm: float,
     B = ch.shape[0]
     layered = schedule == "layered"
     g = min(group, w.mb)
+    _, rec = prepare(w, device, B, 4, layered, g)
     out = torch.empty_like(ch)
-    c2v = torch.empty((B, w.n_edges, w.z), dtype=torch.float32, device=device)
-    delta = (torch.empty((B, g * w.d * w.z), dtype=torch.float32, device=device)
-             if layered and g > 1 else None)
-    fn = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(ch.data_ptr(), out.data_ptr(), c2v.data_ptr(),
-                None if delta is None else delta.data_ptr(), w.table.data_ptr(),
-                B, w.n_edges, w.mb, w.nb, w.z, w.d, int(n_iters), float(norm),
-                int(layered), g, stream)
-    if rc != 0:
-        raise RuntimeError(f"ldpc_posterior kernel launch failed: CUDA error {rc}")
+    launch("ldpc_posterior", bind("ldpc", "srs_ldpc_posterior_f32", _ARGTYPES), device,
+           ch.data_ptr(), out.data_ptr(), None if rec is None else rec.data_ptr(), None,
+           w.table.data_ptr(), B, w.n_edges, w.mb, w.nb, w.z, w.d, int(n_iters), float(norm),
+           int(layered), g)
     global launches
     launches += 1
     return out

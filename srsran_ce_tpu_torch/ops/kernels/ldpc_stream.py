@@ -12,22 +12,29 @@ is stored. `ops/ldpc.build_decoder(kernels="pallas_stream")` reaches it, and
 (NR BG1 at Z=384, the largest code block).
 
 CUDA kernel (csrc/ldpc_stream.cu, the layered sweep of csrc/ldpc_common.cuh
-instantiated for both message types): one thread block per codeword, L (n
-floats, 102 KB at BG1 Z=384) in dynamic shared memory, the messages in a
-global scratch (408 edges x 384 lanes per codeword: 612 KiB in float32,
-306 KiB in bfloat16, more than a block's 227 KB of shared memory; 80 or 40 MB
-at B=128, so the bfloat16 scratch stays in the 50 MB L2 and the float32 one
-does not). One thread per check lane of the group's rows;
-the rows of a group are applied in order, one `__syncthreads()` apart. The
-TPU kernel's z padding to 128 lanes and its two-rotation `roll_mod_z` have no
+instantiated for both message types; see `ops/kernels/ldpc.py` for the
+records and the routes): the messages are kept as one record per (check
+row, lane), {r1, r2} in the message type and a word of the first-minimum
+slot and the sign bits, 8 B in bfloat16 and 12 B in float32, instead of deg
+messages. At NR BG1 Z=384 L takes 104,448 B of a block's shared memory and
+the records, 141 KB (bf16) or 212 KB (f32) per codeword, do not fit beside
+it: they stay in a global scratch (18 / 27 MB at B=128, both held by the
+50 MB L2), one contiguous block of a row group's records, which `cp.async`
+brings into a double buffer in shared memory one row step ahead. A block
+uses about 112 KB (bf16) or 116 KB (f32) there. Each check lane reads one
+record and writes one per row step; its slot loop is unrolled over a
+degree bucket, so the row's L reads are in flight together. Smaller codes
+take the chip route (every record in shared memory), as K4 does. The TPU
+kernel's z padding to 128 lanes and its two-rotation `roll_mod_z` have no
 counterpart: a shift is index math mod z. Padded group rows and padded slots
-do nothing (the TPU kernel stores 0 there, never norm * 1e30, which is inf in
-bfloat16).
+do nothing (the TPU kernel stores 0 there, never norm * 1e30, which is inf
+in bfloat16).
 
 What bounds it on the H100: 128 codewords are 128 blocks, one wave on 132
 SMs, and each sweep is mb row steps in series; the bytes (the LLRs in, the
 posterior out, 27 MB at B=128) need 8 us at 3.35 TB/s, so it is bound by the
-latency of the row steps (see PERF.md).
+latency of the row steps: a barrier, one lane's slot loop (up to 22 slots)
+and its two-min fold (see PERF.md).
 """
 from __future__ import annotations
 
@@ -35,8 +42,8 @@ import ctypes
 
 import torch
 
-from . import _build
-from .ldpc import check_args, layered_plain, wiring
+from . import bind, launch
+from .ldpc import check_args, layered_plain, prepare, wiring
 
 #: kernel launches since the count was last set to 0 (incremented only where
 #: the CUDA kernel is launched, never by the plain version)
@@ -66,14 +73,6 @@ def ldpc_stream_posterior_plain(ch: torch.Tensor, plan, n_iters: int, norm: floa
     return layered_plain(ch, w, n_iters, norm, max(1, min(int(group), w.mb)), cdt)
 
 
-def _lib():
-    fn = _build.load("ldpc_stream").srs_ldpc_stream_posterior
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def ldpc_stream_posterior(ch: torch.Tensor, plan, n_iters: int, norm: float,
                           group: int = 1, c2v_dtype=None) -> torch.Tensor:
     """Layered normalized min-sum posterior of (B, n) channel LLRs after
@@ -88,19 +87,13 @@ def ldpc_stream_posterior(ch: torch.Tensor, plan, n_iters: int, norm: float,
     device, w = check_args(ch, plan, 1)
     B = ch.shape[0]
     g = max(1, min(int(group), w.mb))
+    bf16 = cdt == torch.bfloat16
+    _, rec = prepare(w, device, B, 2 if bf16 else 4, True, g)
     out = torch.empty_like(ch)
-    c2v = torch.empty((B, w.n_edges, w.z), dtype=cdt, device=device)
-    delta = (torch.empty((B, g * w.d * w.z), dtype=torch.float32, device=device)
-             if g > 1 else None)
-    fn = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(ch.data_ptr(), out.data_ptr(), c2v.data_ptr(),
-                None if delta is None else delta.data_ptr(), w.table.data_ptr(),
-                B, w.n_edges, w.mb, w.nb, w.z, w.d, float(norm), int(n_iters), g,
-                int(cdt == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"ldpc_stream_posterior kernel launch failed: CUDA error {rc}")
+    launch("ldpc_stream_posterior", bind("ldpc_stream", "srs_ldpc_stream_posterior", _ARGTYPES),
+           device, ch.data_ptr(), out.data_ptr(), None if rec is None else rec.data_ptr(), None,
+           w.table.data_ptr(), B, w.n_edges, w.mb, w.nb, w.z, w.d, float(norm), int(n_iters), g,
+           int(bf16))
     global launches
     launches += 1
     return out

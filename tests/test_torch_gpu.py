@@ -380,6 +380,124 @@ def test_ldpc_wrappers_reject_what_the_kernels_do_not_take():
         dec(ch.double())
 
 
+def bits_equal(got, want):
+    """Bit-identity of two float32 tensors (-0.0 and +0.0 told apart)."""
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("name,batch,sweeps,c2v", [
+    ("bg1_z384", 24, 16, "bfloat16"), ("bg1_z384", 1, 4, "bfloat16"), ("bg1_z384", 1, 4, None),
+    ("bg1_z384", 200, 2, "bfloat16"), ("bg1_z384", 200, 2, None),
+])
+def test_ldpc_stream_kernel_at_the_e2e_and_edge_batches(name, batch, sweeps, c2v):
+    """K3 at the e2e decode shape (24 words, 16 sweeps), one word, and more
+    words than SMs (a second wave of blocks): the stream route, bit for bit."""
+    code = LDPC_CODES[name]()
+    plan = tl.make_ldpc_plan(code)
+    _, ch = awgn_llrs(code, batch, seed=batch)
+    w = k4.wiring(plan, ch.device)
+    assert k4.launch_plan(w, batch, 2 if c2v else 4, True, 1, sm_count()).route == "stream"
+    got = k3.ldpc_stream_posterior(ch, plan, sweeps, 0.75, c2v_dtype=c2v)
+    want = k3.ldpc_stream_posterior_plain(ch, plan, sweeps, 0.75, c2v_dtype=c2v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and bits_equal(got, want), float((got - want).abs().max())
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("schedule,group", [("flooding", 1), ("layered", 1), ("layered", 2)])
+def test_ldpc_posterior_kernel_several_codewords_a_block_ragged(schedule, group):
+    """n976 at B=513: several codewords a block (layered) and a ragged last block."""
+    code = LDPC_CODES["n976"]()
+    plan = tl.make_ldpc_plan(code)
+    _, ch = awgn_llrs(code, 513, seed=7)
+    lp = k4.launch_plan(k4.wiring(plan, ch.device), 513, 4, schedule == "layered", group, sm_count())
+    assert lp.route == "chip" and (lp.cpb > 1 or schedule == "flooding")
+    got = k4.ldpc_posterior(ch, plan, 5, 0.75, schedule=schedule, group=group)
+    want = k4.ldpc_posterior_plain(ch, plan, 5, 0.75, schedule=schedule, group=group)
+    torch.cuda.synchronize()
+    assert bits_equal(got, want), float((got - want).abs().max())
+
+
+# every route of the table: (kernel, code, schedule, group, message type, route)
+ROUTE_CASES = [
+    ("k4", "bg2_z208", "flooding", 1, None, "chip"), ("k4", "bg2_z208", "layered", 8, None, "chip"),
+    ("k4", "bg1_z384", "flooding", 1, None, "stream"), ("k4", "bg1_z384", "layered", 1, None, "stream"),
+    ("k4", "bg1_z384", "layered", 3, None, "stream"), ("k3", "bg1_z52", "layered", 2, "bfloat16", "chip"),
+    ("k3", "bg2_z144", "layered", 3, None, "chip"), ("k3", "bg1_z384", "layered", 3, "bfloat16", "stream"),
+    ("k3", "bg1_z384", "layered", 2, None, "stream"),
+]
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("kern,name,schedule,group,c2v,route", ROUTE_CASES)
+def test_ldpc_kernels_on_each_route(kern, name, schedule, group, c2v, route):
+    code = LDPC_CODES[name]()
+    plan = tl.make_ldpc_plan(code)
+    _, ch = awgn_llrs(code, 6, seed=group)
+    w = k4.wiring(plan, ch.device)
+    lp = k4.launch_plan(w, 6, 2 if c2v else 4, schedule == "layered", group, sm_count())
+    assert lp.route == route and lp.smem <= k4.SMEM_LIMIT
+    if kern == "k4":
+        got = k4.ldpc_posterior(ch, plan, 3, 0.75, schedule=schedule, group=group)
+        want = k4.ldpc_posterior_plain(ch, plan, 3, 0.75, schedule=schedule, group=group)
+    else:
+        got = k3.ldpc_stream_posterior(ch, plan, 3, 0.75, group=group, c2v_dtype=c2v)
+        want = k3.ldpc_stream_posterior_plain(ch, plan, 3, 0.75, group=group, c2v_dtype=c2v)
+    torch.cuda.synchronize()
+    assert bits_equal(got, want), float((got - want).abs().max())
+
+
+@NEEDS_GPU
+def test_ldpc_launch_plan_mirrors_the_kernels_plan():
+    """`launch_plan` against `ldpc::make_plan` through `srs_ldpc_plan` of both
+    libraries, at every code of these tests, both schedules, groups and
+    message types, and batches around the SM count."""
+    import ctypes
+
+    from srsran_ce_tpu_torch.ops.kernels import bind
+
+    n_sm = sm_count()
+    fns = [bind(src, "srs_ldpc_plan", k4.PLAN_ARGTYPES) for src in ("ldpc", "ldpc_stream")]
+    out = (ctypes.c_longlong * 7)()
+    n_cases = 0
+    for name, make in LDPC_CODES.items():
+        w = k4.wiring(tl.make_ldpc_plan(make()), "cuda")
+        for layered, group in ((False, 1), (True, 1), (True, 2), (True, 8), (True, 16)):
+            for msg_bytes in (2, 4):
+                for batch in (1, 24, n_sm - 1, n_sm, 3 * n_sm + 1, 513):
+                    rcs = [fn(out, batch, w.n_edges, w.mb, w.nb, w.z, msg_bytes, int(layered),
+                              group, n_sm) for fn in fns]
+                    try:
+                        lp = k4.launch_plan(w, batch, msg_bytes, layered, group, n_sm)
+                    except ValueError:
+                        assert all(rc != 0 for rc in rcs), (name, layered, group, msg_bytes)
+                        continue
+                    assert rcs == [0, 0]
+                    assert list(out) == [k4.ROUTES.index(lp.route), lp.cpb, lp.threads, lp.blocks,
+                                         lp.smem, lp.scratch, lp.per_cw], (name, layered, group)
+                    n_cases += 1
+    assert n_cases > 100
+
+
+@NEEDS_GPU
+def test_ldpc_wrappers_refuse_what_no_route_takes():
+    ch = torch.zeros((2, 28 * 29), device="cuda")
+    wide = tl.make_ldpc_plan(tl.array_code(3, 28, 29))  # rows of degree 28 > MAX_DEGREE
+    with pytest.raises(ValueError, match=f"degree <= {k4.MAX_DEGREE}"):
+        k4.ldpc_posterior(ch, wide, 2, 0.75)
+    with pytest.raises(ValueError, match=f"degree <= {k4.MAX_DEGREE}"):
+        k3.ldpc_stream_posterior(ch, wide, 2, 0.75)
+    plan = tl.make_ldpc_plan(LDPC_CODES["bg1_z384"]())
+    ch = torch.zeros((2, plan.code.n), device="cuda")
+    with pytest.raises(ValueError, match="does not fit"):  # 16 rows of f32 buffers beside L
+        k3.ldpc_stream_posterior(ch, plan, 2, 0.75, group=16)
+
+
 # ---------------------------------------------------------------------------
 # K7 (inpaint_stack): the kernel keeps the plain version's order of
 # operations (products by 1/4 and 1/2 are exact), bit-identical; the

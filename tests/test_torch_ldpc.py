@@ -491,3 +491,161 @@ def test_wrappers_take_the_plain_version_on_cpu():
     assert torch.equal(dec(ch).posterior, k4.ldpc_posterior_plain(ch, plan, 3, 0.75))
     assert torch.equal(k3.ldpc_stream_posterior_plain(ch, plan, 3, 0.75),
                        k4.ldpc_posterior_plain(ch, plan, 3, 0.75, "layered"))
+
+
+# ---------------------------------------------------------------------------
+# the kernels' compressed check-row records (csrc/ldpc_common.cuh), modelled
+# in float32 torch: each row keeps one record per lane, {r1, r2} in the
+# message type and a word i1 | message sign bits << 5; old messages and
+# deltas are rebuilt from records. Held bit for bit (int32 views, so -0.0 is
+# told from +0.0) to the plain versions.
+# ---------------------------------------------------------------------------
+
+
+def rec_msgs(rec, deg):
+    """(B, deg, z) messages of slots 0 .. deg-1 rebuilt from a row's records."""
+    r1, r2, word = rec
+    t = torch.arange(deg)[None, :, None]
+    mag = torch.where(t == (word & 31)[:, None], r2[:, None], r1[:, None])
+    return torch.where(((word[:, None] >> (t + 5)) & 1) == 1, -mag, mag)
+
+
+def rec_fold(v, norm, mdt):
+    """A check lane's fold over the slots (axis 1) of v = L - old: the two
+    minima (strict <, so the first minimum wins a tie), the parity, and the
+    new record (r1, r2 rounded to the message type, the word)."""
+    deg = v.shape[1]
+    m = v.abs()
+    m1, m2 = m[:, 0], torch.full_like(m[:, 0], k4.BIG)
+    i1 = torch.zeros(m1.shape, dtype=torch.int64)
+    negs = torch.zeros(m1.shape, dtype=torch.int64)
+    for t in range(deg):
+        negs |= (v[:, t] < 0).long() << t
+        if t:
+            less = m[:, t] < m1
+            m2 = torch.where(less, m1, torch.minimum(m2, m[:, t]))
+            i1 = torch.where(less, t, i1)
+            m1 = torch.where(less, m[:, t], m1)
+    par = (v < 0).sum(1) % 2
+    signs = torch.where(par == 1, negs ^ ((1 << deg) - 1), negs)
+    stored = lambda x: (x * norm).to(mdt).float()
+    return stored(m1), stored(m2), i1 | (signs << 5)
+
+
+def zero_records(w, batch):
+    return [(torch.zeros(batch, w.z), torch.zeros(batch, w.z),
+             torch.zeros(batch, w.z, dtype=torch.int64)) for _ in range(w.mb)]
+
+
+def layered_records(ch, w, n_iters, norm, group, mdt):
+    """The layered sweep on records: a group's new records from one L
+    snapshot, then each row's delta (new message - old message) applied."""
+    L = ch.clone()
+    recs = zero_records(w, ch.shape[0])
+    rows = [(w.row_ptr[i], w.row_ptr[i + 1]) for i in range(w.mb)]
+    for _ in range(n_iters):
+        for g0 in range(0, w.mb, group):
+            grp = range(g0, min(g0 + group, w.mb))
+            old = {i: recs[i] for i in grp}
+            for i in grp:
+                r0, r1 = rows[i]
+                recs[i] = rec_fold(L[:, w.gidx[r0:r1]] - rec_msgs(recs[i], r1 - r0), norm, mdt)
+            for i in grp:
+                r0, r1 = rows[i]
+                idx = w.gidx[r0:r1]
+                L[:, idx] = L[:, idx] + (rec_msgs(recs[i], r1 - r0) - rec_msgs(old[i], r1 - r0))
+    return L
+
+
+def flooding_records(ch, plan, w, n_iters, norm):
+    """The flooding sweep on records: each column's sum of messages (edge
+    order, row i's message t at lane (a - s) mod z) onto the LLRs, then every
+    row's new record from L."""
+    B = ch.shape[0]
+    recs = zero_records(w, B)
+    ch3 = ch.reshape(B, w.nb, w.z)
+
+    def accum():
+        acc = [ch3[:, j] for j in range(w.nb)]
+        for i, t, j, s in plan.edges:
+            acc[j] = acc[j] + torch.roll(rec_msgs(recs[i], t + 1)[:, t], s % w.z, dims=-1)
+        return torch.stack(acc, 1).reshape(B, -1)
+
+    for _ in range(n_iters):
+        L = accum()
+        for i in range(w.mb):
+            r0, r1 = w.row_ptr[i], w.row_ptr[i + 1]
+            recs[i] = rec_fold(L[:, w.gidx[r0:r1]] - rec_msgs(recs[i], r1 - r0), norm, torch.float32)
+    return accum()
+
+
+RECORD_CODES = {
+    "irregular_z7": lambda: tl.QCLdpcCode(base=IRREGULAR, z=7),
+    "bg2_z16": lambda: tnr.nr_base_graph(2, 16),
+    "bg1_z8": lambda: tnr.nr_base_graph(1, 8),  # the BG1 stand-in: rows of degree 21 and 22
+}
+
+
+def record_llrs(code, kind):
+    """(4, n) float32 LLRs: Gaussian, or crafted from a few magnitudes with
+    exact zeros of both signs, so first-minimum ties and -0.0 occur."""
+    rng = np.random.default_rng(code.n)
+    if kind == "gauss":
+        return torch.as_tensor(rng.normal(0.0, 2.0, (4, code.n)).astype(np.float32))
+    vals = np.array([-2.0, -1.0, -0.5, -0.0, 0.0, 0.5, 1.0, 2.0], np.float32)
+    return torch.as_tensor(vals[rng.integers(0, vals.size, (4, code.n))])
+
+
+@pytest.mark.parametrize("kind", ["gauss", "ties"])
+@pytest.mark.parametrize("schedule,group,c2v", [
+    ("layered", 1, None), ("layered", 1, "bfloat16"), ("layered", 3, None),
+    ("layered", 3, "bfloat16"), ("flooding", 1, None),
+])
+@pytest.mark.parametrize("name", list(RECORD_CODES))
+def test_record_arithmetic_matches_plain(name, schedule, group, c2v, kind):
+    code = RECORD_CODES[name]()
+    plan = tl.make_ldpc_plan(code)
+    w = k4.wiring(plan, "cpu")
+    assert w.d <= k4.MAX_DEGREE
+    ch = record_llrs(code, kind)
+    if schedule == "flooding":
+        got = flooding_records(ch, plan, w, 4, 0.75)
+        want = k4.flooding_plain(ch, plan, w, 4, 0.75)
+    else:
+        mdt = torch.bfloat16 if c2v else torch.float32
+        got = layered_records(ch, w, 4, 0.75, group, mdt)
+        want = k3.ldpc_stream_posterior_plain(ch, plan, 4, 0.75, group, c2v)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (got - want).abs().max()
+
+
+# ---------------------------------------------------------------------------
+# the launch plan (routes, shared memory, codewords a block) on the CPU; the
+# card's tests hold it to the kernels' own plan (srs_ldpc_plan)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,batch,msg_bytes,layered,group,route,smem,scratch,cpb", [
+    ("bg2_z208", 128, 4, False, 1, "chip", 191360 + 2560, 0, 1),  # LLRs, L, 42 x 208 records
+    ("bg2_z208", 128, 4, True, 8, "chip", 43264 + 104832 + 8 * 2496 + 1264, 0, 1),
+    ("bg1_z52", 128, 4, False, 1, "chip", 56992 + 3744, 0, 1),
+    ("n976", 512, 4, False, 1, "chip", 12320 + 880, 0, 1),
+    ("n976", 512, 4, True, 1, "chip", 3 * 8416 + 416, 0, 3),  # 3 codewords a block: 171 blocks
+    ("bg1_z384", 128, 2, True, 1, "stream", 104448 + 2 * 3072 + 1824, 46 * 3072, 1),
+    ("bg1_z384", 128, 4, True, 1, "stream", 104448 + 2 * 4608 + 1824, 46 * 4608, 1),
+    ("bg1_z384", 24, 4, False, 1, "stream", 104448 + 3744, 46 * 4608, 1),
+])
+def test_launch_plan_routes_and_budgets(name, batch, msg_bytes, layered, group, route, smem,
+                                        scratch, cpb):
+    w = k4.wiring(tl.make_ldpc_plan(CODES[name](tl)), "cpu")
+    lp = k4.launch_plan(w, batch, msg_bytes, layered, group, 132)
+    assert (lp.route, lp.smem, lp.scratch, lp.cpb) == (route, smem, scratch, cpb)
+    assert lp.smem <= k4.SMEM_LIMIT and lp.threads % 32 == 0 and lp.threads <= k4.MAX_THREADS
+    assert lp.blocks == -(-batch // lp.cpb) and lp.blocks >= min(132, batch)
+
+
+def test_launch_plan_refuses_what_no_route_takes():
+    w = k4.wiring(tl.make_ldpc_plan(CODES["bg1_z384"](tl)), "cpu")
+    assert k4.launch_plan(w, 8, 4, True, 8, 132).route == "stream"
+    with pytest.raises(ValueError, match="does not fit"):
+        k4.launch_plan(w, 8, 4, True, 16, 132)
+    assert k4.record_stride(61, 2) == 256 + 256 and k4.record_stride(384, 4) == 3072 + 1536
