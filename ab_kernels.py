@@ -1,28 +1,37 @@
 #!/usr/bin/env python3
-"""Time K5, K3 and K4 of this checkout against those of another checkout, in
-turns, on one NVIDIA GPU.
+"""Time K1, K2, K5, K3 and K4 of this checkout against those of another
+checkout, in turns, on one NVIDIA GPU.
 
-    python3 ab_kernels.py OTHER_CHECKOUT [k5|k3|k4 ...]
+    python3 ab_kernels.py OTHER_CHECKOUT [k1|k2|k5|k3|k4 ...]
 
 OTHER_CHECKOUT holds another version of `srsran_ce_tpu_torch/csrc/` with the
-same C entries (`srs_rc_smooth_f32`, `srs_ldpc_posterior_f32`,
-`srs_ldpc_stream_posterior`, same argument lists), for example the parent
-commit unpacked by `git archive`. Its `rc_smooth.cu`, `ldpc.cu` and
-`ldpc_stream.cu` are built with this checkout's nvcc flags (each includes
-the `ldpc_common.cuh` of its own directory), all at the same time as this
-checkout's. Both libraries get the same arguments; the LDPC scratch and
-delta buffers are sized for either layout (per-edge messages or per-row
-records). Each library is held to the plain version first (K5 relative
-1e-5; K3 and K4 bit for bit, torch.equal on the int32 views), then both are
-timed device-only (torch.profiler's CUDA kernel time over n calls, over n)
-in turns other / this / this / other:
+same C entries (`srs_fused_front_f32`, `srs_fill_rotate_serve_f32`,
+`srs_rc_smooth_f32`, `srs_ldpc_posterior_f32`, `srs_ldpc_stream_posterior`,
+same argument lists), for example the parent commit unpacked by `git
+archive`. Its `front.cu`, `fill_rotate_serve.cu`, `rc_smooth.cu`, `ldpc.cu`
+and `ldpc_stream.cu` are built with this checkout's nvcc flags (each
+includes the `ldpc_common.cuh` of its own directory), all at the same time
+as this checkout's. Both libraries get the same arguments, except K1's last
+one, the shared memory of a block: the other checkout's body is given the
+one-block-a-problem layout of the first K1 body (2 x 2nL x n_re rows, the
+PDP, the edge and virtual-pilot rows), this checkout's its `launch_plan`;
+the LDPC scratch and delta buffers are sized for either layout (per-edge
+messages or per-row records). Each library is held to the plain version
+first (K1 h_s relative 1e-5, the scalars within rtol 1e-4 and the same TA
+bins; K2 and K5 relative 1e-5; K3 and K4 bit for bit, torch.equal on the
+int32 views), then both are timed device-only (torch.profiler's CUDA kernel
+time over n calls, over n) in turns other / this / this / other:
+  k1  c2 (106 PRB, 4 layers) at B=128 and c4 (24 PRB, 1 layer) at B=256;
+  k2  c2 B=128 (its interpolation operator, CDM groups (0,2),(2,4)), nL=3
+      (groups (0,2),(2,3)) with a seeded operator of c2's shape, and the c3
+      inpainting operator (1638 x 3276, B=16, one layer);
   k5  c2 rows (128, 8, 650) and time-interpolation rows (128, 32, 650), K=15;
   k3  NR BG1 Z=384, B=128, 8 layered sweeps, bfloat16 and float32 messages;
       the e2e decode shape, B=24, 16 sweeps, bfloat16;
   k4  chip_smoke phase 16's six configurations: n976 B=512 flooding-25 and
       layered-13, BG2 Z=208 B=128 flooding-16 and layered-8 G=8, BG1 Z=52
       B=128 flooding-16 and layered-8 G=2.
-Without kernel names, all three. Prints the card's `nvidia-smi` name and
+Without kernel names, all five. Prints the card's `nvidia-smi` name and
 power limit beside the numbers. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -35,7 +44,8 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parent
-SOURCES = {"k5": "rc_smooth", "k4": "ldpc", "k3": "ldpc_stream"}
+SOURCES = {"k1": "front", "k2": "fill_rotate_serve", "k5": "rc_smooth", "k4": "ldpc",
+           "k3": "ldpc_stream"}
 
 
 def main(argv) -> int:
@@ -51,9 +61,12 @@ def main(argv) -> int:
         print("ab_kernels: no CUDA device; nothing measured", file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
-    from srsran_ce_tpu_torch.models.plan import make_plan
+    from srsran_ce_tpu_torch.models import estimator
+    from srsran_ce_tpu_torch.models.plan import make_plan, plan_tensors
     from srsran_ce_tpu_torch.ops import ldpc, nr_ldpc
     from srsran_ce_tpu_torch.ops.kernels import _build, bind, launch
+    from srsran_ce_tpu_torch.ops.kernels import fill_rotate_serve as k2
+    from srsran_ce_tpu_torch.ops.kernels import front as k1
     from srsran_ce_tpu_torch.ops.kernels import ldpc as k4
     from srsran_ce_tpu_torch.ops.kernels import ldpc_stream as k3
     from srsran_ce_tpu_torch.ops.kernels import rc_smooth as k5
@@ -110,6 +123,101 @@ def main(argv) -> int:
         print(f"{label} device-only ms, turns other/this/this/other {[round(v, 5) for _, v in t]}: "
               f"other {mean['other']:.5f}, this {mean['this']:.5f} "
               f"({mean['other'] / mean['this']:.2f}x) [{smi}]")
+
+    def rel_err(got, want):
+        return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+    if "k1" in picked:
+        fns = dict(zip(("other", "this"), entry("k1", "srs_fused_front_f32", k1._ARGTYPES)))
+        for label, kw, B in (("c2", dict(n_prbs=106, n_layers=4), 128),
+                             ("c4", dict(n_prbs=24, n_layers=1, two_hops=True), 256)):
+            cases = [synthetic.make_case(seed=s, comb=2, scs_hz=30e3, snr_db=30.0, **kw)
+                     for s in (11, 12, 13, 14)]
+            nL = cases[0].pilots.shape[2]
+            plan = make_plan(cases[0].hop1, cases[0].hop2, cases[0].config, nL)
+            hp, ht = plan.hop1, plan_tensors(plan, dev, torch.float32)["hops"][0]
+            idx = np.arange(B) % len(cases)
+            rg = torch.as_tensor(np.stack([estimator.split_ri(c.received_rg) for c in cases])[idx],
+                                 dtype=torch.float32, device=dev)
+            pil = torch.as_tensor(np.stack([estimator.split_ri(c.pilots) for c in cases])[idx],
+                                  dtype=torch.float32, device=dev)
+            rx = estimator._gather_rx(hp, ht, rg)
+            rx = (rx + torch.as_tensor(1e-3 * np.random.default_rng(101).standard_normal(rx.shape),
+                                       dtype=torch.float32, device=dev)).contiguous()
+            pil = pil[:, :, :, : hp.n_dsym].permute(0, 1, 4, 3, 2).contiguous()
+            beta = torch.ones(B, dtype=torch.float32, device=dev)
+            mats = ht["front"]
+            fkw = dict(n_samples=hp.n_samples, half_cp_len=hp.half_cp_len, fft_size=hp.fft_size,
+                       scs_hz=cases[0].config.scs_hz, cfo_possible=hp.cfo_possible,
+                       cfo_compensate=cases[0].config.cfo_compensate)
+            h_p, s_p = k1.fused_front_plain(rx, pil, beta, mats, **fkw)
+            rows, n_re, n_pils = 2 * nL, hp.n_re, hp.n_pils
+            smem = {"other": 4 * (2 * rows * n_re + 2 * hp.half_cp_len + 4 * rows * n_pils),
+                    "this": k1.launch_plan(B, n_re, nL, n_pils, hp.half_cp_len,
+                                           mats["ta_c"].shape[0], k1.kernel_caps(dev)).smem}
+            h_o = torch.empty_like(h_p)
+            s_o = torch.empty_like(s_p)
+            rotate = fkw["cfo_possible"] and fkw["cfo_compensate"]
+            ptrs = [t.data_ptr() if t is not None else None for t in (
+                rx, pil, beta, mats["pair_l"], mats["pair_r"], mats["vp"] if n_pils > 1 else None,
+                mats["smooth"], mats["smooth_vb"], mats["smooth_ve"], mats["ta_c"], mats["ta_s"],
+                mats["two_pi_sst_d"] if rotate else None, h_o, s_o)]
+            scal = (B, rx.shape[2], nL, hp.n_dsym, n_re, n_pils, mats["ta_c"].shape[0],
+                    hp.half_cp_len, int(fkw["cfo_possible"]), int(fkw["cfo_compensate"]),
+                    2.0 * np.pi * hp.n_samples, float(hp.fft_size), float(fkw["scs_hz"]))
+            runs = {}
+            to_bin = hp.fft_size * fkw["scs_hz"]
+            for lab, fn in fns.items():
+                runs[lab] = (lambda fn=fn, lab=lab: launch("fused_front", fn, dev, *ptrs, *scal,
+                                                           smem[lab]))
+                h_o.fill_(float("nan"))
+                runs[lab]()
+                torch.cuda.synchronize()
+                err = rel_err(h_o, h_p)
+                sk, sp = s_o.cpu().numpy(), s_p.cpu().numpy()
+                if not (err <= 1e-5 and np.array_equal(np.rint(sk[:, 1] * to_bin),
+                                                       np.rint(sp[:, 1] * to_bin))
+                        and np.allclose(sk[:, [0, 2, 3, 4]], sp[:, [0, 2, 3, 4]], rtol=1e-4,
+                                        atol=1e-12)):
+                    raise SystemExit(f"K1 {lab} at {label}: h_s rel err {err:.3e}, or the "
+                                     "scalars / TA bins differ from the plain version")
+                print(f"K1 {lab} at {label} B={B}: h_s rel err vs plain {err:.2e}, scalars "
+                      "within rtol 1e-4, TA bins equal")
+            turns(f"K1 {label} B={B}", runs, 50)
+
+    if "k2" in picked:
+        fns = dict(zip(("other", "this"), entry("k2", "srs_fill_rotate_serve_f32", k2._ARGTYPES)))
+        case = synthetic.make_case(seed=11, n_prbs=106, n_layers=4, comb=2, scs_hz=30e3,
+                                   snr_db=30.0)
+        w_c2 = plan_tensors(make_plan(case.hop1, case.hop2, case.config, 4), dev,
+                            torch.float32)["hops"][0]["interp"]
+        rng = np.random.default_rng(7)
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        rows = (("c2 nL=4 groups (0,2),(2,4)", 128, 4, w_c2, ((0, 2), (2, 4))),
+                ("nL=3 groups (0,2),(2,3)", 128, 3, t(0.1 * rng.standard_normal(tuple(w_c2.shape))),
+                 ((0, 2), (2, 3))),
+                ("c3 operator 1638 x 3276, B=16", 16, 1, t(0.05 * rng.standard_normal((1, 1638, 3276))),
+                 ((0, 1),)))
+        for label, B, nL, w, slices in rows:
+            h = t(rng.standard_normal((B, 2, nL, w.shape[1])))
+            ph = rng.uniform(-np.pi, np.pi, (B, 14))
+            rot = t(np.stack([np.cos(ph), np.sin(ph)], 1))
+            want = k2.fused_fill_rotate_serve_plain(h, w, rot, slices)
+            out = torch.empty_like(want)
+            tab = k2.chunk_table(k2.chunks_of(slices, nL, w.shape[0]))
+            runs = {}
+            for lab, fn in fns.items():
+                runs[lab] = (lambda fn=fn: launch(
+                    "fused_fill_rotate_serve", fn, dev, h.data_ptr(), w.data_ptr(), rot.data_ptr(),
+                    out.data_ptr(), B, nL, w.shape[1], w.shape[2], 14, ctypes.byref(tab)))
+                out.fill_(float("nan"))
+                runs[lab]()
+                torch.cuda.synchronize()
+                err = rel_err(out, want)
+                if not err <= 1e-5:
+                    raise SystemExit(f"K2 {lab} at {label}: relative error {err:.3e} > 1e-5")
+                print(f"K2 {lab} at {label}: rel err vs plain {err:.2e}")
+            turns(f"K2 {label}", runs, 50)
 
     if "k5" in picked:
         case = synthetic.make_case(seed=11, n_prbs=106, n_layers=4, comb=2, scs_hz=30e3, snr_db=30.0)

@@ -7,7 +7,9 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
   1. device: the card's name and `nvidia-smi` name / power limit;
   2. build: nvcc builds every kernel from srsran_ce_tpu_torch/csrc/, all at once;
      each instantiation's registers and static shared memory are printed, and
-     ptxas must report no spills for any K5, K7, K4 or K3 instantiation;
+     ptxas must report no spills for any K1, K2, K5, K7, K4 or K3
+     instantiation; K1's and K2's launch plans at c2, c4 / c2, nL=3, c3, each
+     held to the kernel's own plan, and K1's cluster capacities;
   3. K1 (fused front) against its plain PyTorch version at c2 shapes, B=128;
   4. K2 (serve fill) against its plain version, equal and unequal CDM groups;
   5. `build_ri(..., batched=True, out_layout="serve", kernels="pallas_front")`
@@ -16,7 +18,8 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      factored layout against the serve grid;
   6. the two-hop c4 geometry (24 PRB, 1 layer) at batch 256, same checks;
   7. times with CUDA events: K1 and K2 against their plain versions, and the
-     whole pallas_front call, at c2 batch 128;
+     whole pallas_front call, at c2 batch 128, with the call's device busy
+     time, idle share and heaviest device operations (torch.profiler);
   8. K5 (rc_smooth) against its plain version at the c2 rows (B=128, C=8,
      n_ext=650) and at the time-interpolation row count (C=2*nL*n_dsym);
   9. K6 (fused_fill_rotate) against its plain version: c2 equal CDM groups,
@@ -53,7 +56,8 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      extract_streams, the auto decoder (K3, bfloat16 messages), every CRC ok;
  20. times with CUDA events: K3 and K4 against their plain versions at the
      rows above (K3 also at the e2e shape), with their device-only times
-     from the profiler, K5's one-call PyTorch counterpart (F.conv1d), K5 and
+     from the profiler, K1's and K2's device-only times beside their cold-L2
+     events, K5's one-call PyTorch counterpart (F.conv1d), K5 and
      F.conv1d three ways (cold-L2 events, device-only kernel time from the
      profiler, host us per call), K2's and K6's one-call yardstick (one
      torch.einsum over the ri operands, held to the plain version at
@@ -244,9 +248,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s for {list(_build.SOURCES)}")
-    # K5, K7, K4 and K3 keep every instantiation in registers: a library built
-    # before this run left no ptxas report here, so it is rebuilt to give one
-    checked = ("rc_smooth", "inpaint", "ldpc", "ldpc_stream")
+    # K1, K2, K5, K7, K4 and K3 keep every instantiation in registers: a
+    # library built before this run left no ptxas report here, so it is
+    # rebuilt to give one
+    checked = ("front", "fill_rotate_serve", "rc_smooth", "inpaint", "ldpc", "ldpc_stream")
     unlogged = [src for src in checked if src not in _build.build_logs]
     if unlogged:
         _build.build_all(unlogged, force=True)
@@ -262,8 +267,32 @@ def main() -> int:
                   if any(int(b) for b in re.findall(r"(\d+) bytes spill", ln))]
         if spills:
             fail(f"ptxas spills in {src}: {spills}")
-    print("phase 2 ptxas: no spills in any rc_smooth (K5), inpaint (K7), ldpc (K4) or "
-          "ldpc_stream (K3) instantiation (this run's ptxas reports read)")
+    print("phase 2 ptxas: no spills in any front (K1), fill_rotate_serve (K2), rc_smooth (K5), "
+          "inpaint (K7), ldpc (K4) or ldpc_stream (K3) instantiation (this run's ptxas reports "
+          "read)")
+    # K1's and K2's launch plans at the shapes the main path gives them, each
+    # held to the kernel's own (srs_front_plan, srs_fill_rotate_serve_plan)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    caps = k1.kernel_caps(dev)
+    print(f"phase 2 K1 cluster capacity (clusters of 1..8 blocks resident at once): {list(caps)}")
+    for label, B_, n_re_, nL_, np_, hcp_, kta_ in (("c2", 128, 636, 4, 7, 144, 636),
+                                                    ("c4", 256, 144, 1, 7, 144, 144)):
+        lp = k1.launch_plan(B_, n_re_, nL_, np_, hcp_, kta_, caps)
+        if k1.kernel_plan(B_, n_re_, nL_, np_, hcp_, kta_, caps) != lp:
+            fail(f"K1 launch_plan differs from the kernel's plan at {label}: {lp}")
+        print(f"phase 2 K1 plan {label} B={B_}: {lp.P} problems x {lp.S} blocks a cluster, "
+              f"{lp.blocks} blocks, Mpad {lp.Mpad}, RN {lp.RN}, K tile {lp.KT}, {lp.NS} columns / "
+              f"{lp.TS} bins a block, {lp.smem} B shared memory (as the kernel's own plan)")
+    for label, B_, nL_, slices, n_re_, n_sc_ in (
+            ("c2", 128, 4, ((0, 2), (2, 4)), 636, 1272), ("nL=3", 128, 3, ((0, 2), (2, 3)), 636, 1272),
+            ("c3", 16, 1, ((0, 1),), 1638, 3276)):
+        chunks = k2.chunks_of(slices, nL_, len(slices))
+        lp = k2.launch_plan(B_, chunks, n_re_, n_sc_, n_sm)
+        if k2.kernel_plan(B_, nL_, chunks, n_re_, n_sc_, n_sm) != lp:
+            fail(f"K2 launch_plan differs from the kernel's plan at {label}: {lp}")
+        print(f"phase 2 K2 plan {label} B={B_}: {lp.tiles} tiles, {lp.KS} blocks a tile, "
+              f"{lp.clusters} persistent clusters, {lp.blocks} blocks, {lp.smem} B shared memory "
+              "(as the kernel's own plan)")
 
     # cases: four seeds, tiled to the batch
     def tiled(kw, batch):
@@ -523,6 +552,26 @@ def main() -> int:
     e2e, wall = call_ms(fn_c2, c2_args)
     print(f"phase 7 build_ri pallas_front/serve c2 B=128 (both kernels + plain glue): {e2e:.4f} "
           f"ms/batch on CUDA events, cold L2; {wall:.4f} ms/batch host wall clock back-to-back {card}")
+    # the call's device busy time and idle share (torch.profiler over 20 calls),
+    # with the device time of its heaviest operations
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof7:
+            for _ in range(20):
+                fn_c2(*c2_args)
+            torch.cuda.synchronize()
+        dev7 = {e.key: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                for e in prof7.key_averages() if e.device_type == DeviceType.CUDA}
+        if sum(dev7.values()) > 0:
+            break
+    busy7 = sum(dev7.values()) / 20 / 1e3
+    if busy7 > 0:
+        top7 = sorted(dev7.items(), key=lambda kv: -kv[1])[:5]
+        print(f"phase 7 build_ri pallas_front/serve c2 B=128: device busy {busy7:.4f} ms of "
+              f"{wall:.4f} ms back-to-back wall, idle share {100 * (1 - busy7 / wall):.1f} % "
+              f"(torch.profiler, 20 calls); heaviest: " + ", ".join(
+                  f"{k[:40]} {us / 20 / 1e3:.4f} ms" for k, us in top7) + f" {card}")
+    else:
+        print("phase 7 idle share: not measured (the profiler saw no device time)")
 
     # 8. K5 vs plain: the c2 rows of _smooth (2*nL = 8 rows of n_re + 2*n_pils)
     # and the time-interpolation rows (2*nL*n_dsym = 32)
@@ -832,6 +881,7 @@ def main() -> int:
                "ta_s": 2, "vp": 4}  # rows of each product, in units of nL (vp: 2 fits x 2 ends)
     f_ops = sum(2 * rx.shape[0] * r_ * nL_f * mats[k].numel() for k, r_ in rows_of.items() if k in mats)
     f_ops += 10 * rx.numel()  # the elementwise front, about 10 operations per received value
+    dev_only = {}
     B2, nL2, n_re2 = k2_args[0].shape[0], k2_args[0].shape[2], k2_args[0].shape[3]
     n_sc2 = k2_args[1].shape[-1]
     fill_ops = lambda B_, nL_, n_re_, n_sc_: 4 * B_ * nL_ * n_re_ * n_sc_ + 6 * B_ * nL_ * 14 * n_sc_
@@ -849,6 +899,13 @@ def main() -> int:
     }
     for k, v in bounds.items():
         times[k] = times[k] + v[:2]
+    # K1 and K2 device-only (the profiler's kernel time) beside their cold-L2 events
+    for k, fn in (("fused_front", lambda: k1.fused_front(*f_args, **f_kw)),
+                  ("fused_fill_rotate_serve",
+                   lambda: k2.fused_fill_rotate_serve(*k2_args, layer_slices=hp.layer_slices))):
+        dev_only[k] = device_ms(fn)
+        print(f"phase 20 {k} c2 B=128: cold-L2 events {times[k][0]:.4f} ms, device-only "
+              f"{dev_only[k]:.4f} ms, bound {times[k][4]:.4f} ms ({times[k][5]}) {card}")
     # K5's one-call PyTorch counterpart: a valid cross-correlation with the flipped taps
     w5 = torch.as_tensor(np.ascontiguousarray(taps[::-1]), dtype=torch.float32, device=dev).view(1, 1, -1)
     conv = lambda: torch.nn.functional.conv1d(x5.reshape(-1, 1, x5.shape[-1]), w5)

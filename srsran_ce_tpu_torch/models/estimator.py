@@ -173,9 +173,10 @@ def _front_pallas_ok(plan: EstimatorPlan) -> bool:
     """True when the fused front kernel (K1) covers the plan: fused-matrix
     'filter' smoothing (no alpha blend), the first-pair CFO estimator, no time
     interpolation, the paired CDM layer layout, the direct-DFT TA path, an
-    interpolation or inpainting operator for the fill, and the block's working
-    set inside the card's shared memory (`front.smem_bytes`, the same function
-    the kernel's wrapper checks)."""
+    interpolation or inpainting operator for the fill, and a launch of the
+    kernel for the hop's shape (`front.launch_plan`, the plan the kernel's
+    wrapper launches; whether one exists does not depend on the batch or the
+    card)."""
     config = plan.config
     if config.time_interp != "none" or config.cnn_alpha > 0.0:
         return False
@@ -201,7 +202,10 @@ def _front_pallas_ok(plan: EstimatorPlan) -> bool:
             return False
         if hp.n_pils > _k1._MAX_PILS or hp.n_dsym > _k1._MAX_DSYM:
             return False
-        if _k1.smem_bytes(hp.n_re, nL, hp.n_pils, hp.half_cp_len) > _k1.SMEM_LIMIT:
+        try:
+            _k1.launch_plan(1, hp.n_re, nL, hp.n_pils, hp.half_cp_len,
+                            hp.ta_dft_cos.shape[0], _k1.NOMINAL_CAPS)
+        except ValueError:
             return False
     return True
 

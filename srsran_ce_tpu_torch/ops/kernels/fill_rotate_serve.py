@@ -9,18 +9,24 @@ for unequal ones). It computes
 for every layer l of CDM group c, in the subcarrier-last serve layout
 (B, 2, nL, n_sym, n_sc).
 
-CUDA kernel (csrc/fill_rotate_serve.cu): one thread block per (chunk of at most
-two layers of one CDM group, 128-subcarrier tile, block of 8 problems), one
-subcarrier per thread. It walks n_re in chunks of 32, staging the block's h
-rows in shared memory, reads W_c straight from L2 (coalesced along the
-subcarriers) and keeps the f32 sums in registers; the epilogue writes all
-n_sym symbols with the CFO rotation, coalesced along the subcarrier axis.
-Unequal CDM groups (nL=3: layers (0, 2), (2, 3)) come in as a table of layer
-chunks, not as a second kernel. What bounds it on the H100: at c2 and batch 128
-it must write 72.9 MB (about 22 us at 3.35 TB/s) and do about 1.7 GFLOP of f32
-FMA (about 25 us at 67 TFLOP/s without tensor cores) — both near the card's
-limits in f32, so neither is hidden behind the other yet. Tensor-core 3xTF32
-and TMA stores are later changes.
+CUDA kernel (csrc/fill_rotate_serve.cu), the PR 2 body redesigned for Hopper.
+The first body (a block per 128 subcarriers x 8 problems x 2 layers, W read
+straight from L2, one float per 32 FMAs, the 14 symbols written only after
+the whole product) ran at 8.3x its bound. Now each layer chunk (at most two
+layers of one CDM group; nL=3 comes in as (0, 2), (2, 3)) is a tiled
+product whose rows are (problem, layer, ri) pairs: output tiles of 64 rows x
+128 subcarriers, both operands staged per K step of 32 through a two-stage
+cp.async ring (W 16 bytes a copy) and shared by the tile's 32 (problem,
+layer) pairs, an 8 x 4 register tile a thread. A cluster of KS blocks takes
+one tile at a time, each block 1/KS of the K steps; the partial tiles meet in
+distributed shared memory, summed in rank order, and each block writes its
+share of the tile's pairs as 16-byte streaming stores of the n_sym rotated
+symbols. The clusters are persistent (two blocks an SM) and walk the tiles,
+so one tile's stores overlap the next one's product. `launch_plan` mirrors
+the kernel's `make_plan` (a card test compares them). What bounds it on the
+H100 at c2, batch 128: the 72.9 MB write (about 22 us at 3.35 TB/s) and
+1.7 GFLOP of f32 FMA (about 25 us at 67 TFLOP/s without tensor cores).
+Tensor-core 3xTF32 is a later change.
 
 Precision: full f32 FMA for both "high" and "highest" (the TPU's "high" is a
 3-pass bf16 split, `kernels._dot_f32x3`, which this is at least as accurate as).
@@ -28,10 +34,11 @@ Precision: full f32 FMA for both "high" and "highest" (the TPU's "high" is a
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
-from . import _build, check_cuda_f32, check_shape, full_f32_matmul
+from . import bind, check_cuda_f32, check_shape, full_f32_matmul, launch
 
 #: kernel launches since the count was last set to 0 (incremented only where
 #: the CUDA kernel is launched, never by the plain version)
@@ -55,6 +62,61 @@ class _ChunkTab(ctypes.Structure):
 
 
 _ARGTYPES = [_PTR] * 4 + [ctypes.c_int] * 5 + [ctypes.POINTER(_ChunkTab), _PTR]
+PLAN_ARGTYPES = ([ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4
+                 + [ctypes.POINTER(_ChunkTab), ctypes.c_int])
+
+_TM, _TN, _KT = 64, 128, 32  # output tile rows x subcarriers, K rows a stage
+_BLOCKS_PER_SM = 2
+_MAX_KS = 8
+SMEM = 4 * max(2 * _KT * (_TM + _TN), _TM * _TN)  # dynamic shared memory of a block
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """KS blocks a cluster (each 1/KS of the K steps of a tile); output tiles in
+    all; persistent clusters and blocks; dynamic shared memory a block."""
+
+    KS: int
+    tiles: int
+    clusters: int
+    blocks: int
+    smem: int
+
+
+def chunks_of(layer_slices, nL: int, n_cdm: int):
+    """(group, first layer, layers) of each chunk: at most two layers of one
+    CDM group (struct ChunkTab's rows)."""
+    chunks = [
+        (c, l, min(2, l1 - l))
+        for c, (l0, l1) in enumerate(_layer_slices(layer_slices, nL, n_cdm))
+        for l in range(l0, l1, 2)
+    ]
+    if not 1 <= len(chunks) <= _MAX_CHUNKS or any(n < 1 for _, _, n in chunks):
+        raise ValueError(f"unsupported layer_slices {layer_slices}")
+    return chunks
+
+
+def chunk_table(chunks) -> _ChunkTab:
+    tab = _ChunkTab()
+    tab.n = len(chunks)
+    for i, (c, l0, n) in enumerate(chunks):
+        tab.c[i], tab.l0[i], tab.nl[i] = c, l0, n
+    return tab
+
+
+def launch_plan(batch: int, chunks, n_re: int, n_sc: int, n_sm: int) -> LaunchPlan:
+    """The launch as `make_plan` (csrc/fill_rotate_serve.cu) computes it: the
+    output tiles of every chunk (2 * batch * layers rows in tiles of 64, n_sc
+    in tiles of 128); KS = ceil(n_sm / tiles) blocks a tile (1..8, at most the
+    K steps of 32), so that fewer tiles than SMs still cover them; two blocks
+    an SM, so 2 * n_sm // KS persistent clusters, at most one a tile."""
+    if batch < 1 or n_re < 1 or n_sc < 1 or n_sm < 1:
+        raise ValueError(f"no fill launch for batch={batch}, n_re={n_re}, n_sc={n_sc}")
+    nt = -(-n_sc // _TN)
+    tiles = sum(-(-2 * batch * nl // _TM) * nt for _, _, nl in chunks)
+    ks = max(1, min(_MAX_KS, -(-n_re // _KT), -(-n_sm // tiles)))
+    clusters = max(1, min(tiles, _BLOCKS_PER_SM * n_sm // ks))
+    return LaunchPlan(KS=ks, tiles=tiles, clusters=clusters, blocks=clusters * ks, smem=SMEM)
 
 
 def _layer_slices(layer_slices, nL: int, n_cdm: int):
@@ -91,14 +153,6 @@ def fused_fill_rotate_serve_plain(
     return out
 
 
-def _lib():
-    fn = _build.load("fill_rotate_serve").srs_fill_rotate_serve_f32
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def fused_fill_rotate_serve(
     h_ri: torch.Tensor,
     w: torch.Tensor,
@@ -124,28 +178,24 @@ def fused_fill_rotate_serve(
     check_shape("rot_ri", rot_ri, (B, 2, n_sym))
     if not 1 <= n_sym <= _MAX_SYM:
         raise ValueError(f"kernel takes 1..{_MAX_SYM} symbols, got {n_sym}")
-    tab = _ChunkTab()
-    chunks = [
-        (c, l, min(2, l1 - l))
-        for c, (l0, l1) in enumerate(_layer_slices(layer_slices, nL, n_cdm))
-        for l in range(l0, l1, 2)
-    ]
-    if len(chunks) > _MAX_CHUNKS or any(n < 1 for _, _, n in chunks):
-        raise ValueError(f"unsupported layer_slices {layer_slices}")
-    tab.n = len(chunks)
-    for i, (c, l0, n) in enumerate(chunks):
-        tab.c[i], tab.l0[i], tab.nl[i] = c, l0, n
-
+    tab = chunk_table(chunks_of(layer_slices, nL, n_cdm))
     out = torch.empty((B, 2, nL, n_sym, n_sc), dtype=torch.float32, device=device)
-    fn = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(
-            h_ri.data_ptr(), w.data_ptr(), rot_ri.data_ptr(), out.data_ptr(),
-            B, nL, n_re, n_sc, n_sym, ctypes.byref(tab), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_fill_rotate_serve kernel launch failed: CUDA error {rc}")
+    launch(
+        "fused_fill_rotate_serve", bind("fill_rotate_serve", "srs_fill_rotate_serve_f32", _ARGTYPES),
+        device, h_ri.data_ptr(), w.data_ptr(), rot_ri.data_ptr(), out.data_ptr(),
+        B, nL, n_re, n_sc, n_sym, ctypes.byref(tab),
+    )
     global launches
     launches += 1
     return out
+
+
+def kernel_plan(batch: int, nL: int, chunks, n_re: int, n_sc: int, n_sm: int) -> LaunchPlan:
+    """The kernel's own plan (`srs_fill_rotate_serve_plan` of the built
+    library), to hold `launch_plan` to it on the card."""
+    out = (ctypes.c_longlong * 5)()
+    rc = bind("fill_rotate_serve", "srs_fill_rotate_serve_plan", PLAN_ARGTYPES)(
+        out, batch, nL, n_re, n_sc, ctypes.byref(chunk_table(chunks)), n_sm)
+    if rc != 0:
+        raise ValueError(f"srs_fill_rotate_serve_plan refused the shape (CUDA error {rc})")
+    return LaunchPlan(*[int(v) for v in out])

@@ -8,16 +8,30 @@ fused smoothing H @ smooth + vb @ smooth_vb + flip(ve) @ smooth_ve with
 unwrap-based virtual pilots; the direct-DFT time alignment (PDP over the
 +-half-CP bins, first maximum, head window wins ties); noise, RSRP and EPRE.
 
-CUDA kernel (csrc/front.cu): one thread block per problem. The block's rows H
-(2*nL x n_re f32, 20 KB at the c2 width) and the smoothed rows sit in shared
-memory; the reductions over n_re (CFO correlation, EPRE, noise, RSRP) are
-block reductions; the virtual-pilot atan2 / unwrap / fit runs on one warp in
-plain serial code; every matrix product is f32 FMA inside the kernel. What
-bounds it on the H100: each block streams the constant matrices (smoothing
-636x636 = 1.6 MB and the TA DFT 2 x 636x288 = 1.5 MB at c2) once from L2 —
-about 400 MB of L2 traffic per batch of 128 — and one block per problem gives
-only 8 warps per SM to hide that latency. Reusing each constant tile across
-several problems per block is a later change.
+CUDA kernel (csrc/front.cu), the PR 2 body redesigned for Hopper. What
+bounded the first body (one block a problem) was reuse, not the FMA rate: each
+of its 128 blocks streamed the constant matrices (smoothing 636 x 636 = 1.6 MB
+and the TA DFT 2 x 636 x 288 = 1.5 MB at c2) from L2 on its own, about 400 MB
+a batch, on 8 warps an SM. Now:
+- a cluster of S blocks takes P problems (P * 2nL <= 32 rows), so every
+  K tile of `smooth`, `smooth_vb`/`smooth_ve` and `ta_c`/`ta_s` is staged once
+  in shared memory (a two-stage cp.async ring) for all P problems, and each
+  of a block's 512 threads keeps a 4-row x RN-column register tile;
+- the n_re columns of the smoothing product and the TA bins are split over
+  the S blocks; a block keeps only its columns of H and Hs, and each K step
+  reads the A rows from the block that owns them; the other partials (EPRE,
+  CFO correlations, edge products, noise / RSRP, the PDP) go through
+  distributed shared memory too, summed in rank order;
+- the plan takes the split with the fewest FMAs a block among those whose
+  clusters are all resident at once with one block an SM: an H100 holds 30
+  clusters of 4 (its GPCs), so c2 at B=128 runs 2 problems x 2 blocks on
+  128 SMs rather than 4 x 4, whose 32 clusters would not all fit;
+- the serial parts (the CFO atan2 over CDM groups, the virtual-pilot atan2 /
+  unwrap / fit, the first-maximum TA argmax) run once per problem, exactly
+  as before.
+`launch_plan` picks P, S, the K tile and RN per shape and mirrors
+`make_plan` in csrc/front.cu number for number (a card test compares them
+through `srs_front_plan`); a shape that fits no plan raises.
 
 Precision: the TPU runs matmul_precision "high" as a 3-pass bf16 split
 (`kernels._dot_f32x3`); the kernel's full f32 FMA is at least as accurate, so
@@ -35,11 +49,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
 from .. import mathx
-from . import _build, check_cuda_f32, check_shape, full_f32_matmul
+from . import bind, check_cuda_f32, check_shape, full_f32_matmul, launch
 
 #: kernel launches since the count was last set to 0 (incremented only where
 #: the CUDA kernel is launched, never by the plain version)
@@ -48,19 +63,105 @@ launches = 0
 _MAX_LAYERS = 8
 _MAX_PILS = 16
 _MAX_DSYM = 32
+_THREADS = 512
+_MAX_M = 32  # rows of the products a cluster: P * 2nL
+_MAX_CLUSTER = 8
+_MAX_RN = 4
+_STAGES = 2  # depth of the kernel's operand rings
 #: dynamic shared memory one block may use on the H100 (227 KB), less room for
 #: the kernel's static shared arrays
 SMEM_LIMIT = 232448 - 1024
+#: the most two blocks of an SM may each use (228 KB an SM, 1 KB reserved a block)
+SMEM_HALF = 233472 // 2 - 1024
+#: `caps` for the shape checks made without a card (whether a plan exists
+#: does not depend on them): 132 SMs, one block an SM
+NOMINAL_CAPS = tuple(132 // s for s in range(1, 9))
 
 _PTR = ctypes.c_void_p
 _ARGTYPES = [_PTR] * 14 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3 + [ctypes.c_int, _PTR]
+PLAN_ARGTYPES = ([ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6
+                 + [ctypes.POINTER(ctypes.c_int)])
+CAPS_ARGTYPES = [ctypes.POINTER(ctypes.c_int)]
 
 
-def smem_bytes(n_re: int, nL: int, n_pils: int, half_cp_len: int) -> int:
-    """Dynamic shared memory of one block: H and the smoothed rows, the PDP,
-    the edge products and the virtual pilots (csrc/front.cu, same layout)."""
-    rows = 2 * nL
-    return 4 * (2 * rows * n_re + 2 * half_cp_len + 4 * rows * n_pils)
+@dataclass(frozen=True)
+class LaunchPlan:
+    """P problems a cluster of S blocks; Mpad rows (P * 2nL padded to 4, 8, 16
+    or 32); RN register columns a thread; K tiles of KT rows; NS columns of
+    the smoothing product and TS TA bins a block; blocks in all; smem bytes a
+    block."""
+
+    P: int
+    S: int
+    Mpad: int
+    RN: int
+    KT: int
+    NS: int
+    TS: int
+    blocks: int
+    smem: int
+
+
+def _pad4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def launch_plan(batch: int, n_re: int, nL: int, n_pils: int, half_cp_len: int, k_ta: int,
+                caps) -> LaunchPlan:
+    """The launch of `batch` problems as `make_plan` (csrc/front.cu) computes it.
+
+    `caps[S - 1]`: the clusters of S blocks the card holds at once with one
+    block an SM (`kernel_caps`). Among P (problems a cluster, at most 32 rows)
+    and S (1..8 blocks a cluster) whose clusters are all resident at once,
+    whose column share needs at most 4 register columns a thread and whose
+    block fits the shared memory (the largest K tile of 32, 16 or 8 that
+    does), the one with the fewest FMAs a block, padding included; on a tie
+    the larger P, then the smaller S. If none is resident at once, the same
+    search without that condition, so whether a plan exists depends only on
+    the shape, never on `batch` or `caps`. A launch asks for at least half an
+    SM's shared memory, so that a block has its SM to itself. NS and TS are
+    multiples of 4. Raises when no plan fits."""
+    rows, np_, nbins = 2 * nL, n_pils, 2 * half_cp_len
+    if (batch < 1 or not 1 <= nL <= _MAX_LAYERS or not 1 <= np_ <= _MAX_PILS or n_re < 1
+            or half_cp_len < 1 or not 1 <= k_ta <= n_re or len(caps) != _MAX_CLUSTER):
+        raise ValueError(f"no front launch for batch={batch}, nL={nL}, n_pils={n_pils}, "
+                         f"n_re={n_re}, half_cp_len={half_cp_len}, k_ta={k_ta}")
+    for resident in (True, False):
+        best = None
+        for P in range(min(_MAX_M // rows, batch), 0, -1):
+            Mpad = 4
+            while Mpad < P * rows:
+                Mpad *= 2
+            NX = _THREADS // (Mpad // 4)
+            clusters = -(-batch // P)
+            for S in range(1, _MAX_CLUSTER + 1):
+                if resident and clusters > caps[S - 1]:
+                    continue
+                NS = _pad4(-(-n_re // S))
+                RN = -(-NS // NX)
+                if RN > _MAX_RN:
+                    continue
+                TS = _pad4(-(-nbins // S))
+                W = NX * RN
+                cost = Mpad * (W * (n_re + 2 * np_) + -(-2 * TS // W) * W * k_ta)
+                if best is not None and cost >= best[0]:
+                    continue
+                for KT in (32, 16, 8):
+                    floats = (max(NS, 2 * TS) * Mpad + NS * Mpad + 2 * np_ * Mpad
+                              + _STAGES * KT * (Mpad + W)
+                              + _pad4(P * nbins) + 2 * _pad4(P * (rows + 1))
+                              + _pad4(2 * S * P) + 2 * _pad4(2 * Mpad * np_)
+                              + _pad4(2 * P * _MAX_DSYM) + _pad4(3 * P)
+                              + _pad4(_THREADS // 32 * (rows + 1)))
+                    if 4 * floats <= SMEM_LIMIT:
+                        best = (cost, LaunchPlan(
+                            P=P, S=S, Mpad=Mpad, RN=RN, KT=KT, NS=NS, TS=TS,
+                            blocks=clusters * S, smem=max(4 * floats, SMEM_HALF + 16)))
+                        break
+        if best is not None:
+            return best[1]
+    raise ValueError(f"the front fits no launch: n_re={n_re}, nL={nL}, n_pils={n_pils}, "
+                     f"half_cp_len={half_cp_len} need more than {SMEM_LIMIT} B a block")
 
 
 def fused_front_plain(
@@ -188,15 +289,6 @@ def fused_front_plain(
     return Hs.reshape(B, 2, nL, n_re), sc
 
 
-def _lib():
-    lib = _build.load("front")
-    fn = lib.srs_fused_front_f32
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def fused_front(
     rx_ri: torch.Tensor,
     pil_ri: torch.Tensor,
@@ -257,27 +349,52 @@ def fused_front(
     check_shape("ta_s", mats["ta_s"], (k_ta, n_bins))
     if sst_d is not None:
         check_shape("two_pi_sst_d", sst_d, (nd,))
-    smem = smem_bytes(n_re, nL, n_pils, half_cp_len)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"front needs {smem} B of shared memory, the card has {SMEM_LIMIT}")
+    plan = launch_plan(B, n_re, nL, n_pils, half_cp_len, k_ta, kernel_caps(device))
 
     h_out = torch.empty((B, 2, nL, n_re), dtype=torch.float32, device=device)
     sc_out = torch.empty((B, 8), dtype=torch.float32, device=device)
-    fn = _lib()
     ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(
-            ptr(rx_ri), ptr(pil_ri), ptr(beta), ptr(mats["pair_l"]), ptr(mats["pair_r"]),
-            ptr(vp), ptr(mats["smooth"]), ptr(mats["smooth_vb"]), ptr(mats["smooth_ve"]),
-            ptr(mats["ta_c"]), ptr(mats["ta_s"]), ptr(sst_d), ptr(h_out), ptr(sc_out),
-            B, n_cdm, nL, nd, n_re, n_pils, k_ta, half_cp_len,
-            int(cfo_possible), int(cfo_compensate),
-            2.0 * math.pi * n_samples, float(fft_size), float(scs_hz),
-            smem, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_front kernel launch failed: CUDA error {rc}")
+    launch(
+        "fused_front", bind("front", "srs_fused_front_f32", _ARGTYPES), device,
+        ptr(rx_ri), ptr(pil_ri), ptr(beta), ptr(mats["pair_l"]), ptr(mats["pair_r"]),
+        ptr(vp), ptr(mats["smooth"]), ptr(mats["smooth_vb"]), ptr(mats["smooth_ve"]),
+        ptr(mats["ta_c"]), ptr(mats["ta_s"]), ptr(sst_d), ptr(h_out), ptr(sc_out),
+        B, n_cdm, nL, nd, n_re, n_pils, k_ta, half_cp_len,
+        int(cfo_possible), int(cfo_compensate),
+        2.0 * math.pi * n_samples, float(fft_size), float(scs_hz), plan.smem,
+    )
     global launches
     launches += 1
     return h_out, sc_out
+
+
+_caps: dict = {}
+
+
+def kernel_caps(device) -> tuple:
+    """The clusters of 1..8 blocks `device` holds at once with one block an SM
+    (`srs_front_caps`: cudaOccupancyMaxActiveClusters), asked once a device."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    caps = _caps.get(idx)
+    if caps is None:
+        out = (ctypes.c_int * _MAX_CLUSTER)()
+        with torch.cuda.device(idx):
+            rc = bind("front", "srs_front_caps", CAPS_ARGTYPES)(out)
+        if rc != 0:
+            raise RuntimeError(f"srs_front_caps failed: CUDA error {rc}")
+        caps = _caps[idx] = tuple(int(v) for v in out)
+    return caps
+
+
+def kernel_plan(batch: int, n_re: int, nL: int, n_pils: int, half_cp_len: int, k_ta: int,
+                caps) -> LaunchPlan:
+    """The kernel's own plan (`srs_front_plan` of the built library), to hold
+    `launch_plan` to it on the card."""
+    out = (ctypes.c_longlong * 9)()
+    cap = (ctypes.c_int * _MAX_CLUSTER)(*caps)
+    rc = bind("front", "srs_front_plan", PLAN_ARGTYPES)(out, batch, n_re, nL, n_pils,
+                                                        half_cp_len, k_ta, cap)
+    if rc != 0:
+        raise ValueError(f"srs_front_plan refused the shape (CUDA error {rc})")
+    return LaunchPlan(*[int(v) for v in out])

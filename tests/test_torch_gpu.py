@@ -89,7 +89,8 @@ def test_fused_front_kernel_matches_plain(name, kw):
 @pytest.mark.parametrize(
     "nL,slices", [(4, ((0, 2), (2, 4))), (3, ((0, 2), (2, 3))), (4, ((0, 4),)), (1, ((0, 1),))]
 )
-@pytest.mark.parametrize("batch,n_re,n_sc,n_sym", [(13, 52, 200, 14), (128, 636, 1272, 7)])
+@pytest.mark.parametrize("batch,n_re,n_sc,n_sym", [(13, 52, 200, 14), (128, 636, 1272, 7),
+                                                  (1, 144, 288, 14), (5, 37, 301, 3)])
 def test_fill_rotate_serve_kernel_matches_plain(nL, slices, batch, n_re, n_sc, n_sym):
     rng = np.random.default_rng(nL)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
@@ -123,6 +124,136 @@ def test_estimator_on_cuda_matches_float64_cpu(name, kw, layout):
     assert float(((a - b) ** 2).sum() / (b**2).sum()) < 4e-11, name
     for f in ("noise_est", "rsrp", "epre", "time_alignment"):
         np.testing.assert_allclose(getattr(got, f).cpu(), getattr(want, f), rtol=1e-3, err_msg=f)
+
+
+def random_front(B, nL, nd, n_re, n_pils, hcp, cfo_possible, cfo_compensate, seed=0):
+    """Seeded random fused-front inputs on the card (any shape the kernel takes):
+    (args, kwargs) of `fused_front`."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device="cuda")
+    n_cdm = (nL + 1) // 2
+    k_ta = n_re - n_re // 7
+    smooth = np.eye(n_re) + 0.05 * rng.standard_normal((n_re, n_re))
+    ph = 2 * np.pi * np.outer(np.arange(k_ta), np.arange(-hcp, hcp)) / (4 * n_re)
+    mats = dict(
+        pair_l=t(np.eye(n_re)[:, :n_pils]), pair_r=t(np.eye(n_re)[:, -n_pils:]),
+        vp=t(rng.standard_normal((n_pils, n_pils)) / n_pils), smooth=t(smooth),
+        smooth_vb=t(0.1 * rng.standard_normal((n_pils, n_re))),
+        smooth_ve=t(0.1 * rng.standard_normal((n_pils, n_re))),
+        ta_c=t(np.cos(ph)), ta_s=t(np.sin(ph)),
+        two_pi_sst_d=t(2 * np.pi * (2.0 + 7.0 * np.arange(nd))),
+    )
+    rx = t(rng.standard_normal((B, 2, n_cdm, nd, n_re)))
+    pil = t(np.sign(rng.standard_normal((B, 2, nL, nd, n_re))) / np.sqrt(2))
+    beta = t(1.0 + 0.1 * rng.uniform(size=B))
+    kw = dict(n_samples=4096 + 288, half_cp_len=hcp, fft_size=4096, scs_hz=30e3,
+              cfo_possible=cfo_possible, cfo_compensate=cfo_compensate)
+    return (rx, pil, beta, mats), kw
+
+
+def assert_front_matches_plain(args, kw, label):
+    n0 = k1.launches
+    h_k, s_k = k1.fused_front(*args, **kw)
+    assert k1.launches == n0 + 1
+    h_p, s_p = k1.fused_front_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert rel(h_k, h_p) <= 1e-5, label
+    s_k, s_p = s_k.cpu().numpy(), s_p.cpu().numpy()
+    to_bin = kw["fft_size"] * kw["scs_hz"]
+    np.testing.assert_array_equal(np.rint(s_k[:, 1] * to_bin), np.rint(s_p[:, 1] * to_bin), label)
+    np.testing.assert_allclose(s_k[:, [0, 2, 3, 4]], s_p[:, [0, 2, 3, 4]], rtol=1e-4, atol=1e-12,
+                               err_msg=label)
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("B,nL,nd,n_re,n_pils,cfo_possible,cfo_compensate", [
+    (1, 4, 4, 636, 7, True, True),     # B=1: one problem a cluster of 8
+    (37, 4, 4, 636, 7, True, True),    # B not a multiple of P=4
+    (130, 1, 2, 144, 7, True, True),   # nL=1, P=16, ragged last cluster
+    (40, 2, 2, 300, 7, True, False),   # CFO estimated, not compensated
+    (29, 3, 4, 400, 7, True, True),    # nL=3, unequal CDM groups, P=5 of 30 rows
+    (19, 8, 4, 636, 12, True, True),   # nL=8, P=2 of 32 rows
+    (17, 2, 1, 96, 1, False, False),   # n_pils=1 (no fit), CFO off, one DM-RS symbol
+    (3, 5, 2, 1024, 16, True, True),   # the widest fused-smoothing band, 16 pilots
+])
+def test_fused_front_kernel_matches_plain_at_every_plan_shape(
+        B, nL, nd, n_re, n_pils, cfo_possible, cfo_compensate):
+    args, kw = random_front(B, nL, nd, n_re, n_pils, 144, cfo_possible, cfo_compensate, seed=B)
+    lp = k1.launch_plan(B, n_re, nL, n_pils, 144, args[3]["ta_c"].shape[0], k1.kernel_caps("cuda"))
+    assert_front_matches_plain(args, kw, f"B={B} nL={nL} {lp}")
+
+
+@NEEDS_GPU
+def test_fused_front_kernel_both_hops_of_c4():
+    """c4 (24 PRB, 1 layer, two hops) at the bench's batch of 256."""
+    kw = dict(n_prbs=24, n_layers=1, comb=2, scs_hz=30e3, snr_db=30.0, two_hops=True)
+    case, rg, pil, beta = case_inputs(kw, 256, torch.float32, "cuda", seed=5)
+    plan = make_plan(case.hop1, case.hop2, case.config, 1)
+    pt = plan_tensors(plan, "cuda", torch.float32)
+    d0 = 0
+    for i, (hp, ht) in enumerate(zip([plan.hop1, plan.hop2], pt["hops"])):
+        rx = est._gather_rx(hp, ht, rg).contiguous()
+        pil_h = pil[:, :, :, d0 : d0 + hp.n_dsym].permute(0, 1, 4, 3, 2).contiguous()
+        d0 += hp.n_dsym
+        kw_ = dict(n_samples=hp.n_samples, half_cp_len=hp.half_cp_len, fft_size=hp.fft_size,
+                   scs_hz=case.config.scs_hz, cfo_possible=hp.cfo_possible,
+                   cfo_compensate=case.config.cfo_compensate)
+        assert_front_matches_plain((rx, pil_h, beta, ht["front"]), kw_, f"c4 hop {i + 1}")
+
+
+@NEEDS_GPU
+def test_fill_rotate_serve_kernel_at_the_c3_operator():
+    """c3 (273 PRB, cnn): one layer through the 1638 x 3276 inpainting operator,
+    batch 16 (the split over K of a cluster carries this shape)."""
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    h = t(rng.standard_normal((16, 2, 1, 1638)))
+    w = t(0.05 * rng.standard_normal((1, 1638, 3276)))
+    ph = rng.uniform(-np.pi, np.pi, (16, 14))
+    rot = t(np.stack([np.cos(ph), np.sin(ph)], 1))
+    lp = k2.launch_plan(16, k2.chunks_of(None, 1, 1), 1638, 3276, sm_count())
+    assert lp.KS > 1, lp
+    got = k2.fused_fill_rotate_serve(h, w, rot)
+    want = k2.fused_fill_rotate_serve_plain(h, w, rot)
+    torch.cuda.synchronize()
+    assert rel(got, want) <= 1e-5
+
+
+@NEEDS_GPU
+def test_front_launch_plan_mirrors_the_kernels_plan():
+    """`front.launch_plan` against `make_plan` of csrc/front.cu (`srs_front_plan`)
+    at batches around the SM count, every layer count, both pilot-count ends
+    and band widths up to the widest fused-smoothing band, with the card's
+    cluster capacities and with capacities that hold fewer clusters."""
+    caps = k1.kernel_caps("cuda")
+    assert len(caps) == 8 and caps[0] >= sm_count() and all(c >= 1 for c in caps), caps
+    n_cases = 0
+    for cap in (caps, tuple(max(1, c // 3) for c in caps)):
+        for B in (1, 2, 5, 33, 128, 256, 1000):
+            for nL in range(1, 9):
+                for n_pils in (1, 7, 16):
+                    for n_re in (12, 144, 636, 1024):
+                        for hcp in (36, 144):
+                            lp = k1.launch_plan(B, n_re, nL, n_pils, hcp, n_re - n_re // 7, cap)
+                            assert k1.kernel_plan(B, n_re, nL, n_pils, hcp, n_re - n_re // 7,
+                                                  cap) == lp
+                            n_cases += 1
+    assert n_cases == 2 * 7 * 8 * 3 * 4 * 2
+
+
+@NEEDS_GPU
+def test_fill_launch_plan_mirrors_the_kernels_plan():
+    n_cases = 0
+    for n_sm in (sm_count(), 66):
+        for B in (1, 16, 128, 256, 1000):
+            for nL, slices in ((1, ((0, 1),)), (3, ((0, 2), (2, 3))), (4, ((0, 2), (2, 4))),
+                               (4, ((0, 4),)), (8, ((0, 2), (2, 4), (4, 6), (6, 8)))):
+                chunks = k2.chunks_of(slices, nL, len(slices))
+                for n_re, n_sc in ((52, 200), (144, 288), (636, 1272), (1638, 3276), (7, 13)):
+                    lp = k2.launch_plan(B, chunks, n_re, n_sc, n_sm)
+                    assert k2.kernel_plan(B, nL, chunks, n_re, n_sc, n_sm) == lp
+                    n_cases += 1
+    assert n_cases == 250
 
 
 @NEEDS_GPU

@@ -20,6 +20,7 @@ Tolerances:
 The CUDA kernels themselves are held against their plain versions on the card
 by tests/test_torch_gpu.py (no JAX there) and chip_smoke.py.
 """
+import math
 import re
 
 import numpy as np
@@ -419,3 +420,299 @@ def test_rc_smooth_taps_struct_is_cached_and_reversed():
     assert k5.taps_struct(np.ones(32)).k == 32
     with pytest.raises(ValueError, match="1..32 taps"):
         k5.taps_struct(np.ones(33))
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 as redesigned for Hopper: the launch plans, the gate, and float32
+# models of each kernel's order of summation (the CUDA kernels run only on the
+# card; tests/test_torch_gpu.py holds them to their plain versions there)
+# ---------------------------------------------------------------------------
+
+# the JAX bench's five configurations (bench.py:68-74) and the estimator and
+# kernel tests' configurations, plus the ones the gate turns away
+GATE_CONFIGS = [
+    dict(n_prbs=52, n_layers=1, comb=2, scs_hz=15e3),
+    dict(n_prbs=52, n_layers=1, comb=2, scs_hz=30e3),
+    dict(n_prbs=106, n_layers=4, comb=2, scs_hz=30e3),
+    dict(n_prbs=273, n_layers=1, comb=2, scs_hz=30e3, interp="cnn"),
+    dict(n_prbs=24, n_layers=1, comb=2, scs_hz=30e3, two_hops=True),
+    dict(n_prbs=26, n_layers=4, comb=2),
+    dict(n_prbs=12, n_layers=2, comb=2, two_hops=True),
+    dict(n_prbs=16, n_layers=3, comb=2),
+    dict(n_prbs=20, n_layers=1, comb=2, cfo_compensate=False, prb_start=6, n_prb_total=30),
+    dict(n_prbs=24, n_layers=1, comb=2, cfo_compensate=False),
+    dict(n_prbs=8, n_layers=1, comb=2, n_dmrs_syms=1),
+    dict(n_prbs=16, n_layers=1, smoothing="wiener"),
+    dict(n_prbs=16, n_layers=1, time_interp="linear"),
+    dict(n_prbs=16, n_layers=1, interp="cnn"),
+    dict(n_prbs=86, n_layers=8, comb=4),
+    dict(n_prbs=4, n_layers=2, comb=2),
+]
+
+
+H100_CAPS = (132, 66, 39, 30, 22, 17, 15, 15)  # chip_smoke phase 2 on an H100 80GB HBM3
+
+
+def parent_smem_fits(n_re, nL, n_pils, half_cp_len):
+    """The parent's shared-memory rule for K1: one block a problem holding H
+    and Hs (2 x 2nL x n_re), the PDP and the edge and virtual-pilot rows."""
+    rows = 2 * nL
+    return 4 * (2 * rows * n_re + 2 * half_cp_len + 4 * rows * n_pils) <= k1.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("kw", GATE_CONFIGS, ids=[str(i) for i in range(len(GATE_CONFIGS))])
+def test_front_gate_admits_the_parents_plans(kw, monkeypatch):
+    """`_front_pallas_ok` asks K1's launch plan; it admits exactly the plans
+    that the parent's shared-memory rule admitted."""
+    case = synthetic.make_case(seed=5, **kw)
+    plan = make_plan(case.hop1, case.hop2, case.config, case.pilots.shape[2])
+    got = port_est._front_pallas_ok(plan)
+
+    def parent_rule(batch, n_re, nL, n_pils, half_cp_len, k_ta, caps):
+        if not parent_smem_fits(n_re, nL, n_pils, half_cp_len):
+            raise ValueError("does not fit")
+
+    monkeypatch.setattr(k1, "launch_plan", parent_rule)
+    assert got == port_est._front_pallas_ok(plan)
+
+
+def test_front_plan_exists_wherever_the_parents_did():
+    """Over every shape the plan builder gives K1 (the fused smoothing matrix
+    exists up to n_re = 1024, n_pils <= 12 there), a launch exists exactly
+    where the parent's one block a problem fitted, at any batch and cluster
+    capacity."""
+    caps_low = tuple(max(1, c // 4) for c in k1.NOMINAL_CAPS)
+    n = 0
+    for nL in range(1, 9):
+        for n_pils in (1, 2, 7, 12, 16):
+            for hcp in (36, 144, 288):
+                for n_re in (1, 2, 3, 5, 12, 24, 96, 143, 144, 300, 636, 637, 1000, 1024):
+                    want = parent_smem_fits(n_re, nL, n_pils, hcp)
+                    for batch, caps in ((1, k1.NOMINAL_CAPS), (128, k1.NOMINAL_CAPS),
+                                        (1000, caps_low)):
+                        try:
+                            lp = k1.launch_plan(batch, n_re, nL, n_pils, hcp, n_re, caps)
+                        except ValueError:
+                            lp = None
+                        assert (lp is not None) == want, (nL, n_pils, hcp, n_re, batch)
+                        if lp is not None:
+                            assert lp.smem <= k1.SMEM_LIMIT and lp.P * 2 * nL <= lp.Mpad <= 32
+                            assert lp.S * lp.NS >= n_re and lp.S * lp.TS >= 2 * hcp
+                            assert lp.blocks == -(-batch // lp.P) * lp.S
+                        n += 1
+    assert n == 8 * 5 * 3 * 14 * 3
+
+
+def test_front_shapes_outside_every_plan_raise():
+    caps = k1.NOMINAL_CAPS
+    for args in ((1, 636, 9, 7, 144, 636),   # 9 layers
+                 (1, 636, 4, 17, 144, 636),  # 17 pilots
+                 (1, 636, 4, 7, 144, 637),   # a TA DFT longer than the band
+                 (0, 636, 4, 7, 144, 636),   # no problem
+                 (1, 20000, 8, 16, 144, 20000)):  # no block holds the band
+        with pytest.raises(ValueError):
+            k1.launch_plan(*args, caps)
+
+
+def test_front_plan_at_the_main_paths_shapes():
+    """c2 (B=128): 2 problems x 2 blocks a cluster on 128 of 132 SMs; c4
+    (B=256): 16 problems a cluster. `caps`: an H100 SXM's cluster capacities
+    at one block an SM (chip_smoke phase 2 prints the card's): its GPCs hold
+    30 clusters of 4, not the 33 that 132 SMs would."""
+    caps = H100_CAPS
+    c2 = k1.launch_plan(128, 636, 4, 7, 144, 636, caps)
+    assert (c2.P, c2.S, c2.blocks, c2.Mpad) == (2, 2, 128, 16), c2
+    c4 = k1.launch_plan(256, 144, 1, 7, 144, 144, caps)
+    assert c4.P == 16 and c4.blocks <= 132 and c4.Mpad == 32, c4
+    for lp in (c2, c4):
+        assert k1.SMEM_HALF < lp.smem <= k1.SMEM_LIMIT  # one block an SM
+
+
+def front_model(rx, pil, beta, mats, plan, *, n_samples, half_cp_len, fft_size, scs_hz,
+                cfo_possible, cfo_compensate):
+    """float32 model of csrc/front.cu's order of summation under `plan`: each
+    cluster's P problems, its S blocks' column and bin shares, every partial
+    (EPRE, CFO correlations, edge products, noise, RSRP) summed over the
+    blocks in rank order, both products accumulated K tile by K tile."""
+    B, _, n_cdm, nd, n_re = rx.shape
+    nL = pil.shape[2]
+    rows, n_pils, hcp = 2 * nL, mats["pair_l"].shape[1], half_cp_len
+    nbins, k_ta, KT = 2 * hcp, mats["ta_c"].shape[0], plan.KT
+    f = torch.float32
+    h_out = torch.zeros((B, rows, n_re), dtype=f)
+    sc = torch.zeros((B, 8), dtype=f)
+    spans = [(min(r * plan.NS, n_re), min(r * plan.NS + plan.NS, n_re)) for r in range(plan.S)]
+    bins = [(min(r * plan.TS, nbins), min(r * plan.TS + plan.TS, nbins)) for r in range(plan.S)]
+    cdm = [min(l // 2, n_cdm - 1) for l in range(nL)]
+
+    def tiled(a, b):  # a (M, K) @ b (K, N), the K tiles summed in order
+        acc = torch.zeros((a.shape[0], b.shape[1]), dtype=f)
+        for k0 in range(0, a.shape[1], KT):
+            acc = acc + a[:, k0:k0 + KT] @ b[k0:k0 + KT]
+        return acc
+
+    with k1.full_f32_matmul():
+        for b in range(B):
+            xr, xi = rx[b, 0], rx[b, 1]  # (n_cdm, nd, n_re)
+            pr_, pi_ = pil[b, 0], pil[b, 1]  # (nL, nd, n_re)
+            rec_r = xr[cdm] * pr_ + xi[cdm] * pi_  # (nL, nd, n_re)
+            rec_i = xi[cdm] * pr_ - xr[cdm] * pi_
+            epre = torch.zeros((), dtype=f)
+            corr = torch.zeros((nL, 2), dtype=f)
+            for c0, c1 in spans:
+                epre = epre + (xr[..., c0:c1] ** 2 + xi[..., c0:c1] ** 2).sum()
+                ar, ai, er, ei = (t[..., c0:c1] for t in (rec_r[:, 0], rec_i[:, 0],
+                                                          rec_r[:, 1], rec_i[:, 1]))
+                corr = corr + torch.stack([(ar * er + ai * ei).sum(-1),
+                                           (ar * ei - ai * er).sum(-1)], -1)
+            cfo = torch.zeros((), dtype=f)
+            if cfo_possible:
+                acc = torch.zeros((), dtype=f)
+                for c in range(n_cdm):
+                    p_ = corr[2 * c] + (corr[2 * c + 1] if 2 * c + 1 < nL else 0.0)
+                    acc = acc + torch.atan2(p_[1], p_[0])
+                cfo = acc / torch.tensor(2.0 * math.pi * n_samples, dtype=f) / n_cdm
+            x = mats["two_pi_sst_d"] * cfo if cfo_possible and cfo_compensate else torch.zeros(nd)
+            co, si = torch.cos(x)[:, None], torch.sin(x)[:, None]
+            sr = (rec_r * co + rec_i * si).sum(1) / beta[b] / nd
+            s_i = (rec_i * co - rec_r * si).sum(1) / beta[b] / nd
+            H = torch.cat([sr, s_i])  # (rows, n_re)
+            edges = []
+            for pm in (mats["pair_l"], mats["pair_r"]):
+                e = torch.zeros((rows, n_pils), dtype=f)
+                for c0, c1 in spans:
+                    e = e + H[:, c0:c1] @ pm[c0:c1]
+                edges.append(e)
+
+            def virtual(e):
+                if n_pils == 1:
+                    return e
+                amp = torch.sqrt(e[:nL] ** 2 + e[nL:] ** 2)
+                ph = mathx.unwrap_last(torch.atan2(e[nL:], e[:nL]))
+                va, vph = amp @ mats["vp"].T, ph @ mats["vp"].T
+                return torch.cat([va * torch.cos(vph), va * torch.sin(vph)])
+
+            A = torch.cat([H, virtual(edges[0]), virtual(edges[1].flip(-1))], 1)
+            Bm = torch.cat([mats["smooth"], mats["smooth_vb"], mats["smooth_ve"].flip(0)])
+            Hs = torch.cat([tiled(A, Bm[:, c0:c1]) for c0, c1 in spans], 1)
+            h_out[b] = Hs
+            noise = torch.zeros((), dtype=f)
+            hsum = torch.zeros((), dtype=f)
+            for c0, c1 in spans:
+                hr, hi = Hs[:nL, None, c0:c1], Hs[nL:, None, c0:c1]  # (nL, 1, n)
+                hpr, hpi = hr * co - hi * si, hr * si + hi * co
+                con_r = beta[b] * (pr_[..., c0:c1] * hpr - pi_[..., c0:c1] * hpi)
+                con_i = beta[b] * (pr_[..., c0:c1] * hpi + pi_[..., c0:c1] * hpr)
+                for c in range(n_cdm):
+                    l0, l1 = 2 * c, min(2 * c + 2, nL)
+                    dr = xr[c, :, c0:c1] - con_r[l0:l1].sum(0)
+                    di = xi[c, :, c0:c1] - con_i[l0:l1].sum(0)
+                    noise = noise + (dr * dr + di * di).sum()
+                hsum = hsum + (Hs[:, c0:c1] ** 2).sum()
+            pdp = torch.zeros(nbins, dtype=f)
+            for t0, t1 in bins:
+                tc = tiled(Hs[:, :k_ta], mats["ta_c"][:, t0:t1])
+                ts = tiled(Hs[:, :k_ta], mats["ta_s"][:, t0:t1])
+                pdp[t0:t1] = ((tc[:nL] - ts[nL:]) ** 2 + (ts[:nL] + tc[nL:]) ** 2).sum(0)
+            i_d = int(mathx.argmax_last(pdp[:hcp]))
+            i_a = int(mathx.argmax_last(pdp[hcp:]))
+            i_max = i_d if pdp[:hcp].max() >= pdp[hcp:].max() else -(hcp - i_a)
+            sc[b, :5] = torch.stack([cfo, torch.tensor(i_max / fft_size / scs_hz, dtype=f),
+                                     noise, beta[b] * beta[b] * hsum * nd, epre])
+    return h_out.reshape(B, 2, nL, n_re), sc
+
+
+@pytest.mark.parametrize("label,kw,batch", [
+    ("c2", dict(n_prbs=106, n_layers=4, comb=2, scs_hz=30e3, snr_db=30.0), 128),
+    ("c4", dict(n_prbs=24, n_layers=1, comb=2, scs_hz=30e3, snr_db=30.0, two_hops=True), 256),
+])
+def test_front_kernel_order_model_matches_plain(label, kw, batch):
+    """The kernel's order of summation, under the plan it launches at the
+    main path's batch on an H100, stays within chip_smoke phase 3's bounds of
+    the plain version: h_s relative 1e-5, the scalars within rtol 1e-4, the
+    same TA bins. A problem's arithmetic depends on the plan's column and bin
+    split (S) and K tile, not on which problems share a cluster, so 6 seeded
+    problems stand for the batch."""
+    for hp, (rx, pil, beta, mats), t_kw, _, _ in front_inputs(kw, np.float32, batch=6, seed=7):
+        lp = k1.launch_plan(batch, hp.n_re, pil.shape[2], hp.n_pils, hp.half_cp_len,
+                            mats["ta_c"].shape[0], H100_CAPS)
+        assert lp.S > 1  # the column and bin split is exercised
+        h_m, s_m = front_model(rx, pil, beta, mats, lp, **t_kw)
+        h_p, s_p = k1.fused_front_plain(rx, pil, beta, mats, **t_kw)
+        assert rel(h_m.numpy(), h_p.numpy()) <= 1e-5, label
+        s_m, s_p = s_m.numpy(), s_p.numpy()
+        to_bin = t_kw["fft_size"] * t_kw["scs_hz"]
+        np.testing.assert_array_equal(np.rint(s_m[:, 1] * to_bin), np.rint(s_p[:, 1] * to_bin))
+        np.testing.assert_allclose(s_m[:, [0, 2, 3, 4]], s_p[:, [0, 2, 3, 4]], rtol=1e-4,
+                                   atol=1e-12)
+
+
+def fill_model(h, w, rot, layer_slices, n_sm):
+    """float32 model of csrc/fill_rotate_serve.cu's order of summation: the
+    launch plan's tiles of (problem, layer, ri) rows, each tile's K steps
+    split over its KS blocks and accumulated step by step, the blocks'
+    partials summed in rank order, then rotated."""
+    B, _, nL, n_re = h.shape
+    n_sc, n_sym = w.shape[-1], rot.shape[2]
+    chunks = k2.chunks_of(layer_slices, nL, w.shape[0])
+    lp = k2.launch_plan(B, chunks, n_re, n_sc, n_sm)
+    nk = -(-n_re // k2._KT)
+    kc = -(-nk // lp.KS)
+    out = torch.empty((B, 2, nL, n_sym, n_sc), dtype=torch.float32)
+    with k2.full_f32_matmul():
+        for c, l0, nl in chunks:
+            rows = h[:, :, l0:l0 + nl].permute(0, 2, 1, 3).reshape(-1, n_re)  # (b, layer, ri)
+            for m0 in range(0, rows.shape[0], k2._TM):
+                a = rows[m0:m0 + k2._TM]
+                tot = None
+                for r in range(lp.KS):
+                    part = torch.zeros((a.shape[0], n_sc), dtype=torch.float32)
+                    for s in range(r * kc, min(r * kc + kc, nk)):
+                        k0 = s * k2._KT
+                        part = part + a[:, k0:k0 + k2._KT] @ w[c, k0:k0 + k2._KT]
+                    tot = part if tot is None else tot + part
+                fr, fi = tot[0::2], tot[1::2]  # (pairs, n_sc)
+                q = torch.arange(m0 // 2, m0 // 2 + fr.shape[0])
+                b, l = q // nl, l0 + q % nl
+                rr, ri = rot[b, 0][:, :, None], rot[b, 1][:, :, None]
+                out[b, 0, l] = fr[:, None] * rr - fi[:, None] * ri
+                out[b, 1, l] = fr[:, None] * ri + fi[:, None] * rr
+    return out, lp
+
+
+@pytest.mark.parametrize("label,B,nL,n_re,n_sc,slices", [
+    ("c2", 40, 4, 636, 1272, ((0, 2), (2, 4))),
+    ("nL=3", 9, 3, 636, 1272, ((0, 2), (2, 3))),
+    ("c4", 256, 1, 144, 288, ((0, 1),)),
+    ("c3 operator", 3, 1, 1638, 3276, ((0, 1),)),
+])
+def test_fill_kernel_order_model_matches_plain(label, B, nL, n_re, n_sc, slices):
+    """The kernel's order of summation, split over a cluster's blocks where
+    the plan asks for it, stays within chip_smoke phase 4's bound of the plain
+    version: relative 1e-5."""
+    rng = np.random.default_rng(B)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    h = t(rng.standard_normal((B, 2, nL, n_re)))
+    w = t(0.1 * rng.standard_normal((len(slices), n_re, n_sc)))
+    ph = rng.uniform(-np.pi, np.pi, (B, 14))
+    rot = t(np.stack([np.cos(ph), np.sin(ph)], 1))
+    got, lp = fill_model(h, w, rot, slices, 132)
+    want = k2.fused_fill_rotate_serve_plain(h, w, rot, slices)
+    assert rel(got.numpy(), want.numpy()) <= 1e-5, (label, lp)
+
+
+def test_fill_plan_and_refusals():
+    c2 = k2.chunks_of(((0, 2), (2, 4)), 4, 2)
+    assert c2 == [(0, 0, 2), (1, 2, 2)]
+    assert k2.chunks_of(((0, 2), (2, 3)), 3, 2) == [(0, 0, 2), (1, 2, 1)]
+    lp = k2.launch_plan(128, c2, 636, 1272, 132)
+    assert lp.tiles == 2 * 8 * 10 and lp.smem == k2.SMEM
+    assert lp.KS * lp.clusters == lp.blocks and lp.clusters <= lp.tiles
+    c3 = k2.launch_plan(16, k2.chunks_of(None, 1, 1), 1638, 3276, 132)
+    assert c3.tiles == 26 and c3.KS > 1 and c3.KS * c3.tiles >= 132
+    with pytest.raises(ValueError, match="layer_slices"):
+        k2.chunks_of(tuple((l, l + 1) for l in range(17)), 17, 17)  # 17 chunks > 16
+    with pytest.raises(ValueError, match="do not cover"):
+        k2.chunks_of(((0, 2),), 4, 1)
+    with pytest.raises(ValueError):
+        k2.launch_plan(0, c2, 636, 1272, 132)
