@@ -1,37 +1,47 @@
 #!/usr/bin/env python3
-"""Time K1, K2, K5, K3 and K4 of this checkout against those of another
+"""Time K1, K2, K6, K5, K3 and K4 of this checkout against those of another
 checkout, in turns, on one NVIDIA GPU.
 
-    python3 ab_kernels.py OTHER_CHECKOUT [k1|k2|k5|k3|k4 ...]
+    python3 ab_kernels.py OTHER_CHECKOUT [k1|k2|k6|k5|k3|k4 ...]
 
 OTHER_CHECKOUT holds another version of `srsran_ce_tpu_torch/csrc/` with the
 same C entries (`srs_fused_front_f32`, `srs_fill_rotate_serve_f32`,
-`srs_rc_smooth_f32`, `srs_ldpc_posterior_f32`, `srs_ldpc_stream_posterior`,
-same argument lists), for example the parent commit unpacked by `git
-archive`. Its `front.cu`, `fill_rotate_serve.cu`, `rc_smooth.cu`, `ldpc.cu`
-and `ldpc_stream.cu` are built with this checkout's nvcc flags (each
-includes the `ldpc_common.cuh` of its own directory), all at the same time
-as this checkout's. Both libraries get the same arguments, except K1's last
-one, the shared memory of a block: the other checkout's body is given the
-one-block-a-problem layout of the first K1 body (2 x 2nL x n_re rows, the
-PDP, the edge and virtual-pilot rows), this checkout's its `launch_plan`;
-the LDPC scratch and delta buffers are sized for either layout (per-edge
-messages or per-row records). Each library is held to the plain version
-first (K1 h_s relative 1e-5, the scalars within rtol 1e-4 and the same TA
-bins; K2 and K5 relative 1e-5; K3 and K4 bit for bit, torch.equal on the
-int32 views), then both are timed device-only (torch.profiler's CUDA kernel
-time over n calls, over n) in turns other / this / this / other:
+`srs_fill_rotate_f32`, `srs_rc_smooth_f32`, `srs_ldpc_posterior_f32`,
+`srs_ldpc_stream_posterior`, same argument lists), for example the parent
+commit unpacked by `git archive`. Its `front.cu`, `fill_rotate_serve.cu`,
+`fill_rotate.cu`, `rc_smooth.cu`, `ldpc.cu` and `ldpc_stream.cu` are built
+with this checkout's nvcc flags (each includes the headers of its own
+directory), all at the same time as this checkout's. Both libraries get the
+same arguments, except K1's last one, the shared memory of a block: the
+other checkout's body is given the one-block-a-problem layout of the first
+K1 body (2 x 2nL x n_re rows, the PDP, the edge and virtual-pilot rows),
+this checkout's its `launch_plan`; and K6's layer table: chunks of at most
+two layers of a CDM group for a body before the shared tiled product (which
+refuses more), whole CDM groups for this checkout's. The LDPC scratch and
+delta buffers are sized for either layout (per-edge messages or per-row
+records). Each library is held to the plain version first (K1 h_s relative
+1e-5, the scalars within rtol 1e-4 and the same TA bins; K2, K6 and K5
+relative 1e-5, K6 written at its offset into a larger grid whose rest must
+stay as it was; K3 and K4 bit for bit, torch.equal on the int32 views), then
+both are timed device-only (torch.profiler's CUDA kernel time over n calls,
+over n) in turns other / this / this / other:
   k1  c2 (106 PRB, 4 layers) at B=128 and c4 (24 PRB, 1 layer) at B=256;
   k2  c2 B=128 (its interpolation operator, CDM groups (0,2),(2,4)), nL=3
       (groups (0,2),(2,3)) with a seeded operator of c2's shape, and the c3
-      inpainting operator (1638 x 3276, B=16, one layer);
+      inpainting operator (1638 x 3276, B=16, one layer); the two outputs
+      must be bit-identical (torch.equal) and this checkout's mean time
+      over two rounds of turns within 3 % of the other's (K2's arithmetic
+      did not change when its product moved into csrc/fill_common.cuh);
+  k6  the same three shapes in the reference layout, and the c4 second hop
+      (B=256, its 144 x 288 operator, 7 symbols written at subcarrier 336,
+      symbol 7 of the (624, 14) grid);
   k5  c2 rows (128, 8, 650) and time-interpolation rows (128, 32, 650), K=15;
   k3  NR BG1 Z=384, B=128, 8 layered sweeps, bfloat16 and float32 messages;
       the e2e decode shape, B=24, 16 sweeps, bfloat16;
   k4  chip_smoke phase 16's six configurations: n976 B=512 flooding-25 and
       layered-13, BG2 Z=208 B=128 flooding-16 and layered-8 G=8, BG1 Z=52
       B=128 flooding-16 and layered-8 G=2.
-Without kernel names, all five. Prints the card's `nvidia-smi` name and
+Without kernel names, all six. Prints the card's `nvidia-smi` name and
 power limit beside the numbers. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -44,8 +54,8 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parent
-SOURCES = {"k1": "front", "k2": "fill_rotate_serve", "k5": "rc_smooth", "k4": "ldpc",
-           "k3": "ldpc_stream"}
+SOURCES = {"k1": "front", "k2": "fill_rotate_serve", "k6": "fill_rotate", "k5": "rc_smooth",
+           "k4": "ldpc", "k3": "ldpc_stream"}
 
 
 def main(argv) -> int:
@@ -65,6 +75,7 @@ def main(argv) -> int:
     from srsran_ce_tpu_torch.models.plan import make_plan, plan_tensors
     from srsran_ce_tpu_torch.ops import ldpc, nr_ldpc
     from srsran_ce_tpu_torch.ops.kernels import _build, bind, launch
+    from srsran_ce_tpu_torch.ops.kernels import fill_rotate as k6
     from srsran_ce_tpu_torch.ops.kernels import fill_rotate_serve as k2
     from srsran_ce_tpu_torch.ops.kernels import front as k1
     from srsran_ce_tpu_torch.ops.kernels import ldpc as k4
@@ -117,12 +128,13 @@ def main(argv) -> int:
                 return us / n / 1e3
         raise SystemExit("the profiler saw no device time in 3 sessions")
 
-    def turns(label, runs, n):
-        t = [(lab, device_ms(runs[lab], n)) for lab in ("other", "this", "this", "other")]
+    def turns(label, runs, n, rounds=1):
+        t = [(lab, device_ms(runs[lab], n)) for lab in ("other", "this", "this", "other") * rounds]
         mean = {lab: float(np.mean([v for l_, v in t if l_ == lab])) for lab in ("other", "this")}
         print(f"{label} device-only ms, turns other/this/this/other {[round(v, 5) for _, v in t]}: "
               f"other {mean['other']:.5f}, this {mean['this']:.5f} "
               f"({mean['other'] / mean['this']:.2f}x) [{smi}]")
+        return mean
 
     def rel_err(got, want):
         return float((got.double() - want.double()).abs().max() / want.double().abs().max())
@@ -185,27 +197,42 @@ def main(argv) -> int:
                       "within rtol 1e-4, TA bins equal")
             turns(f"K1 {label} B={B}", runs, 50)
 
-    if "k2" in picked:
-        fns = dict(zip(("other", "this"), entry("k2", "srs_fill_rotate_serve_f32", k2._ARGTYPES)))
+    fill_rows = ()
+    if "k2" in picked or "k6" in picked:
+        # (label, B, nL, W, CDM groups, symbols, grid (sc, sym), block at (sc0, sy0))
         case = synthetic.make_case(seed=11, n_prbs=106, n_layers=4, comb=2, scs_hz=30e3,
                                    snr_db=30.0)
         w_c2 = plan_tensors(make_plan(case.hop1, case.hop2, case.config, 4), dev,
                             torch.float32)["hops"][0]["interp"]
+        case4 = synthetic.make_case(seed=11, n_prbs=24, n_layers=1, comb=2, scs_hz=30e3,
+                                    snr_db=30.0, two_hops=True)
+        plan4 = make_plan(case4.hop1, case4.hop2, case4.config, 1)
+        w_c4 = plan_tensors(plan4, dev, torch.float32)["hops"][1]["interp"]
+        hop4 = plan4.hop2
         rng = np.random.default_rng(7)
         t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
-        rows = (("c2 nL=4 groups (0,2),(2,4)", 128, 4, w_c2, ((0, 2), (2, 4))),
-                ("nL=3 groups (0,2),(2,3)", 128, 3, t(0.1 * rng.standard_normal(tuple(w_c2.shape))),
-                 ((0, 2), (2, 3))),
-                ("c3 operator 1638 x 3276, B=16", 16, 1, t(0.05 * rng.standard_normal((1, 1638, 3276))),
-                 ((0, 1),)))
-        for label, B, nL, w, slices in rows:
-            h = t(rng.standard_normal((B, 2, nL, w.shape[1])))
-            ph = rng.uniform(-np.pi, np.pi, (B, 14))
-            rot = t(np.stack([np.cos(ph), np.sin(ph)], 1))
+        fill_rows = (
+            ("c2 nL=4 groups (0,2),(2,4)", 128, 4, w_c2, ((0, 2), (2, 4)), 14, (1272, 14), (0, 0)),
+            ("nL=3 groups (0,2),(2,3)", 128, 3, t(0.1 * rng.standard_normal(tuple(w_c2.shape))),
+             ((0, 2), (2, 3)), 14, (1272, 14), (0, 0)),
+            ("c3 operator 1638 x 3276, B=16", 16, 1, t(0.05 * rng.standard_normal((1, 1638, 3276))),
+             ((0, 1),), 14, (3276, 14), (0, 0)),
+            ("c4 second hop, B=256", 256, 1, w_c4, hop4.layer_slices, hop4.n_alloc_syms,
+             (case4.received_rg.shape[0], 14), (hop4.sc_start, hop4.sym_start)))
+
+    def fill_inputs(B, nL, w, n_sym):
+        h = t(rng.standard_normal((B, 2, nL, w.shape[1])))
+        ph = rng.uniform(-np.pi, np.pi, (B, n_sym))
+        return h, t(np.stack([np.cos(ph), np.sin(ph)], 1))
+
+    if "k2" in picked:
+        fns = dict(zip(("other", "this"), entry("k2", "srs_fill_rotate_serve_f32", k2._ARGTYPES)))
+        for label, B, nL, w, slices, _, _, _ in fill_rows[:3]:
+            h, rot = fill_inputs(B, nL, w, 14)
             want = k2.fused_fill_rotate_serve_plain(h, w, rot, slices)
             out = torch.empty_like(want)
             tab = k2.chunk_table(k2.chunks_of(slices, nL, w.shape[0]))
-            runs = {}
+            runs, outs = {}, {}
             for lab, fn in fns.items():
                 runs[lab] = (lambda fn=fn: launch(
                     "fused_fill_rotate_serve", fn, dev, h.data_ptr(), w.data_ptr(), rot.data_ptr(),
@@ -216,8 +243,44 @@ def main(argv) -> int:
                 err = rel_err(out, want)
                 if not err <= 1e-5:
                     raise SystemExit(f"K2 {lab} at {label}: relative error {err:.3e} > 1e-5")
+                outs[lab] = out.clone()
                 print(f"K2 {lab} at {label}: rel err vs plain {err:.2e}")
-            turns(f"K2 {label}", runs, 50)
+            if not torch.equal(outs["this"], outs["other"]):
+                raise SystemExit(f"K2 at {label}: this checkout's output differs from the other's "
+                                 f"(max abs {float((outs['this'] - outs['other']).abs().max()):.3e})")
+            print(f"K2 at {label}: this checkout's output bit-identical to the other's")
+            mean = turns(f"K2 {label}", runs, 200, rounds=2)
+            if not mean["this"] <= 1.03 * mean["other"]:
+                raise SystemExit(f"K2 at {label}: this checkout {mean['this']:.5f} ms, more than 3 % "
+                                 f"over the other's {mean['other']:.5f}")
+
+    if "k6" in picked:
+        fns = dict(zip(("other", "this"), entry("k6", "srs_fill_rotate_f32", k6._ARGTYPES)))
+        for label, B, nL, w, slices, n_sym, (g_sc, g_sym), (sc0, sy0) in fill_rows:
+            h, rot = fill_inputs(B, nL, w, n_sym)
+            n_cdm, n_re, n_sc = w.shape
+            want = k6.fused_fill_rotate_plain(h, w, rot, slices)
+            out = torch.empty((B, 2, g_sc, g_sym, nL), dtype=torch.float32, device=dev)
+            blk = out[:, :, sc0:sc0 + n_sc, sy0:sy0 + n_sym]
+            tabs = {"other": k2.chunk_table(k2.chunks_of(slices, nL, n_cdm)),
+                    "this": k2.chunk_table(k6.fill_chunks(slices, nL, n_cdm))}
+            runs = {}
+            for lab, fn in fns.items():
+                runs[lab] = (lambda fn=fn, tab=tabs[lab]: launch(
+                    "fused_fill_rotate", fn, dev, h.data_ptr(), w.data_ptr(), rot.data_ptr(),
+                    out.data_ptr(), B, nL, n_re, n_sc, n_sym, g_sc, g_sym, sc0, sy0,
+                    ctypes.byref(tab)))
+                out.fill_(float("nan"))
+                runs[lab]()
+                torch.cuda.synchronize()
+                err = rel_err(blk, want)
+                untouched = int(out.isnan().sum()) == out.numel() - blk.numel()
+                if not (err <= 1e-5 and untouched):
+                    raise SystemExit(f"K6 {lab} at {label}: relative error {err:.3e} (> 1e-5?) or "
+                                     "the grid outside the block was written")
+                print(f"K6 {lab} at {label}: rel err vs plain {err:.2e}, grid outside the block "
+                      "untouched")
+            turns(f"K6 {label}", runs, 50)
 
     if "k5" in picked:
         case = synthetic.make_case(seed=11, n_prbs=106, n_layers=4, comb=2, scs_hz=30e3, snr_db=30.0)

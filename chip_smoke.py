@@ -7,9 +7,10 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
   1. device: the card's name and `nvidia-smi` name / power limit;
   2. build: nvcc builds every kernel from srsran_ce_tpu_torch/csrc/, all at once;
      each instantiation's registers and static shared memory are printed, and
-     ptxas must report no spills for any K1, K2, K5, K7, K4 or K3
-     instantiation; K1's and K2's launch plans at c2, c4 / c2, nL=3, c3, each
-     held to the kernel's own plan, and K1's cluster capacities;
+     ptxas must report no spills for any K1, K2, K6, K5, K7, K4 or K3
+     instantiation; K1's, K2's and K6's launch plans at c2, c4 / c2, nL=3, c3
+     / c2, nL=3, c3, the c4 second hop, nL=8, each held to the kernel's own
+     plan, and K1's cluster capacities;
   3. K1 (fused front) against its plain PyTorch version at c2 shapes, B=128;
   4. K2 (serve fill) against its plain version, equal and unequal CDM groups;
   5. `build_ri(..., batched=True, out_layout="serve", kernels="pallas_front")`
@@ -23,8 +24,10 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
   8. K5 (rc_smooth) against its plain version at the c2 rows (B=128, C=8,
      n_ext=650) and at the time-interpolation row count (C=2*nL*n_dsym);
   9. K6 (fused_fill_rotate) against its plain version: c2 equal CDM groups,
-     nL=3 unequal groups, the c3 inpainting operator (1638 x 3276) as W, and a
-     block written into its slice of a larger grid;
+     nL=3 unequal groups, the c3 inpainting operator (1638 x 3276) as W, nL=8
+     (groups (0,4),(4,8)), the c4 second hop written at (336, 7) into its
+     (624, 14) grid, and a block written into its slice of a larger grid,
+     the rest of each grid untouched;
  10. `kernels="pallas"` in the reference layout at c2 (B=128) and c4 (two
      hops, B=256) against the float64 oracle (NMSE < 1e-12), K5 and K6
      launched in that run;
@@ -38,7 +41,8 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      within -40 dB;
  15. times with CUDA events: K5 and K6 against their plain versions, and the
      whole build_ri call at c2 batch 128 for pallas/ref, pallas/serve and
-     xla/serve;
+     xla/serve, with the pallas/ref and pallas/serve calls' device busy
+     time, idle share and heaviest device operations (torch.profiler);
  16. K4 (ldpc_posterior) against its plain version at the JAX bench's decode
      rows (array_code(6,16,61) B=512, NR BG2 Z=208 and BG1 Z=52 at B=128),
      flooding and layered at the row's default layered_group: bit-identical
@@ -61,8 +65,11 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      F.conv1d three ways (cold-L2 events, device-only kernel time from the
      profiler, host us per call), K2's and K6's one-call yardstick (one
      torch.einsum over the ri operands, held to the plain version at
-     relative 1e-5), and every kernel's bound (the larger of its bytes over
-     3.35 TB/s and its float32 operations over 67 TFLOP/s);
+     relative 1e-5), K6's and the einsums' device-only times beside their
+     cold-L2 events, every kernel's bound (the larger of its bytes over
+     3.35 TB/s and its float32 operations over 67 TFLOP/s), and at the A/B
+     script's other shapes (K1 at c4; K2 and K6 at nL=3 and the c3
+     operator; K6 at the c4 second hop) kernel, plain, bound and einsum;
  21. K7 (inpaint_stack) against its plain version at the JAX test's shapes
      (n, comb) = (48, 2) and (96, 4), the estimator's chain regime (11 PRB,
      nL=4, B=128), c3 width (n=3276, 409 iterations, B=16; and at row
@@ -248,10 +255,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s for {list(_build.SOURCES)}")
-    # K1, K2, K5, K7, K4 and K3 keep every instantiation in registers: a
-    # library built before this run left no ptxas report here, so it is
-    # rebuilt to give one
-    checked = ("front", "fill_rotate_serve", "rc_smooth", "inpaint", "ldpc", "ldpc_stream")
+    # every kernel keeps every instantiation in registers: a library built
+    # before this run left no ptxas report here, so it is rebuilt to give one
+    checked = _build.SOURCES
     unlogged = [src for src in checked if src not in _build.build_logs]
     if unlogged:
         _build.build_all(unlogged, force=True)
@@ -267,11 +273,12 @@ def main() -> int:
                   if any(int(b) for b in re.findall(r"(\d+) bytes spill", ln))]
         if spills:
             fail(f"ptxas spills in {src}: {spills}")
-    print("phase 2 ptxas: no spills in any front (K1), fill_rotate_serve (K2), rc_smooth (K5), "
-          "inpaint (K7), ldpc (K4) or ldpc_stream (K3) instantiation (this run's ptxas reports "
-          "read)")
-    # K1's and K2's launch plans at the shapes the main path gives them, each
-    # held to the kernel's own (srs_front_plan, srs_fill_rotate_serve_plan)
+    print("phase 2 ptxas: no spills in any front (K1), fill_rotate_serve (K2), fill_rotate (K6), "
+          "rc_smooth (K5), inpaint (K7), ldpc (K4) or ldpc_stream (K3) instantiation (this run's "
+          "ptxas reports read)")
+    # K1's, K2's and K6's launch plans at the shapes the main path gives them,
+    # each held to the kernel's own (srs_front_plan, srs_fill_rotate_serve_plan,
+    # srs_fill_rotate_plan)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     caps = k1.kernel_caps(dev)
     print(f"phase 2 K1 cluster capacity (clusters of 1..8 blocks resident at once): {list(caps)}")
@@ -293,6 +300,18 @@ def main() -> int:
         print(f"phase 2 K2 plan {label} B={B_}: {lp.tiles} tiles, {lp.KS} blocks a tile, "
               f"{lp.clusters} persistent clusters, {lp.blocks} blocks, {lp.smem} B shared memory "
               "(as the kernel's own plan)")
+    for label, B_, nL_, slices, n_re_, n_sc_, n_sym_ in (
+            ("c2", 128, 4, ((0, 2), (2, 4)), 636, 1272, 14),
+            ("nL=3", 128, 3, ((0, 2), (2, 3)), 636, 1272, 14),
+            ("c3", 16, 1, ((0, 1),), 1638, 3276, 14), ("c4 second hop", 256, 1, ((0, 1),), 144, 288, 7),
+            ("nL=8", 128, 8, ((0, 4), (4, 8)), 636, 1272, 14)):
+        chunks = k6.fill_chunks(slices, nL_, len(slices))
+        lp = k6.launch_plan(B_, nL_, chunks, n_re_, n_sc_, n_sym_, n_sm)
+        if k6.kernel_plan(B_, nL_, chunks, n_re_, n_sc_, n_sym_, n_sm) != lp:
+            fail(f"K6 launch_plan differs from the kernel's plan at {label}: {lp}")
+        print(f"phase 2 K6 plan {label} B={B_}: {lp.P} problems a tile, {lp.tiles} tiles, {lp.KS} "
+              f"blocks a tile, {lp.clusters} persistent clusters, {lp.blocks} blocks, {lp.smem} B "
+              "shared memory (as the kernel's own plan)")
 
     # cases: four seeds, tiled to the batch
     def tiled(kw, batch):
@@ -330,7 +349,8 @@ def main() -> int:
     c2 = tiled(C2, 128)
     plan_c2, pt_c2, f_args, f_kw = front_inputs(*c2[:4], 128, seed=101)
     results = {}
-    for label, args, kw in (("c2", f_args, f_kw), ("c4", *front_inputs(*tiled(C4, 256)[:4], 256, seed=102)[2:])):
+    f4_args, f4_kw = front_inputs(*tiled(C4, 256)[:4], 256, seed=102)[2:]
+    for label, args, kw in (("c2", f_args, f_kw), ("c4", f4_args, f4_kw)):
         h_k, s_k = k1.fused_front(*args, **kw)
         h_p, s_p = k1.fused_front_plain(*args, **kw)
         torch.cuda.synchronize()
@@ -552,26 +572,30 @@ def main() -> int:
     e2e, wall = call_ms(fn_c2, c2_args)
     print(f"phase 7 build_ri pallas_front/serve c2 B=128 (both kernels + plain glue): {e2e:.4f} "
           f"ms/batch on CUDA events, cold L2; {wall:.4f} ms/batch host wall clock back-to-back {card}")
-    # the call's device busy time and idle share (torch.profiler over 20 calls),
-    # with the device time of its heaviest operations
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof7:
-            for _ in range(20):
-                fn_c2(*c2_args)
-            torch.cuda.synchronize()
-        dev7 = {e.key: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-                for e in prof7.key_averages() if e.device_type == DeviceType.CUDA}
-        if sum(dev7.values()) > 0:
-            break
-    busy7 = sum(dev7.values()) / 20 / 1e3
-    if busy7 > 0:
-        top7 = sorted(dev7.items(), key=lambda kv: -kv[1])[:5]
-        print(f"phase 7 build_ri pallas_front/serve c2 B=128: device busy {busy7:.4f} ms of "
-              f"{wall:.4f} ms back-to-back wall, idle share {100 * (1 - busy7 / wall):.1f} % "
-              f"(torch.profiler, 20 calls); heaviest: " + ", ".join(
-                  f"{k[:40]} {us / 20 / 1e3:.4f} ms" for k, us in top7) + f" {card}")
-    else:
-        print("phase 7 idle share: not measured (the profiler saw no device time)")
+    def print_busy(phase, label, fn, args, wall, n=20):
+        """A call's device busy time and idle share (torch.profiler over n
+        calls, against its unprofiled back-to-back wall time), with the device
+        time of its heaviest operations."""
+        for _ in range(3):  # a profiler session now and then records no kernel: take another
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn(*args)
+                torch.cuda.synchronize()
+            dev_us = {e.key: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+            if sum(dev_us.values()) > 0:
+                break
+        busy = sum(dev_us.values()) / n / 1e3
+        if busy > 0:
+            top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
+            print(f"phase {phase} build_ri {label} c2 B=128: device busy {busy:.4f} ms of "
+                  f"{wall:.4f} ms back-to-back wall, idle share {100 * (1 - busy / wall):.1f} % "
+                  f"(torch.profiler, {n} calls); heaviest: " + ", ".join(
+                      f"{k[:40]} {us / n / 1e3:.4f} ms" for k, us in top) + f" {card}")
+        else:
+            print(f"phase {phase} {label} idle share: not measured (the profiler saw no device time)")
+
+    print_busy(7, "pallas_front/serve", fn_c2, c2_args, wall)
 
     # 8. K5 vs plain: the c2 rows of _smooth (2*nL = 8 rows of n_re + 2*n_pils)
     # and the time-interpolation rows (2*nL*n_dsym = 32)
@@ -609,6 +633,8 @@ def main() -> int:
         ("nL=3, groups (0,2),(2,3)", h_of(128, 3, hp.n_re), k2_cases[1][2], rot_of(128, 14),
          ((0, 2), (2, 3))),
         ("c3 inpainting operator 1638x3276", h_of(16, 1, hp3.n_re), w_c3, rot_of(16, 14), ((0, 1),)),
+        ("nL=8, groups (0,4),(4,8)", h_of(128, 8, hp.n_re),
+         k2_cases[1][2], rot_of(128, 14), ((0, 4), (4, 8))),
     )
     for label, h, w, rot, slices in k6_cases:
         o_k = k6.fused_fill_rotate(h, w, rot, layer_slices=slices)
@@ -632,6 +658,26 @@ def main() -> int:
     if not err <= 1e-5:
         fail(f"K6 block into a larger grid: relative error {err:.3e} > 1e-5")
     print(f"phase 9 K6 into a (300, 14) grid at (24, 3): rel err {err:.3e} (<= 1e-5), outside untouched")
+    # the c4 second hop: 7 symbols of 288 subcarriers at (336, 7) of its (624, 14) grid, B=256
+    case4 = synthetic.make_case(seed=SEEDS[0], **C4)
+    plan4 = make_plan(case4.hop1, case4.hop2, case4.config, 1)
+    hp4, w_c4 = plan4.hop2, plan_tensors(plan4, dev, torch.float32)["hops"][1]["interp"]
+    h, rot = h_of(256, 1, hp4.n_re), rot_of(256, hp4.n_alloc_syms)
+    grid = torch.full((256, 2, case4.received_rg.shape[0], 14, 1), 7.0, device=dev)
+    k6.fused_fill_rotate(h, w_c4, rot, hp4.layer_slices, out=grid, sc_start=hp4.sc_start,
+                         sym_start=hp4.sym_start)
+    want = torch.full_like(grid, 7.0)
+    want[:, :, hp4.sc_start:hp4.sc_start + hp4.n_sc_hop,
+         hp4.sym_start:hp4.sym_start + hp4.n_alloc_syms] = \
+        k6.fused_fill_rotate_plain(h, w_c4, rot, hp4.layer_slices)
+    torch.cuda.synchronize()
+    abs_err, err = errs(grid, want)
+    if not err <= 1e-5:
+        fail(f"K6 c4 second hop into its grid: relative error {err:.3e} > 1e-5")
+    k6_c4 = (h, w_c4, rot, hp4.layer_slices, grid, hp4.sc_start, hp4.sym_start)
+    print(f"phase 9 K6 c4 second hop (B=256, W {tuple(w_c4.shape[1:])}) into a {tuple(grid.shape[2:4])} "
+          f"grid at ({hp4.sc_start}, {hp4.sym_start}): max abs err {abs_err:.3e}, rel err {err:.3e} "
+          "(<= 1e-5), outside untouched")
 
     # 10. kernels="pallas", reference layout (the conformance path) vs the oracle
     pallas_counts = None
@@ -694,6 +740,8 @@ def main() -> int:
         ev, wall = call_ms(fn, args_c2)
         print(f"phase 15 build_ri {label} c2 B=128: {ev:.4f} ms/batch on CUDA events, cold L2; "
               f"{wall:.4f} ms/batch host wall clock back-to-back {card}")
+        if label != "xla/serve":
+            print_busy(15, label, fn, args_c2, wall)
 
     # 16. K4 vs plain at the bench's decode rows (bench.py:792-984): same seed,
     # same words, same SNR; flooding and layered at the row's default G
@@ -899,10 +947,11 @@ def main() -> int:
     }
     for k, v in bounds.items():
         times[k] = times[k] + v[:2]
-    # K1 and K2 device-only (the profiler's kernel time) beside their cold-L2 events
+    # K1, K2 and K6 device-only (the profiler's kernel time) beside their cold-L2 events
     for k, fn in (("fused_front", lambda: k1.fused_front(*f_args, **f_kw)),
                   ("fused_fill_rotate_serve",
-                   lambda: k2.fused_fill_rotate_serve(*k2_args, layer_slices=hp.layer_slices))):
+                   lambda: k2.fused_fill_rotate_serve(*k2_args, layer_slices=hp.layer_slices)),
+                  ("fused_fill_rotate", lambda: k6.fused_fill_rotate(h6, w6, r6, s6))):
         dev_only[k] = device_ms(fn)
         print(f"phase 20 {k} c2 B=128: cold-L2 events {times[k][0]:.4f} ms, device-only "
               f"{dev_only[k]:.4f} ms, bound {times[k][4]:.4f} ms ({times[k][5]}) {card}")
@@ -942,12 +991,59 @@ def main() -> int:
             fail(f"einsum vs {k}'s plain version: relative error {e_err:.3e} > 1e-5")
         library[k] = time_ms(ein)
         print(f"phase 20 {k} one-call yardstick torch.einsum('{spec}') c2 B=128: rel err vs plain "
-              f"{e_err:.2e}, cold-L2 events {library[k]:.4f} ms, kernel {times[k][0]:.4f} ms {card}")
+              f"{e_err:.2e}, cold-L2 events {library[k]:.4f} ms (device-only {device_ms(ein):.4f}), "
+              f"kernel {times[k][0]:.4f} ms (device-only {dev_only[k]:.4f}) {card}")
     for k in ("fused_front", "fused_fill_rotate_serve", "rc_smooth", "fused_fill_rotate"):
         ms, plain_ms, _, _, b_ms, b_by = times[k]
         print(f"phase 20 {k} c2 B=128: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; bytes "
               f"{bounds[k][2]:.4f}, operations {bounds[k][3]:.4f}), "
               f"library call {'not one' if library[k] is None else f'{library[k]:.4f} ms'} {card}")
+
+    # The A/B script's other shapes: K1 at c4 (one hop, B=256); K2 and K6 at
+    # nL=3 (groups (0,2),(2,3)) and the c3 operator, K6 also at the c4 second
+    # hop (written into its grid): kernel (cold-L2 events, device-only), plain
+    # (events), bound and, for K2 and K6, one einsum over the ri operands with
+    # W taken per layer (W[c(l)], stacked before the timed call; the groups
+    # are unequal at nL=3). The einsum returns a strided view, the same
+    # memory for either layout.
+    h4_k, s4_k = k1.fused_front(*f4_args, **f4_kw)
+    rx4, pil4, _, mats4 = f4_args
+    f4_ops = sum(2 * rx4.shape[0] * r_ * pil4.shape[2] * mats4[k].numel()
+                 for k, r_ in rows_of.items() if k in mats4) + 10 * rx4.numel()
+    b4 = bound(nbytes(*f4_args[:3], *[m for m in mats4.values() if torch.is_tensor(m)], h4_k, s4_k),
+               f4_ops)
+    t4 = ab(lambda: k1.fused_front(*f4_args, **f4_kw), lambda: k1.fused_front_plain(*f4_args, **f4_kw))
+    print(f"phase 20 fused_front c4 B=256 (one hop): kernel {t4[0]:.4f} ms, device-only "
+          f"{device_ms(lambda: k1.fused_front(*f4_args, **f4_kw)):.4f} ms, plain {t4[1]:.4f} ms, "
+          f"bound {b4[0]:.4f} ms ({b4[1]}; bytes {b4[2]:.4f}, operations {b4[3]:.4f}) {card}")
+    for label, (h_, w_, r_, sl_), grid_at in (
+            ("nL=3 B=128", k6_cases[1][1:], None), ("c3 operator B=16", k6_cases[2][1:], None),
+            ("c4 second hop B=256", k6_c4[:4], k6_c4[4:])):
+        B_, nL_, n_re_ = h_.shape[0], h_.shape[2], h_.shape[3]
+        n_sc_, n_sym_ = w_.shape[-1], r_.shape[-1]
+        w_l = w_[[c for c, (l0, l1) in enumerate(sl_) for _ in range(l0, l1)]].contiguous()
+        for k, mod, plain, run, spec in (
+                ("fused_fill_rotate_serve", k2, k2.fused_fill_rotate_serve_plain,
+                 lambda: k2.fused_fill_rotate_serve(h_, w_, r_, sl_), "bclyt"),
+                ("fused_fill_rotate", k6, k6.fused_fill_rotate_plain,
+                 (lambda: k6.fused_fill_rotate(h_, w_, r_, sl_)) if grid_at is None else
+                 (lambda: k6.fused_fill_rotate(h_, w_, r_, sl_, out=grid_at[0],
+                                               sc_start=grid_at[1], sym_start=grid_at[2])),
+                 "bctyl")):
+            if grid_at is not None and mod is k2:
+                continue  # the c4 row is K6's
+            ein = lambda: torch.einsum(f"cad,balp,lpt,bdy->{spec}", cprod, h_, w_l, r_)
+            want = plain(h_, w_, r_, sl_)
+            _, e_err = errs(ein(), want)
+            if not e_err <= 1e-5:
+                fail(f"einsum vs {k}'s plain version at {label}: relative error {e_err:.3e} > 1e-5")
+            b_ = bound(nbytes(h_, w_, r_) + B_ * 2 * nL_ * n_sym_ * n_sc_ * 4,
+                       4 * B_ * nL_ * n_re_ * n_sc_ + 6 * B_ * nL_ * n_sym_ * n_sc_)
+            t_ = ab(run, lambda: plain(h_, w_, r_, sl_))
+            print(f"phase 20 {k} {label}: kernel {t_[0]:.4f} ms, device-only {device_ms(run):.4f} ms, "
+                  f"plain {t_[1]:.4f} ms, bound {b_[0]:.4f} ms ({b_[1]}; bytes {b_[2]:.4f}, operations "
+                  f"{b_[3]:.4f}), torch.einsum cold-L2 events {time_ms(ein):.4f} ms, device-only "
+                  f"{device_ms(ein):.4f} ms (rel err vs plain {e_err:.2e}) {card}")
 
     # 21. K7 vs plain at the JAX test's shapes, the chain regime and c3 width
     def k7_inputs(B, C, n, comb, seed):

@@ -9,7 +9,8 @@ for unequal ones). It computes
 for every layer l of CDM group c, in the subcarrier-last serve layout
 (B, 2, nL, n_sym, n_sc).
 
-CUDA kernel (csrc/fill_rotate_serve.cu), the PR 2 body redesigned for Hopper.
+CUDA kernel (csrc/fill_rotate_serve.cu on the tiled product of
+csrc/fill_common.cuh, which K6 shares), redesigned for Hopper.
 The first body (a block per 128 subcarriers x 8 problems x 2 layers, W read
 straight from L2, one float per 32 FMAs, the 14 symbols written only after
 the whole product) ran at 8.3x its bound. Now each layer chunk (at most two
@@ -50,8 +51,8 @@ _PTR = ctypes.c_void_p
 
 
 class _ChunkTab(ctypes.Structure):
-    """Layer chunks of at most two layers, each inside one CDM group
-    (struct ChunkTab in csrc/fill_rotate_serve.cu)."""
+    """Layer chunks, each inside one CDM group (struct ChunkTab in
+    csrc/fill_common.cuh)."""
 
     _fields_ = [
         ("n", ctypes.c_int),
@@ -65,10 +66,11 @@ _ARGTYPES = [_PTR] * 4 + [ctypes.c_int] * 5 + [ctypes.POINTER(_ChunkTab), _PTR]
 PLAN_ARGTYPES = ([ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4
                  + [ctypes.POINTER(_ChunkTab), ctypes.c_int])
 
-_TM, _TN, _KT = 64, 128, 32  # output tile rows x subcarriers, K rows a stage
+_TM, _TN, _KT = 64, 128, 32  # product tile rows x subcarriers, K rows a stage
 _BLOCKS_PER_SM = 2
 _MAX_KS = 8
-SMEM = 4 * max(2 * _KT * (_TM + _TN), _TM * _TN)  # dynamic shared memory of a block
+RING = 4 * 2 * _KT * (_TM + _TN)  # bytes of the two-stage ring (csrc/fill_common.cuh)
+SMEM = max(RING, 4 * _TM * _TN)  # dynamic shared memory of a block
 
 
 @dataclass(frozen=True)
@@ -83,13 +85,13 @@ class LaunchPlan:
     smem: int
 
 
-def chunks_of(layer_slices, nL: int, n_cdm: int):
-    """(group, first layer, layers) of each chunk: at most two layers of one
-    CDM group (struct ChunkTab's rows)."""
+def chunks_of(layer_slices, nL: int, n_cdm: int, max_layers: int = 2):
+    """(group, first layer, layers) of each chunk: at most `max_layers` layers
+    of one CDM group (struct ChunkTab's rows)."""
     chunks = [
-        (c, l, min(2, l1 - l))
+        (c, l, min(max_layers, l1 - l))
         for c, (l0, l1) in enumerate(_layer_slices(layer_slices, nL, n_cdm))
-        for l in range(l0, l1, 2)
+        for l in range(l0, l1, max_layers)
     ]
     if not 1 <= len(chunks) <= _MAX_CHUNKS or any(n < 1 for _, _, n in chunks):
         raise ValueError(f"unsupported layer_slices {layer_slices}")
@@ -107,16 +109,22 @@ def chunk_table(chunks) -> _ChunkTab:
 def launch_plan(batch: int, chunks, n_re: int, n_sc: int, n_sm: int) -> LaunchPlan:
     """The launch as `make_plan` (csrc/fill_rotate_serve.cu) computes it: the
     output tiles of every chunk (2 * batch * layers rows in tiles of 64, n_sc
-    in tiles of 128); KS = ceil(n_sm / tiles) blocks a tile (1..8, at most the
-    K steps of 32), so that fewer tiles than SMs still cover them; two blocks
-    an SM, so 2 * n_sm // KS persistent clusters, at most one a tile."""
+    in tiles of 128); then `split_k` over the SMs."""
     if batch < 1 or n_re < 1 or n_sc < 1 or n_sm < 1:
         raise ValueError(f"no fill launch for batch={batch}, n_re={n_re}, n_sc={n_sc}")
     nt = -(-n_sc // _TN)
     tiles = sum(-(-2 * batch * nl // _TM) * nt for _, _, nl in chunks)
-    ks = max(1, min(_MAX_KS, -(-n_re // _KT), -(-n_sm // tiles)))
-    clusters = max(1, min(tiles, _BLOCKS_PER_SM * n_sm // ks))
+    ks, clusters = split_k(tiles, n_re, n_sm)
     return LaunchPlan(KS=ks, tiles=tiles, clusters=clusters, blocks=clusters * ks, smem=SMEM)
+
+
+def split_k(tiles: int, n_re: int, n_sm: int):
+    """(KS, clusters) as `fill::split_k` (csrc/fill_common.cuh) chooses them:
+    ceil(n_sm / tiles) blocks a tile (1..8, at most the K steps of 32), so
+    that fewer tiles than SMs still cover them; two blocks an SM, so
+    2 * n_sm // KS persistent clusters, at most one a tile."""
+    ks = max(1, min(_MAX_KS, -(-n_re // _KT), -(-n_sm // tiles)))
+    return ks, max(1, min(tiles, _BLOCKS_PER_SM * n_sm // ks))
 
 
 def _layer_slices(layer_slices, nL: int, n_cdm: int):

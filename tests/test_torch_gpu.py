@@ -349,6 +349,109 @@ def test_fill_rotate_kernel_matches_plain(nL, slices, batch, n_re, n_sc, n_sym):
     assert (grid[:, :, :, : 14 - n_sym] == 3.0).all()
 
 
+K6_LAYERS = [(1, ((0, 1),)), (2, ((0, 2),)), (3, ((0, 2), (2, 3))), (4, ((0, 2), (2, 4))),
+             (5, ((0, 2), (2, 4), (4, 5))), (6, ((0, 2), (2, 4), (4, 6))), (7, ((0, 4), (4, 7))),
+             (8, ((0, 4), (4, 8)))]
+
+
+def k6_inputs(batch, nL, n_groups, n_re, n_sc, n_sym, seed):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    ph = rng.uniform(-np.pi, np.pi, (batch, n_sym))
+    return (t(rng.standard_normal((batch, 2, nL, n_re))),
+            t(0.1 * rng.standard_normal((n_groups, n_re, n_sc))),
+            t(np.stack([np.cos(ph), np.sin(ph)], 1)))
+
+
+def assert_k6_into_grid(h, w, rot, slices, grid, sc0, sy0):
+    """K6 writes its block at (sc0, sy0) of `grid` (filled with 3.0 first)
+    within relative 1e-5 of the plain version and leaves the rest as it was."""
+    n_sc, n_sym = w.shape[2], rot.shape[2]
+    grid.fill_(3.0)
+    n0 = k6.launches
+    assert k6.fused_fill_rotate(h, w, rot, slices, out=grid, sc_start=sc0, sym_start=sy0) is grid
+    assert k6.launches == n0 + 1
+    want = torch.full_like(grid, 3.0)
+    want[:, :, sc0:sc0 + n_sc, sy0:sy0 + n_sym] = k6.fused_fill_rotate_plain(h, w, rot, slices)
+    torch.cuda.synchronize()
+    assert rel(grid, want) <= 1e-5
+    outside = torch.ones_like(grid, dtype=torch.bool)
+    outside[:, :, sc0:sc0 + n_sc, sy0:sy0 + n_sym] = False
+    assert (grid[outside] == 3.0).all()
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("nL,slices", K6_LAYERS, ids=[f"nL{n}" for n, _ in K6_LAYERS])
+@pytest.mark.parametrize("batch", [1, 15, 16, 17, 128, 256])
+def test_fill_rotate_kernel_every_batch_and_layer_count(nL, slices, batch):
+    """K6 against plain at batches around its tiles of P problems and every
+    layer count, CDM groups equal and not: the whole block, then written
+    into a larger grid twice, at symbol 0 (14 symbols) and at symbol 7 (7
+    symbols, the second hop of a slot), where the spans are 16-byte aligned
+    only for some layer counts."""
+    h, w, rot = k6_inputs(batch, nL, len(slices), 52, 200, 14, seed=batch + nL)
+    got = k6.fused_fill_rotate(h, w, rot, layer_slices=slices)
+    want = k6.fused_fill_rotate_plain(h, w, rot, layer_slices=slices)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, 2, 200, 14, nL)
+    assert rel(got, want) <= 1e-5
+    grid = torch.empty((batch, 2, 237, 14, nL), device="cuda")
+    assert_k6_into_grid(h, w, rot, slices, grid, 5, 0)
+    assert_k6_into_grid(h, w, rot[:, :, :7].contiguous(), slices, grid, 30, 7)
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("nL,slices", [(3, ((0, 2), (2, 3))), (1, ((0, 1),)), (8, ((0, 8),))])
+def test_fill_rotate_kernel_unaligned_spans(nL, slices):
+    """Spans off the 16-byte boundaries: an odd symbol count at an odd first
+    symbol of a 13-symbol grid (no span aligned for nL 1 and 3), odd n_re and
+    n_sc (4-byte W copies), and a grid whose data starts 4 bytes past an
+    aligned address (no span aligned for any nL)."""
+    h, w, rot = k6_inputs(17, nL, len(slices), 37, 301, 5, seed=nL)
+    grid = torch.empty((17, 2, 330, 13, nL), device="cuda")
+    assert_k6_into_grid(h, w, rot, slices, grid, 11, 3)
+    flat = torch.empty(grid.numel() + 1, device="cuda")
+    shifted = flat[1:].view(grid.shape)
+    assert shifted.data_ptr() % 16 == 4 and shifted.is_contiguous()
+    assert_k6_into_grid(h, w, rot, slices, shifted, 0, 8)
+
+
+@NEEDS_GPU
+def test_fill_rotate_kernel_at_the_c3_operator_and_the_c4_hop():
+    """The c3 inpainting operator (1638 x 3276, B=16, one layer: K split over
+    a cluster) and the c4 second hop (B=256, 288 subcarriers from n_re 144,
+    written at subcarrier 336 and symbol 7 of the (624, 14) grid)."""
+    h, w, rot = k6_inputs(16, 1, 1, 1638, 3276, 14, seed=3)
+    lp = k6.launch_plan(16, 1, k6.fill_chunks(None, 1, 1), 1638, 3276, 14, sm_count())
+    assert lp.KS > 1, lp
+    got = k6.fused_fill_rotate(h, w, rot)
+    want = k6.fused_fill_rotate_plain(h, w, rot)
+    torch.cuda.synchronize()
+    assert rel(got, want) <= 1e-5
+    h, w, rot = k6_inputs(256, 1, 1, 144, 288, 7, seed=4)
+    grid = torch.empty((256, 2, 624, 14, 1), device="cuda")
+    assert_k6_into_grid(h, w, rot, ((0, 1),), grid, 336, 7)
+
+
+@NEEDS_GPU
+def test_fill_rotate_launch_plan_mirrors_the_kernels_plan():
+    n_cases = 0
+    for n_sm in (sm_count(), 66):
+        for B in (1, 15, 16, 17, 128, 256, 1000):
+            for nL, slices in K6_LAYERS + [(8, ((0, 8),)), (4, ((0, 4),))]:
+                chunks = k6.fill_chunks(slices, nL, len(slices))
+                for n_re, n_sc, n_sym in ((52, 200, 14), (144, 288, 7), (636, 1272, 14),
+                                          (1638, 3276, 14), (7, 13, 1)):
+                    lp = k6.launch_plan(B, nL, chunks, n_re, n_sc, n_sym, n_sm)
+                    assert k6.kernel_plan(B, nL, chunks, n_re, n_sc, n_sym, n_sm) == lp
+                    n_cases += 1
+    assert n_cases == 2 * 7 * 10 * 5
+    with pytest.raises(ValueError, match="refused"):
+        k6.kernel_plan(4, 4, [(0, 0, 2), (1, 1, 2)], 636, 1272, 14, sm_count())
+    with pytest.raises(ValueError, match="refused"):
+        k6.kernel_plan(4, 4, k6.fill_chunks(((0, 2), (2, 4)), 4, 2), 636, 1272, 33, sm_count())
+
+
 @NEEDS_GPU
 @pytest.mark.parametrize("name,kw", FRONT_CASES[:4], ids=[c[0] for c in FRONT_CASES[:4]])
 def test_pallas_ref_on_cuda_matches_float64_cpu(name, kw):

@@ -647,37 +647,71 @@ def test_front_kernel_order_model_matches_plain(label, kw, batch):
                                    atol=1e-12)
 
 
-def fill_model(h, w, rot, layer_slices, n_sm):
-    """float32 model of csrc/fill_rotate_serve.cu's order of summation: the
-    launch plan's tiles of (problem, layer, ri) rows, each tile's K steps
-    split over its KS blocks and accumulated step by step, the blocks'
-    partials summed in rank order, then rotated."""
+def tile_sums(a, w_c, KS):
+    """float32 model of csrc/fill_common.cuh's order of summation for the rows
+    `a` of one product tile: the K steps split over KS blocks, each block's
+    steps accumulated one after the other, the blocks' partials summed in rank
+    order."""
+    n_re = a.shape[1]
+    nk = -(-n_re // k2._KT)
+    kc = -(-nk // KS)
+    tot = None
+    for r in range(KS):
+        part = torch.zeros((a.shape[0], w_c.shape[1]), dtype=torch.float32)
+        for s in range(r * kc, min(r * kc + kc, nk)):
+            k0 = s * k2._KT
+            part = part + a[:, k0:k0 + k2._KT] @ w_c[k0:k0 + k2._KT]
+        tot = part if tot is None else tot + part
+    return tot
+
+
+def fill_model(h, w, rot, layer_slices, n_sm, layout="serve", grid=None, sc0=0, sy0=0):
+    """float32 model of the grid fills' order of summation. "serve", as
+    csrc/fill_rotate_serve.cu (K2) tiles it: the launch plan's tiles of 64
+    (problem, layer, ri) rows of one chunk, then rotated. "ref", as
+    csrc/fill_rotate.cu (K6) does: tiles of P problems, the product once per
+    CDM group over the rows (problem, layer of the group, ri), the sums parked
+    per (problem, ri, layer), then rotated and written into `grid` (or a new
+    block) at (sc0, sy0) in the reference layout."""
     B, _, nL, n_re = h.shape
     n_sc, n_sym = w.shape[-1], rot.shape[2]
-    chunks = k2.chunks_of(layer_slices, nL, w.shape[0])
-    lp = k2.launch_plan(B, chunks, n_re, n_sc, n_sm)
-    nk = -(-n_re // k2._KT)
-    kc = -(-nk // lp.KS)
-    out = torch.empty((B, 2, nL, n_sym, n_sc), dtype=torch.float32)
+    rr_of = lambda b: rot[b, 0][:, :, None]  # (b, n_sym, 1)
+    ri_of = lambda b: rot[b, 1][:, :, None]
     with k2.full_f32_matmul():
-        for c, l0, nl in chunks:
-            rows = h[:, :, l0:l0 + nl].permute(0, 2, 1, 3).reshape(-1, n_re)  # (b, layer, ri)
-            for m0 in range(0, rows.shape[0], k2._TM):
-                a = rows[m0:m0 + k2._TM]
-                tot = None
-                for r in range(lp.KS):
-                    part = torch.zeros((a.shape[0], n_sc), dtype=torch.float32)
-                    for s in range(r * kc, min(r * kc + kc, nk)):
-                        k0 = s * k2._KT
-                        part = part + a[:, k0:k0 + k2._KT] @ w[c, k0:k0 + k2._KT]
-                    tot = part if tot is None else tot + part
-                fr, fi = tot[0::2], tot[1::2]  # (pairs, n_sc)
-                q = torch.arange(m0 // 2, m0 // 2 + fr.shape[0])
-                b, l = q // nl, l0 + q % nl
-                rr, ri = rot[b, 0][:, :, None], rot[b, 1][:, :, None]
-                out[b, 0, l] = fr[:, None] * rr - fi[:, None] * ri
-                out[b, 1, l] = fr[:, None] * ri + fi[:, None] * rr
-    return out, lp
+        if layout == "serve":
+            chunks = k2.chunks_of(layer_slices, nL, w.shape[0])
+            lp = k2.launch_plan(B, chunks, n_re, n_sc, n_sm)
+            out = torch.empty((B, 2, nL, n_sym, n_sc), dtype=torch.float32)
+            for c, l0, nl in chunks:
+                rows = h[:, :, l0:l0 + nl].permute(0, 2, 1, 3).reshape(-1, n_re)  # (b, layer, ri)
+                for m0 in range(0, rows.shape[0], k2._TM):
+                    tot = tile_sums(rows[m0:m0 + k2._TM], w[c], lp.KS)
+                    fr, fi = tot[0::2], tot[1::2]  # (pairs, n_sc)
+                    q = torch.arange(m0 // 2, m0 // 2 + fr.shape[0])
+                    b, l = q // nl, l0 + q % nl
+                    rr, ri = rr_of(b), ri_of(b)
+                    out[b, 0, l] = fr[:, None] * rr - fi[:, None] * ri
+                    out[b, 1, l] = fr[:, None] * ri + fi[:, None] * rr
+            return out, lp
+        chunks = k6.fill_chunks(layer_slices, nL, w.shape[0])
+        lp = k6.launch_plan(B, nL, chunks, n_re, n_sc, n_sym, n_sm)
+        out = torch.empty((B, 2, n_sc, n_sym, nL), dtype=torch.float32) if grid is None else grid
+        for b0 in range(0, B, lp.P):
+            pv = min(lp.P, B - b0)
+            sums = torch.empty((pv, 2, nL, n_sc), dtype=torch.float32)  # the parked sums
+            for c, l0, nl in chunks:
+                rows = h[b0:b0 + pv, :, l0:l0 + nl].permute(0, 2, 1, 3).reshape(-1, n_re)
+                assert rows.shape[0] <= k2._TM  # one product tile a group
+                tot = tile_sums(rows, w[c], lp.KS).reshape(pv, nl, 2, n_sc)
+                sums[:, :, l0:l0 + nl] = tot.permute(0, 2, 1, 3)
+            fr = sums[:, 0].permute(0, 2, 1)[:, :, None, :]  # (pv, n_sc, 1, nL)
+            fi = sums[:, 1].permute(0, 2, 1)[:, :, None, :]
+            b = torch.arange(b0, b0 + pv)
+            rr, ri = rr_of(b)[:, None], ri_of(b)[:, None]  # (pv, 1, n_sym, 1)
+            blk = out[b0:b0 + pv, :, sc0:sc0 + n_sc, sy0:sy0 + n_sym]
+            blk[:, 0] = fr * rr - fi * ri
+            blk[:, 1] = fr * ri + fi * rr
+        return out, lp
 
 
 @pytest.mark.parametrize("label,B,nL,n_re,n_sc,slices", [
@@ -716,3 +750,64 @@ def test_fill_plan_and_refusals():
         k2.chunks_of(((0, 2),), 4, 1)
     with pytest.raises(ValueError):
         k2.launch_plan(0, c2, 636, 1272, 132)
+
+
+@pytest.mark.parametrize("label,B,nL,n_re,n_sc,slices,n_sym,grid_sym,sy0", [
+    ("c2", 40, 4, 636, 1272, ((0, 2), (2, 4)), 14, 14, 0),
+    ("nL=3", 17, 3, 636, 1272, ((0, 2), (2, 3)), 14, 14, 0),
+    ("c4 second hop", 256, 1, 144, 288, ((0, 1),), 7, 14, 7),
+    ("c3 operator", 16, 1, 1638, 3276, ((0, 1),), 14, 14, 0),
+])
+def test_k6_kernel_order_model_matches_plain(label, B, nL, n_re, n_sc, slices, n_sym, grid_sym,
+                                             sy0):
+    """K6's order of summation (P-problem tiles, the product once per CDM
+    group, K split over a cluster where the plan asks for it) and its
+    reference-layout epilogue, written at (sc0, sy0) into a larger grid, stay
+    within chip_smoke phase 9's bound of the plain version, relative 1e-5,
+    and leave the rest of the grid as it was."""
+    rng = np.random.default_rng(B + nL)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    h = t(rng.standard_normal((B, 2, nL, n_re)))
+    w = t(0.1 * rng.standard_normal((len(slices), n_re, n_sc)))
+    ph = rng.uniform(-np.pi, np.pi, (B, n_sym))
+    rot = t(np.stack([np.cos(ph), np.sin(ph)], 1))
+    sc0 = 12
+    grid = torch.full((B, 2, n_sc + 20, grid_sym, nL), 5.0)
+    got, lp = fill_model(h, w, rot, slices, 132, layout="ref", grid=grid, sc0=sc0, sy0=sy0)
+    assert got is grid
+    want = k6.fused_fill_rotate_plain(h, w, rot, slices)
+    blk = grid[:, :, sc0:sc0 + n_sc, sy0:sy0 + n_sym]
+    assert rel(blk.numpy(), want.numpy()) <= 1e-5, (label, lp)
+    assert (grid[:, :, :sc0] == 5).all() and (grid[:, :, sc0 + n_sc:] == 5).all()
+    assert (grid[:, :, :, :sy0] == 5).all() and (grid[:, :, :, sy0 + n_sym:] == 5).all()
+    assert lp.KS > 1, lp  # each case splits K over a cluster
+
+
+def test_k6_plan_and_refusals():
+    c2 = k6.fill_chunks(((0, 2), (2, 4)), 4, 2)
+    assert c2 == [(0, 0, 2), (1, 2, 2)]
+    assert k6.fill_chunks(((0, 4), (4, 8)), 8, 2) == [(0, 0, 4), (1, 4, 4)]
+    assert k6.fill_chunks(((0, 8),), 8, 1) == [(0, 0, 8)]
+    lp = k6.launch_plan(128, 4, c2, 636, 1272, 14, 132)
+    # 16 problems x 2 layers x re/im = 64 rows a group; ring 48 KB + sums 64 KB,
+    # two blocks an SM within 228 KB
+    assert (lp.P, lp.tiles, lp.KS, lp.clusters, lp.blocks) == (16, 80, 2, 80, 160), lp
+    assert lp.smem == 49152 + 65536 and 2 * (lp.smem + 1024) <= 233472
+    for nL, slices in ((1, ((0, 1),)), (3, ((0, 2), (2, 3))), (8, ((0, 4), (4, 8))), (8, ((0, 8),)),
+                       (5, ((0, 2), (2, 4), (4, 5)))):
+        chunks = k6.fill_chunks(slices, nL, len(slices))
+        for B in (1, 15, 16, 17, 256):
+            p = k6.launch_plan(B, nL, chunks, 636, 1272, 14, 132)
+            assert 1 <= p.P <= B and 2 * p.P * max(n for _, _, n in chunks) <= 64
+            assert p.smem <= k6.BLOCK_SMEM and p.KS * p.clusters == p.blocks
+            assert -(-p.P // max(p.KS, 2)) * 2 * nL * 128 * 4 <= k2.RING  # a share fits the ring
+    with pytest.raises(ValueError, match="layers"):
+        k6.launch_plan(4, 9, [(0, 0, 9)], 636, 1272, 14, 132)
+    with pytest.raises(ValueError, match="chunks"):
+        k6.launch_plan(4, 8, [(0, l % 8, 1) for l in range(17)], 636, 1272, 14, 132)
+    with pytest.raises(ValueError, match="cover"):
+        k6.launch_plan(4, 4, [(0, 0, 2), (1, 1, 2)], 636, 1272, 14, 132)
+    with pytest.raises(ValueError, match="symbols"):
+        k6.launch_plan(4, 4, c2, 636, 1272, 33, 132)
+    with pytest.raises(ValueError):
+        k6.launch_plan(0, 4, c2, 636, 1272, 14, 132)
