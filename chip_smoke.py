@@ -103,7 +103,29 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      both forms) and the
      functions with the most own time, K7's ns per pass at c3 width (one
      block a row), and the device busy time and idle share of one e2e
-     device-path call with K3's share of the busy time (torch.profiler).
+     device-path call with K3's share of the busy time (torch.profiler);
+ 26. tracked serve (`models.tracking.build_tracked_ri`, the plain tier) at c2
+     and at the bench's q_tracked_52prb_2l (52 PRB x 2 layers), B=128: slot 0
+     against the plain build_ri serve (NMSE <= 1e-9, bench.py's
+     _gate_tracked bound, w = 1), no kernel launched; eight soundings of a
+     static channel at 0 dB, the channel NMSE against the truth falling
+     (slope < 0, the last sounding 4 dB below the first); a slot's time
+     (CUDA events, wall) and idle share;
+ 27. the tracked receiver at c2_receiver_4rx4l (4 RX x 4 layers, B=128, QPSK
+     LLRs): slot 0 against the plain factored receiver (LLRs within one
+     step on <= 0.1 %, SINR relative 1e-5); four static soundings at 0 dB,
+     the post-MMSE SINR measured on the equalized symbols against the sent
+     ones growing; time and idle share;
+ 28. `serving.TrackedServer` on the card against the same calls on the CPU
+     (float32): 3 streams, 4 soundings, a mode switch that resets;
+ 29. learned serve at c2 with the shipped 1-D checkpoint (`denoiser.
+     load_shipped`), xla/serve, pallas/serve (K2 launched) and pallas/ref
+     (K6 launched), against the port's float64 CPU run of the first four
+     problems (NMSE <= 1e-9); times and idle shares;
+ 30. learned2d at the bench's q_learned2d_52prb (52 PRB x 2 layers,
+     time_interp="linear", Doppler 300 Hz, the shipped 2-D checkpoint) on
+     both tiers, the same checks;
+ 31. `serving.process(out="grid", params=...)` against single build_ri calls.
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -505,22 +527,31 @@ def main() -> int:
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in evs) / iters
 
-    def device_ms(fn, n=50):
-        """Device-only ms of one call: the profiler's CUDA kernel time over n
-        calls, over n (no host time, whatever the L2 holds)."""
+    def kernel_ms(fn, n=50, activities=(ProfilerActivity.CUDA,)):
+        """ms a call of each device kernel, by name: torch.profiler over n calls
+        after a warm-up; {} when no session recorded one (a session now and
+        then records no kernel: up to three are taken)."""
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        for _ in range(3):  # a profiler session now and then records no kernel: take another
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            with profile(activities=list(activities)) as prof:
                 for _ in range(n):
                     fn()
                 torch.cuda.synchronize()
-            us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-                     for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-            if us > 0:
-                return us / n / 1e3
-        fail("the profiler saw no device time in 3 sessions")
+            ms = {e.key: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                  / n / 1e3 for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+            if sum(ms.values()) > 0:
+                return ms
+        return {}
+
+    def device_ms(fn, n=50):
+        """Device-only ms of one call: the profiler's CUDA kernel time over n
+        calls, over n (no host time, whatever the L2 holds)."""
+        ms = kernel_ms(fn, n)
+        if not ms:
+            fail("the profiler saw no device time in 3 sessions")
+        return sum(ms.values())
 
     def host_us(fn, n=1000):
         """Host us per call: perf_counter over n calls without a synchronise
@@ -575,27 +606,19 @@ def main() -> int:
     def print_busy(phase, label, fn, args, wall, n=20):
         """A call's device busy time and idle share (torch.profiler over n
         calls, against its unprofiled back-to-back wall time), with the device
-        time of its heaviest operations."""
-        for _ in range(3):  # a profiler session now and then records no kernel: take another
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(n):
-                    fn(*args)
-                torch.cuda.synchronize()
-            dev_us = {e.key: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
-            if sum(dev_us.values()) > 0:
-                break
-        busy = sum(dev_us.values()) / n / 1e3
+        time of its heaviest operations; `label` names the call and its shape."""
+        dev_ms = kernel_ms(lambda: fn(*args), n, (ProfilerActivity.CPU, ProfilerActivity.CUDA))
+        busy = sum(dev_ms.values())
         if busy > 0:
-            top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
-            print(f"phase {phase} build_ri {label} c2 B=128: device busy {busy:.4f} ms of "
+            top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:5]
+            print(f"phase {phase} {label}: device busy {busy:.4f} ms of "
                   f"{wall:.4f} ms back-to-back wall, idle share {100 * (1 - busy / wall):.1f} % "
                   f"(torch.profiler, {n} calls); heaviest: " + ", ".join(
-                      f"{k[:40]} {us / n / 1e3:.4f} ms" for k, us in top) + f" {card}")
+                      f"{k[:40]} {ms:.4f} ms" for k, ms in top) + f" {card}")
         else:
             print(f"phase {phase} {label} idle share: not measured (the profiler saw no device time)")
 
-    print_busy(7, "pallas_front/serve", fn_c2, c2_args, wall)
+    print_busy(7, "build_ri pallas_front/serve c2 B=128", fn_c2, c2_args, wall)
 
     # 8. K5 vs plain: the c2 rows of _smooth (2*nL = 8 rows of n_re + 2*n_pils)
     # and the time-interpolation rows (2*nL*n_dsym = 32)
@@ -741,7 +764,7 @@ def main() -> int:
         print(f"phase 15 build_ri {label} c2 B=128: {ev:.4f} ms/batch on CUDA events, cold L2; "
               f"{wall:.4f} ms/batch host wall clock back-to-back {card}")
         if label != "xla/serve":
-            print_busy(15, label, fn, args_c2, wall)
+            print_busy(15, f"build_ri {label} c2 B=128", fn, args_c2, wall)
 
     # 16. K4 vs plain at the bench's decode rows (bench.py:792-984): same seed,
     # same words, same SNR; flooding and layered at the row's default G
@@ -1447,6 +1470,264 @@ def main() -> int:
               f"busy time ({100 * k3_us / busy_us:.1f} %) (torch.profiler) {card}")
     else:
         print("phase 25 e2e idle share: not measured (the profiler saw no device time)")
+
+    # 26. tracked serve (models/tracking.build_tracked_ri, the plain tier) at c2
+    # and at the bench's q_tracked_52prb_2l (bench.py:660-663)
+    from srsran_ce_tpu_torch.models import denoiser, tracking
+
+    Q52 = dict(n_prbs=52, n_layers=2, comb=2, scs_hz=30e3, snr_db=30.0)
+    tracked_fns = {}
+
+    def nmse_of(got, want, dims):
+        got, want = got.double().cpu(), want.double().cpu()
+        return ((got - want) ** 2).sum(dim=dims) / (want**2).sum(dim=dims)
+
+    for label, kw in (("c2", C2), ("q_tracked_52prb_2l", Q52)):
+        cases_t, cfg_t, rg_t, pil_t, beta_t = tiled(kw, 128)
+        ct, nL_t = cases_t[0], cases_t[0].pilots.shape[2]
+        fn_t = tracking.build_tracked_ri(ct.hop1, ct.hop2, cfg_t, nL_t, batched=True,
+                                         out_layout="serve", device=dev)
+        state0 = tracking.init_state(ct.hop1, ct.hop2, cfg_t, nL_t, batch=128, device=dev)
+        plain = estimator.build_ri(ct.hop1, ct.hop2, cfg_t, nL_t, batched=True,
+                                   out_layout="serve")(rg_t, pil_t, beta_t)
+        torch.cuda.synchronize()
+        reset_counts()
+        res_t, h_t, w_t = fn_t(rg_t, pil_t, beta_t, *state0)
+        torch.cuda.synchronize()
+        cnt = read_counts()
+        need(f"tracked {label}", cnt, idle=tuple(kmods))
+        n0 = float(nmse_of(res_t.channel_est_rg, plain.channel_est_rg, (1, 2, 3, 4)).max())
+        if not (n0 <= 1e-9 and bool((w_t == 1.0).all())):
+            fail(f"tracked {label} slot 0: NMSE vs plain serve {n0:.3e} (<= 1e-9), "
+                 f"w {w_t.unique().tolist()} (1)")
+        # eight soundings of a static channel (no CFO, as tests/test_tracking.py),
+        # 0 dB, fresh noise each; the channel NMSE against the truth of the four
+        # distinct problems
+        skw = dict(kw, snr_db=0.0, cfo_hz=0.0, cfo_compensate=False)
+        c_s = synthetic.make_case(seed=SEEDS[0], **skw)
+        fn_s = tracking.build_tracked_ri(c_s.hop1, c_s.hop2, dataclasses.replace(
+            c_s.config, matmul_precision="high"), nL_t, batched=True, out_layout="serve",
+            device=dev)
+        st = tracking.init_state(c_s.hop1, c_s.hop2, c_s.config, nL_t, batch=128, device=dev)
+        curve = []
+        for k in range(8):
+            cs = [synthetic.make_case(seed=s, noise_seed=1000 + k, **skw) for s in SEEDS]
+            idx = np.arange(128) % len(cs)
+            t32 = lambda a: torch.as_tensor(np.stack(a)[idx], dtype=torch.float32, device=dev)
+            res_s, *st = fn_s(t32([estimator.split_ri(c.received_rg) for c in cs]),
+                              t32([estimator.split_ri(c.pilots) for c in cs]),
+                              torch.full((128,), c_s.beta, dtype=torch.float32, device=dev), *st)
+            ch = res_s.channel_est_rg[: len(cs)].double().cpu().numpy()
+            grid = (ch[:, 0] + 1j * ch[:, 1]).transpose(0, 3, 2, 1)  # (4, n_sc, n_sym, nL)
+            truth = np.stack([c.true_channel for c in cs])
+            curve.append(float(np.sum(np.abs(grid - truth) ** 2) / np.sum(np.abs(truth) ** 2)))
+        db = 10 * np.log10(np.asarray(curve))
+        slope = float(np.polyfit(np.arange(8), db, 1)[0])
+        if not (slope < 0 and db[-1] < db[0] - 4.0 and db[-1] <= db[:4].min()):
+            fail(f"tracked {label}: channel NMSE over 8 soundings {db.round(2).tolist()} dB does "
+                 f"not fall (slope {slope:.3f} dB a sounding)")
+        ev, wall = call_ms(fn_t, (rg_t, pil_t, beta_t) + tuple(state0))
+        tracked_fns[label] = (fn_t, (rg_t, pil_t, beta_t) + tuple(state0), wall)
+        print(f"phase 26 tracked serve {label} B=128 (nL={nL_t}): slot 0 vs plain build_ri serve "
+              f"NMSE {n0:.3e} (<= 1e-9), w 1; 8 static soundings at 0 dB, channel NMSE vs truth "
+              f"{db.round(2).tolist()} dB (slope {slope:.3f} dB a sounding, w "
+              f"{float(st[1].min()):.0f}); launches {cnt} (the plain tier); a slot {ev:.4f} ms on "
+              f"CUDA events, cold L2, {wall:.4f} ms host wall clock back-to-back {card}")
+        print_busy(26, f"tracked serve {label} B=128", fn_t,
+                   (rg_t, pil_t, beta_t) + tuple(state0), wall)
+
+    # 27. the tracked receiver at c2_receiver_4rx4l (4 RX x 4 layers, B=128, QPSK LLRs)
+    tr_cases, tr_cfg, tr_rg, tr_pil, tr_beta = mimo_batch("qpsk", B_RX, **C2_RX)
+    c0 = tr_cases[0]
+    fn_tr = receiver.build_tracked_receiver_ri(c0.hop1, c0.hop2, tr_cfg, 4, N_RX, batched=True,
+                                               modulation="qpsk", device=dev)
+    fn_pr = receiver.build_receiver_ri(c0.hop1, c0.hop2, tr_cfg, 4, N_RX, batched=True,
+                                       modulation="qpsk", device=dev)
+    h0, w0 = tracking.init_state(c0.hop1, c0.hop2, tr_cfg, 4, batch=N_RX, device=dev)
+    st0 = (tuple(h.expand((B_RX,) + h.shape).contiguous() for h in h0),
+           w0.expand(B_RX, N_RX).contiguous())
+    reset_counts()
+    res_tr, *_ = fn_tr(tr_rg, tr_pil, tr_beta, *st0)
+    torch.cuda.synchronize()
+    cnt = read_counts()
+    need("tracked receiver", cnt, idle=tuple(kmods))
+    res_pr = fn_pr(tr_rg, tr_pil, tr_beta)
+    d = torch.stack([(a.to(torch.int16) - b.to(torch.int16)).abs()
+                     for a, b in zip(res_tr.llr, res_pr.llr)])
+    _, s_err = errs(res_tr.sinr, res_pr.sinr)
+    if int(d.max()) > 1 or float((d > 0).double().mean()) > 1e-3 or s_err > 1e-5:
+        fail(f"tracked receiver slot 0 vs the plain factored receiver: LLRs differ by "
+             f"{int(d.max())}, SINR rel {s_err:.3e}")
+    # four soundings of the static channel at 0 dB, fresh noise each: the
+    # post-MMSE SINR measured on the equalized data symbols against the sent
+    # ones (x = g s + e per layer, SINR = |g|^2 sum|s|^2 / sum|x - g s|^2 over the
+    # data REs of the four distinct problems); the receiver's own SINR output
+    # is an estimate from the estimated channel and the single-slot noise
+    fn_tx = receiver.build_tracked_receiver_ri(c0.hop1, c0.hop2, tr_cfg, 4, N_RX, batched=True,
+                                               device=dev)
+
+    def measured_sinr_db(x, cs):
+        num = den = 0.0
+        for i, c in enumerate(cs):
+            xr = x[i].double().cpu().numpy()
+            xc = (xr[0] + 1j * xr[1]).transpose(2, 1, 0)  # (n_sc, n_sym, nL)
+            for l in range(xc.shape[2]):
+                xs, sent = xc[:, :, l][c.data_mask], c.payload[:, :, l][c.data_mask]
+                g = np.vdot(sent, xs) / np.vdot(sent, sent)
+                num += abs(g) ** 2 * np.sum(np.abs(sent) ** 2)
+                den += np.sum(np.abs(xs - g * sent) ** 2)
+        return float(10 * np.log10(num / den))
+
+    sinr_db = []
+    st = st0
+    for k in range(4):
+        rc = [synthetic.make_mimo_case(seed=s, n_rx=N_RX, modulation="qpsk", noise_seed=700 + k,
+                                       **dict(C2_RX, snr_db=0.0)) for s in SEEDS]
+        idx = np.arange(B_RX) % len(rc)
+        t32 = lambda a: torch.as_tensor(np.stack(a)[idx], dtype=torch.float32, device=dev)
+        res_k, *st = fn_tx(t32([estimator.split_ri(c.received_rg) for c in rc]),
+                           t32([estimator.split_ri(c.pilots) for c in rc]), tr_beta, *st)
+        sinr_db.append(measured_sinr_db(res_k.x[: len(rc)], rc))
+    sinr_db = np.asarray(sinr_db)
+    if not (np.polyfit(np.arange(4), sinr_db, 1)[0] > 0 and np.all(sinr_db[1:] > sinr_db[0])):
+        fail(f"tracked receiver: measured post-MMSE SINR over 4 soundings "
+             f"{sinr_db.round(3).tolist()} dB does not grow")
+    ev, wall = call_ms(fn_tr, (tr_rg, tr_pil, tr_beta) + tuple(st0))
+    print(f"phase 27 tracked receiver c2_receiver_4rx4l B={B_RX} QPSK LLRs: slot 0 vs the plain "
+          f"factored receiver LLRs off by one on {float((d > 0).double().mean()):.2e} of entries, "
+          f"SINR rel {s_err:.3e} (<= 1e-5); 4 static soundings at 0 dB, measured post-MMSE SINR "
+          f"{sinr_db.round(3).tolist()} dB (w {float(st[1].min()):.0f}); launches {cnt} (the plain tier); a slot {ev:.4f} ms "
+          f"on CUDA events, cold L2, {wall:.4f} ms host wall clock back-to-back {card}")
+    print_busy(27, f"tracked receiver c2_receiver_4rx4l B={B_RX}", fn_tr,
+               (tr_rg, tr_pil, tr_beta) + tuple(st0), wall)
+
+    # 28. serving.TrackedServer on the card against the same calls on the CPU
+    # (float32 both): 3 streams, 4 soundings, then a mode switch that resets
+    srv = {d_: serving.TrackedServer(batch_size=2, device=d_) for d_ in (dev, "cpu")}
+    skw = dict(n_prbs=24, n_layers=2, snr_db=10.0)
+    srv_err = 0.0
+    for k in range(4):
+        cs = [synthetic.make_case(seed=80 + j, noise_seed=900 + k, **skw) for j in range(3)]
+        out = {d_: srv[d_].process([prob_of(c) for c in cs], ["a", "b", "c"]) for d_ in srv}
+        for g, w in zip(out[dev], out["cpu"]):
+            srv_err = max(srv_err, float(np.abs(g.channel_est_rg - w.channel_est_rg).max()
+                                         / np.abs(w.channel_est_rg).max()))
+            check_rtol("TrackedServer noise", g.noise_est, w.noise_est, 1e-4)
+    m = synthetic.make_mimo_case(seed=92, n_rx=2, modulation="qpsk", n_prbs=24, n_layers=2)
+    out = {d_: srv[d_].process([prob_of(m)], ["a"], out="equalized") for d_ in srv}
+    eq = float(np.sum(np.abs(out[dev][0].x - out["cpu"][0].x) ** 2)
+               / np.sum(np.abs(out["cpu"][0].x) ** 2))
+    keys = {d_: sorted((k[1], k[-1]) for k in srv[d_]._state) for d_ in srv}
+    ws = {d_: sorted((k[1], float(np.max(v[1]))) for k, v in srv[d_]._state.items()) for d_ in srv}
+    want_ws = [("a", 1.0), ("b", 4.0), ("c", 4.0)]
+    if srv_err > 1e-5 or eq > 1e-7 or keys[dev] != keys["cpu"] or ws[dev] != want_ws \
+            or ws["cpu"] != want_ws:
+        fail(f"TrackedServer card vs CPU: grid rel {srv_err:.3e} (<= 1e-5), equalized NMSE "
+             f"{eq:.3e} (<= 1e-7), states {keys}, weights {ws} (want {want_ws})")
+    print(f"phase 28 TrackedServer on {dev} vs device='cpu' (float32 both, 3 streams of 24 PRB x "
+          f"2 layers, batch 2 with tail padding, 4 soundings): grid rel err {srv_err:.3e} "
+          f"(<= 1e-5), weights equal; stream 'a' switched to out='equalized': reset on both "
+          f"(w 1), x NMSE {eq:.3e} (<= 1e-7)")
+
+    # 29. learned serve at c2 with the shipped 1-D checkpoint, xla and pallas
+    # tiers (pallas serve: the deferred K2 fill; pallas ref: K6), against the
+    # port's float64 CPU run of the first four problems
+    params1 = denoiser.load_shipped("1d", device=dev)
+    params1_cpu = denoiser.load_shipped("1d", device="cpu")
+    params2 = denoiser.load_shipped("2d", device=dev)
+    params2_cpu = denoiser.load_shipped("2d", device="cpu")
+    learned_times = {}
+
+    def learned_path(phase, label, kw, params, params_cpu, kern, layout, launched, idle):
+        cases_l, cfg_l, rg_l, pil_l, beta_l = tiled(kw, 128)
+        cl, nL_l = cases_l[0], cases_l[0].pilots.shape[2]
+        fn = estimator.build_ri(cl.hop1, cl.hop2, cfg_l, nL_l, batched=True, kernels=kern,
+                                out_layout=layout)
+        args = (rg_l, pil_l, beta_l, params)
+        fn(*args)
+        torch.cuda.synchronize()
+        reset_counts()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        cnt = read_counts()
+        need(f"{label} {kern}/{layout}", cnt, launched=launched, idle=idle)
+        n = len(cases_l)
+        want = fn(*(a[:n].double().cpu() for a in (rg_l, pil_l, beta_l)), params_cpu)
+        if not bool(torch.isfinite(res.channel_est_rg).all()):
+            fail(f"{label} {kern}/{layout}: grid not finite")
+        worst = float(nmse_of(res.channel_est_rg[:n], want.channel_est_rg, (1, 2, 3, 4)).max())
+        if not worst <= 1e-9:
+            fail(f"{label} {kern}/{layout}: NMSE vs the float64 CPU run {worst:.3e} > 1e-9")
+        check_rtol(f"{label} {kern}/{layout} noise", res.noise_est[:n].cpu(), want.noise_est, 1e-4)
+        ev, wall = call_ms(fn, args)
+        learned_times[(label, kern, layout)] = (ev, wall)
+        print(f"phase {phase} {label} {kern}/{layout} B=128 (nL={nL_l}, grid "
+              f"{tuple(res.channel_est_rg.shape)}): NMSE vs the float64 CPU run {worst:.3e} "
+              f"(<= 1e-9), launches {cnt}; {ev:.4f} ms/batch on CUDA events, cold L2, "
+              f"{wall:.4f} ms host wall clock back-to-back {card}")
+        print_busy(phase, f"{label} {kern}/{layout} B=128", fn, args, wall)
+
+    C2L = dict(C2, smoothing="learned")
+    learned_path(29, "learned c2", C2L, params1, params1_cpu, "xla", "serve", (), tuple(kmods))
+    learned_path(29, "learned c2", C2L, params1, params1_cpu, "pallas", "serve",
+                 ("fused_fill_rotate_serve",),
+                 ("fused_front", "rc_smooth", "fused_fill_rotate", "inpaint_stack"))
+    learned_path(29, "learned c2", C2L, params1, params1_cpu, "pallas", "ref",
+                 ("fused_fill_rotate",),
+                 ("fused_front", "rc_smooth", "fused_fill_rotate_serve", "inpaint_stack"))
+
+    # the denoiser alone at the c2 shape (128 x 4 rows of 636 pilots, three
+    # cuDNN convolutions, 21.1 GFLOP): device-only time against its bound,
+    # the convolution kernels by full name; then the xla/serve call once
+    # more, after the pallas calls, with its convolution kernels
+    def conv_kernels(fn, n=20):
+        ms = kernel_ms(fn, n)
+        return sum(ms.values()), {k: v for k, v in ms.items() if "fprop" in k or "conv" in k}
+
+    h_dn = torch.randn(128, 4, 636, dtype=torch.complex64, device=dev)
+    dn_flop = 2 * 13 * (2 * 48 + 48 * 48 + 48 * 2) * 128 * 4 * 636
+    dn_busy, dn_conv = conv_kernels(lambda: denoiser.apply_complex(params1, h_dn))
+    print(f"phase 29 denoiser alone c2 shape (128, 4, 636): device-only {dn_busy:.4f} ms, bound "
+          f"{dn_flop / 67e12 * 1e3:.4f} ms ({dn_flop / 1e9:.2f} GFLOP over 67 TFLOP/s); "
+          "convolutions: " + ", ".join(f"{k} {v:.4f} ms" for k, v in dn_conv.items()) + f" {card}")
+    cases_x, cfg_x, rg_x, pil_x, beta_x = tiled(C2L, 128)
+    fn_x = estimator.build_ri(cases_x[0].hop1, cases_x[0].hop2, cfg_x, 4, batched=True,
+                              out_layout="serve")
+    x_busy, x_conv = conv_kernels(lambda: fn_x(rg_x, pil_x, beta_x, params1))
+    print(f"phase 29 learned c2 xla/serve again, after the pallas calls: device busy "
+          f"{x_busy:.4f} ms; convolutions: " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in x_conv.items()) + f" {card}")
+
+    # 30. learned2d at the bench's q_learned2d_52prb (bench.py:664-672): 52 PRB x 2
+    # layers, time_interp="linear", Doppler 300 Hz, the shipped 2-D checkpoint;
+    # the time-interpolated fill is plain on every tier, as in JAX
+    Q2D = dict(Q52, smoothing="learned2d", time_interp="linear", doppler_hz=300.0)
+    for kern in ("xla", "pallas"):
+        learned_path(30, "q_learned2d_52prb", Q2D, params2, params2_cpu, kern, "serve", (),
+                     tuple(kmods))
+
+    # 31. serving.process(out="grid", params=...) on the card against single
+    # build_ri calls: learned problems of two signatures, batch 4 with tail padding
+    lp_cases = [synthetic.make_case(seed=60 + i, snr_db=20.0, smoothing="learned", **sp)
+                for sp in (dict(n_prbs=24, n_layers=2), dict(n_prbs=12, n_layers=1, two_hops=True))
+                for i in range(5)]
+    res = serving.process([prob_of(c) for c in lp_cases], batch_size=4, params=params1,
+                          device=dev)
+    lp_err = 0.0
+    for c, r in zip(lp_cases, res):
+        one = estimator.build_ri(c.hop1, c.hop2, dataclasses.replace(c.config, matmul_precision="high"),
+                                 c.pilots.shape[2], out_layout="serve")(
+            torch.as_tensor(estimator.split_ri(c.received_rg.astype(np.complex64)), device=dev),
+            torch.as_tensor(estimator.split_ri(c.pilots.astype(np.complex64)), device=dev),
+            torch.tensor(float(c.beta), device=dev), params1)
+        want = estimator.merge_ri(one.channel_est_rg.cpu().numpy()).transpose(2, 1, 0)
+        lp_err = max(lp_err, float(np.abs(r.channel_est_rg - want).max() / np.abs(want).max()))
+        check_rtol("process(params) noise", r.noise_est, float(one.noise_est), 1e-5)
+    if not lp_err <= 1e-5:
+        fail(f"process(out='grid', params=...) vs single build_ri calls: rel err {lp_err:.3e}")
+    print(f"phase 31 serving.process(out='grid', params=shipped 1-D) on {dev}: {len(lp_cases)} "
+          f"learned problems, 2 signatures, batch 4 with tail padding, vs single build_ri calls "
+          f"rel err {lp_err:.3e} (<= 1e-5)")
 
     sources = {"fused_front": ("srsran_ce_tpu_torch/csrc/front.cu",
                                "srsran_ce_tpu/ops/pallas/kernels.py:639"),

@@ -29,8 +29,11 @@ to a kernel tier raises); on CPU tensors their plain versions run. The plain
 products run in IEEE f32 (TF32 off) or f64. `config.matmul_precision` "high"
 and "highest" both mean full precision here (`ops/dsp.precision_of`).
 
-Not ported yet: learned smoothing (ROADMAP.md queue 1, item 8) and multi-slot
-tracking (item 9); both raise NotImplementedError.
+Learned smoothing ("learned", "learned2d") runs the denoisers of
+`models/denoiser.py` on the `params` passed to the built function (float32
+convolutions, as in JAX). Multi-slot tracking (`models/tracking.py`) blends
+each hop's pilot estimates with the previous slot's inside `_estimate_impl`
+(`h_prev`, `track_w`).
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from ..ops.kernels import fill_rotate_serve as _k2
 from ..ops.kernels import front as _k1
 from ..ops.kernels import full_f32_matmul
 from ..ops.kernels import rc_smooth as _k5
+from . import denoiser as _dn
 from .plan import EstimatorPlan, HopPlan, make_plan, plan_tensors
 
 _OUT_DTYPES = {None: None, "bfloat16": torch.bfloat16}
@@ -321,23 +325,23 @@ def _smooth_wiener(ht: dict, hp: HopPlan, h_p: torch.Tensor) -> torch.Tensor:
 
 
 def _smooth(
-    hp: HopPlan, ht: dict, config: EstimatorConfig, h_p: torch.Tensor, kernels: str = "xla"
+    hp: HopPlan, ht: dict, config: EstimatorConfig, h_p: torch.Tensor, kernels: str = "xla",
+    params=None,
 ) -> torch.Tensor:
     """Frequency-domain smoothing switch (ce_rule_baseline.py:645-680; CNN alpha
-    blend from ce_dl_cnn.py:690-717). h_p: (B, R, n_re) — RAW when
-    _use_fused_smooth (the pair-average lives in the fused matrices),
-    pair-averaged otherwise. With kernels="pallas" the RC filter is K5."""
+    blend from ce_dl_cnn.py:690-717; "learned" through models/denoiser.py with
+    `params`). h_p: (B, R, n_re) — RAW when _use_fused_smooth (the pair-average
+    lives in the fused matrices), pair-averaged otherwise. With
+    kernels="pallas" the RC filter is K5."""
     smoothing = hp.smoothing
     if smoothing == "none":
         return h_p
+    if smoothing == "learned":
+        return _dn.apply_complex(params, h_p)
     if smoothing == "mean":
         return h_p.mean(dim=-1, keepdim=True).expand_as(h_p)
     if smoothing == "wiener":
         return _smooth_wiener(ht, hp, h_p)
-    if smoothing != "filter":
-        raise NotImplementedError(
-            f"smoothing={smoothing!r} needs the denoisers (ROADMAP.md queue 1, item 8)"
-        )
     if _use_fused_smooth(hp, kernels):
         return _smooth_fused(ht, hp, h_p)
     n_pils = hp.n_pils
@@ -514,14 +518,17 @@ def _process_hop(
     beta: torch.Tensor,  # (B,) real
     sst_d: Optional[torch.Tensor],  # (n_dsym,) DM-RS symbol start times, None without CFO compensation
     kernels: str = "xla",
+    params=None,
 ):
     """One hop for a batch of problems (reference process_hop,
     ce_rule_baseline.py:507-755).
 
-    Returns (epre_inc, cfo_hop | None, ta_inc, noise_inc, rsrp_inc, h_p, h_t):
-    per-problem (B,) scalars, the smoothed pilot estimates h_p (B, nL, n_re)
-    and, with time interpolation, the per-DM-RS-symbol estimates h_t
-    (B, nL * n_dsym, n_re), else None."""
+    Returns (epre_inc, cfo_hop | None, ta_inc, noise_inc, rsrp_inc, h_p, h_t,
+    h_pre): per-problem (B,) scalars, the smoothed pilot estimates h_p
+    (B, nL, n_re), with time interpolation the per-DM-RS-symbol estimates h_t
+    (B, nL * n_dsym, n_re) (else None), and h_pre, the estimates before
+    smoothing that multi-slot tracking blends: RAW when the fused smoothing
+    matrices run (they hold the CDM pair average), pair-averaged otherwise."""
     rdtype = received_rg.real.dtype
     B = received_rg.shape[0]
     nL = hp.n_layers
@@ -572,7 +579,12 @@ def _process_hop(
         h_p = _pair_average(h_p)
 
     # --- Smoothing (ce_rule_baseline.py:645-680) ---
-    h_p = _smooth(hp, ht, config, h_p, kernels)
+    h_pre = h_p
+    if hp.smoothing == "learned2d":
+        # the 2-D denoiser sees the time-averaged profile as a one-symbol grid
+        h_p = _dn.apply_complex_2d(params, h_p[:, :, None, :])[:, :, 0, :]
+    else:
+        h_p = _smooth(hp, ht, config, h_p, kernels, params)
 
     # --- Per-DM-RS-symbol estimates for time interpolation, rows (layer, dmrs_sym) ---
     h_t = None
@@ -580,7 +592,11 @@ def _process_hop(
         ht_rows = (rec_x_nocfo / beta[:, None, None, None]).reshape(B, nL * nd, hp.n_re)
         if nL >= 2 and not fused:
             ht_rows = _pair_average(ht_rows)
-        h_t = _smooth(hp, ht, config, ht_rows, kernels)
+        if hp.smoothing == "learned2d":
+            h_t = _dn.apply_complex_2d(params, ht_rows.reshape(B, nL, nd, hp.n_re))
+            h_t = h_t.reshape(B, nL * nd, hp.n_re)
+        else:
+            h_t = _smooth(hp, ht, config, ht_rows, kernels, params)
 
     # --- Time alignment from the power-delay profile (ce_rule_baseline.py:684-710) ---
     hcl = hp.half_cp_len
@@ -617,7 +633,7 @@ def _process_hop(
     est_rx = torch.stack([contrib[:, l0:l1].sum(dim=1) for l0, l1 in hp.layer_slices], dim=1)
     noise_inc = dsp.fro_norm_sq(rx - est_rx, batch_dims=1)
     rsrp_inc = beta**2 * dsp.fro_norm_sq(h_p, batch_dims=1) * nd
-    return epre_inc, cfo_hop, ta_inc, noise_inc, rsrp_inc, h_p, h_t
+    return epre_inc, cfo_hop, ta_inc, noise_inc, rsrp_inc, h_p, h_t, h_pre
 
 
 def _estimate_impl(
@@ -632,17 +648,29 @@ def _estimate_impl(
     h_prev=None,
     track_w=None,
     defer_fill: bool = False,
+    params=None,
 ):
     """The estimator over a batch of problems. `pt` holds the plan's tensors
     (`plan_tensors`) on the inputs' device and dtype; `out_dtype` is a torch
-    dtype for the serve grid (None keeps the inputs' real dtype).
+    dtype for the serve grid (None keeps the inputs' real dtype); `params`
+    the denoiser's (learned smoothing).
 
     Returns an EstimateResult / FactoredResult in ri layout; with defer_fill
     (serve only, no time interpolation) the per-hop smoothed profiles
     (B, 2, nL, n_re), the CFO rotation (B, 2, n_sym) and the scalars instead,
-    for the batched K2 fill."""
-    if h_prev is not None or track_w is not None:
-        raise NotImplementedError("multi-slot tracking is ROADMAP.md queue 1, item 9")
+    for the batched K2 fill.
+
+    h_prev / track_w: the multi-slot tracking state (models/tracking.py), a
+    tuple of per-hop complex (B, nL, n_re) pilot estimates and the (B,)
+    weights. Each hop's estimate is then blended with its predecessor by a
+    per-problem adaptive gain before the re-smooth and the fill, and the call
+    returns (result, (blended estimates, w_new)). The scalar metrics stay
+    single-slot (reference parity)."""
+    tracked = h_prev is not None
+    if tracked != (track_w is not None):
+        raise ValueError("tracking needs both h_prev and track_w")
+    if tracked and defer_fill:
+        raise ValueError("defer_fill does not take a tracking state")
     if out_layout not in ("ref", "serve", "factored"):
         raise ValueError(f"out_layout {out_layout!r}")
     if out_dtype is not None and out_layout != "serve":
@@ -660,11 +688,11 @@ def _estimate_impl(
     zeros = torch.zeros(B, dtype=rdtype, device=received_rg.device)
     epre, noise, rsrp, ta = zeros, zeros, zeros, zeros
     cfo = None
-    h_ps, h_ts = [], []
+    h_ps, h_ts, h_pres, cfo_hs = [], [], [], []
     for hp, ht, pil in hops:
         sst_d = None if sst is None else sst[ht["dmrs_sym_idx"]]
-        e_i, cfo_h, ta_i, n_i, r_i, h_p, h_t = _process_hop(
-            hp, ht, config, received_rg, pil, beta, sst_d, kernels
+        e_i, cfo_h, ta_i, n_i, r_i, h_p, h_t, h_pre = _process_hop(
+            hp, ht, config, received_rg, pil, beta, sst_d, kernels, params
         )
         epre = epre + e_i
         noise = noise + n_i
@@ -675,6 +703,19 @@ def _estimate_impl(
             cfo = cfo_h if cfo is None else (cfo + cfo_h) / 2.0
         h_ps.append(h_p)
         h_ts.append(h_t)
+        h_pres.append(h_pre)
+        cfo_hs.append(cfo_h)
+
+    track_out = None
+    if tracked:
+        if len(h_prev) != len(hops):
+            raise ValueError(f"h_prev holds {len(h_prev)} hops, the plan {len(hops)}")
+        if any(h_t is not None for h_t in h_ts):
+            raise ValueError("tracking requires time_interp='none'")
+        h_ps, track_out = _track_blend(
+            plan, [(hp, ht) for hp, ht, _ in hops], h_pres, cfo_hs, h_prev,
+            track_w.to(rdtype), kernels, params,
+        )
 
     # --- Normalization (ce_rule_baseline.py:914-935) ---
     rsrp = rsrp / plan.n_pilots / nL
@@ -707,7 +748,8 @@ def _estimate_impl(
         profiles = received_rg.new_zeros((B, len(hops), nL, n_sc))
         for h, ((hp, ht, _), h_p) in enumerate(zip(hops, h_ps)):
             profiles[:, h, :, hp.sc_start : hp.sc_start + hp.n_sc_hop] = _grid_fill(hp, ht, config, h_p)
-        return result_to_ri(FactoredResult(profiles, rot, noise, rsrp, epre, ta, cfo_hz))
+        res = result_to_ri(FactoredResult(profiles, rot, noise, rsrp, epre, ta, cfo_hz))
+        return res if track_out is None else (res, track_out)
 
     serve = out_layout == "serve"
     grid_shape = (nL, n_sym, n_sc) if serve else (n_sc, n_sym, nL)
@@ -747,7 +789,60 @@ def _estimate_impl(
             full = _grid_fill(hp, ht, config, h_p)
             block = full.transpose(1, 2)[:, :, None, :] * rot_slice[:, None, :, None]
             _write_block(channel, block, at)  # (B, n_sc_hop, n_alloc, nL)
-    return EstimateResult(channel, noise, rsrp, epre, ta, cfo_hz)
+    res = EstimateResult(channel, noise, rsrp, epre, ta, cfo_hz)
+    return res if track_out is None else (res, track_out)
+
+
+def _track_blend(plan, hops, h_pres, cfo_hs, h_prev, w, kernels, params):
+    """The multi-slot tracking blend (no reference counterpart), per problem.
+
+    Each hop's pre-smoothing estimate is phase-anchored first: with CFO
+    compensation on, this slot's pilot average carries the phase
+    exp(-j 2 pi t_bar cfo_hat) of its own CFO estimate at the DM-RS-symbol
+    centroid t_bar, consistent within the slot but not across slots, so the
+    tracked state lives in the anchor-free domain: the estimate is multiplied
+    by exp(+j 2 pi t_bar cfo_hat) before the blend and by its conjugate before
+    the re-smooth. The gain pools two statistics over
+    the hops: sig2, the observation noise proxy from adjacent pilot
+    differences, and innov, the mean distance to the tracked state. The gain
+    is 1 on the first slot (w < 0.5), the running average 1/(w+1) on a static
+    channel, and snaps toward 1 when innov exceeds 2 sig2 (the channel
+    moved). Returns the re-smoothed estimates in this slot's convention and
+    (the blended state, w_new = min(1/max(a, 1e-3), 64))."""
+    config = plan.config
+    sst = plan.symbol_start_time
+    anchors = []
+    for (hp, _), cfo_h in zip(hops, cfo_hs):
+        if config.cfo_compensate and cfo_h is not None:
+            t_bar = float(np.mean(sst[hp.dmrs_sym_idx]))
+            anchors.append(torch.exp(1j * (2.0 * math.pi * t_bar) * cfo_h)[:, None, None])
+        else:
+            anchors.append(None)
+    h_obs = [h if an is None else h * an for h, an in zip(h_pres, anchors)]
+    sig2 = innov = 0.0
+    n_s = n_i = 0
+    for h_ob, h_pr in zip(h_obs, h_prev):
+        d = h_ob[..., 1:] - h_ob[..., :-1]
+        sig2 = sig2 + (d.real**2 + d.imag**2).sum(dim=(1, 2)) / 2.0
+        e = h_ob - h_pr
+        innov = innov + (e.real**2 + e.imag**2).sum(dim=(1, 2))
+        n_s += d[0].numel()
+        n_i += e[0].numel()
+    sig2 = (sig2 / max(n_s, 1)).clamp_min(1e-30)
+    innov = (innov / max(n_i, 1)).clamp_min(1e-30)
+    a_static = 1.0 / (w + 1.0)
+    # static channel: innov ~ sig2 (1 + 1/w), so a_move clips to 0 and the
+    # running average rules; a moved channel pushes innov >> 2 sig2
+    a_move = torch.clamp(1.0 - 2.0 * sig2 / innov, 0.0, 1.0)
+    a = torch.where(w < 0.5, torch.ones_like(w), torch.maximum(a_static, a_move))
+    a_c = a[:, None, None]
+    h_blend = [h_pr + a_c * (h_ob - h_pr) for h_ob, h_pr in zip(h_obs, h_prev)]
+    h_ps = [
+        _smooth(hp, ht, config, h_b if an is None else h_b * torch.conj(an), kernels, params)
+        for (hp, ht), h_b, an in zip(hops, h_blend, anchors)
+    ]
+    w_new = torch.clamp(1.0 / a.clamp_min(1e-3), max=64.0)
+    return h_ps, (tuple(h_blend), w_new)
 
 
 # ---------------------------------------------------------------------------
@@ -832,9 +927,11 @@ def _front_pallas_batched(
 
 
 class BatchedEstimator:
-    """`fn(rg_ri, pil_ri, beta)` of `build_ri`: runs the estimator on the
-    inputs' device and dtype, with the plan's device tensors built once per
-    (device, dtype) and kept by this object."""
+    """`fn(rg_ri, pil_ri, beta[, params])` of `build_ri`: runs the estimator on
+    the inputs' device and dtype, with the plan's device tensors built once per
+    (device, dtype) and kept by this object. `params` (the denoiser's, a
+    replicated argument, not batched) is required by the learned smoothings and
+    moved to the inputs' device once (`denoiser.module_for`)."""
 
     def __init__(self, plan: EstimatorPlan, batched: bool, kernels: str, out_layout: str,
                  out_dtype=None):
@@ -852,7 +949,9 @@ class BatchedEstimator:
             pt = self._tensors[key] = plan_tensors(self.plan, key[0], dtype)
         return pt
 
-    def __call__(self, rg_ri, pil_ri, beta):
+    def __call__(self, rg_ri, pil_ri, beta, params=None):
+        if params is None and self.plan.config.smoothing in ("learned", "learned2d"):
+            raise ValueError(f"smoothing={self.plan.config.smoothing!r} needs denoiser params")
         rg_ri = torch.as_tensor(rg_ri)
         dev, dt = rg_ri.device, rg_ri.dtype
         if dt not in (torch.float32, torch.float64):
@@ -878,7 +977,7 @@ class BatchedEstimator:
                 # smoothing matrices), then one batched K2 launch per hop
                 h_ps, rot_ri, noise, rsrp, epre, ta, cfo_hz = _estimate_impl(
                     plan, pt, _ri_to_complex(rg_ri), _ri_to_complex(pil_ri), beta,
-                    "xla", "serve", defer_fill=True,
+                    "xla", "serve", defer_fill=True, params=params,
                 )
                 channel = _serve_fill_pallas_batched(
                     plan, pt, h_ps, rot_ri, rg_ri.shape[2], rg_ri.shape[3], self.out_dtype
@@ -887,7 +986,7 @@ class BatchedEstimator:
             else:
                 res = _estimate_impl(
                     plan, pt, _ri_to_complex(rg_ri), _ri_to_complex(pil_ri), beta,
-                    kernels, self.out_layout, self.out_dtype,
+                    kernels, self.out_layout, self.out_dtype, params=params,
                 )
         if not self.batched:
             res = type(res)(*(getattr(res, f.name)[0] for f in fields(res)))
@@ -921,8 +1020,10 @@ def build_ri(
     out_layout: str = "ref",
     out_dtype: Optional[str] = None,
 ) -> BatchedEstimator:
-    """`fn(rg_ri, pil_ri, beta) -> EstimateResult | FactoredResult` in ri layout,
-    the signature of `srsran_ce_tpu.models.estimator.build_ri`.
+    """`fn(rg_ri, pil_ri, beta[, params]) -> EstimateResult | FactoredResult` in
+    ri layout, the signature of `srsran_ce_tpu.models.estimator.build_ri`;
+    `params` (`models.denoiser.load_shipped` or `params_from_flax`) is required
+    when config.smoothing is "learned" or "learned2d".
 
     rg_ri: (2, n_sc, n_sym); pil_ri: (2, n_re, n_dsym, n_layers); with
     batched=True a leading problem axis B comes first ((B, 2, ...)). Tensors
@@ -933,7 +1034,8 @@ def build_ri(
 
     kernels: "xla" (plain torch), "pallas" (K5 smoothing and K6 fill in the
     reference layout; the xla front then K2 in the serve layout) or
-    "pallas_front" (K1 then K2; serve and factored). out_dtype="bfloat16"
+    "pallas_front" (K1 then K2; serve and factored; not the learned
+    smoothings, which it refuses as JAX does). out_dtype="bfloat16"
     (serve only) halves the grid: its values carry ~4e-3 relative error, the
     scalars stay full precision."""
     if hop2 is not None and hop2.is_empty:
@@ -948,10 +1050,6 @@ def build_ri(
         raise ValueError("out_dtype requires the serve layout")
     if out_layout == "factored" and config.time_interp != "none":
         raise ValueError("out_layout='factored' requires time_interp='none'")
-    if config.smoothing in ("learned", "learned2d"):
-        raise NotImplementedError(
-            f"smoothing={config.smoothing!r} needs the denoisers (ROADMAP.md queue 1, item 8)"
-        )
     dsp.precision_of(config.matmul_precision)  # "high"/"highest" -> full f32; "default" raises
     return _build_ri_cached((hop1, hop2, config, n_layers), batched, kernels, out_layout, out_dtype)
 

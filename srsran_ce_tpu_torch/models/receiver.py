@@ -21,8 +21,10 @@ Shapes (ri layout, a leading re/im axis of 2, as every build_* of the port):
 rg_ri (2, n_rx, n_sc, n_sym); pil_ri (2, n_re, n_dsym, nL), shared by the
 ports; x (2, nL, n_sym, n_sc). Batched adds a leading problem axis B.
 
-Not ported yet: the tracked receiver (ROADMAP.md queue 1, item 9) and learned
-smoothing (item 8); both raise NotImplementedError.
+The learned smoothings take the denoiser's `params` as a fourth argument, as
+the JAX receiver does. The tracked receiver (`build_tracked_receiver_ri`)
+threads a per-port multi-slot tracking state (models/tracking.py) through the
+factored path.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from .. import devices
 from ..config import EstimatorConfig, HopConfig
 from ..ops import demap, dsp, equalize
 from ..ops.kernels import full_f32_matmul
+from . import tracking
 from .estimator import _complex_to_ri, _estimate_impl, _ri_to_complex
 from .plan import make_plan, plan_tensors
 
@@ -85,16 +88,18 @@ def receiver_impl(
     kernels: str = "xla",
     modulation: Optional[str] = None,
     llr_scale: float = 8.0,
+    params=None,
 ):
     """Estimate + equalize (+ demap) over a batch: rg (B, n_rx, n_sc, n_sym)
     complex, pil (B, n_re, n_dsym, nL) complex, beta (B,). `pt` holds the
-    plan's tensors on the inputs' device and dtype. Problem b's ports are the
-    estimator's problems b·n_rx ... b·n_rx + n_rx - 1."""
+    plan's tensors on the inputs' device and dtype; `params` the denoiser's
+    (learned smoothing). Problem b's ports are the estimator's problems
+    b·n_rx ... b·n_rx + n_rx - 1."""
     B, n_rx, n_sc, n_sym = rg.shape
     est = _estimate_impl(
         plan, pt, rg.reshape(B * n_rx, n_sc, n_sym),
         pil.repeat_interleave(n_rx, dim=0), beta.repeat_interleave(n_rx, dim=0),
-        kernels, "factored" if factored else "serve",
+        kernels, "factored" if factored else "serve", params=params,
     )
     return _equalize_tail(plan, rg, est, factored, data_beta, modulation, llr_scale)
 
@@ -156,10 +161,12 @@ def _equalize_tail(plan, rg, est, factored, data_beta, modulation, llr_scale):
 
 
 class BatchedReceiver:
-    """`fn(rg_ri, pil_ri, beta)` of `build_receiver_ri`. Tensors stay on their
-    device (CUDA tensors run the kernels of the tier, CPU tensors their plain
-    versions); numpy inputs go to the device given to `build_receiver_ri`.
-    The plan's tensors are built once per (device, dtype) and kept here."""
+    """`fn(rg_ri, pil_ri, beta[, params])` of `build_receiver_ri`. Tensors stay
+    on their device (CUDA tensors run the kernels of the tier, CPU tensors
+    their plain versions); numpy inputs go to the device given to
+    `build_receiver_ri`. The plan's tensors are built once per (device,
+    dtype) and kept here. `params` (the denoiser's, not batched) is required
+    by the learned smoothings."""
 
     def __init__(self, plan, n_rx: int, batched: bool, factored: bool, data_beta: float,
                  kernels: str, modulation: Optional[str], llr_scale: float, device: torch.device):
@@ -181,7 +188,8 @@ class BatchedReceiver:
             pt = self._tensors[key] = plan_tensors(self.plan, key[0], dtype)
         return pt
 
-    def __call__(self, rg_ri, pil_ri, beta):
+    def _inputs(self, rg_ri, pil_ri, beta):
+        """The call's tensors on rg_ri's device and dtype, with the problem axis."""
         rg_ri = rg_ri if torch.is_tensor(rg_ri) else torch.as_tensor(rg_ri, device=self.device)
         dev, dt = rg_ri.device, rg_ri.dtype
         if dt not in (torch.float32, torch.float64):
@@ -196,18 +204,27 @@ class BatchedReceiver:
             raise ValueError(
                 f"rg_ri must be ([B,] 2, n_rx={self.n_rx}, n_sc, n_sym), got {tuple(rg_ri.shape)}"
             )
+        return rg_ri, pil_ri, beta
+
+    def _unbatch(self, res):
+        if self.batched:
+            return res
+        return type(res)(*(
+            tuple(p[0] for p in v) if isinstance(v, tuple) else v[0]
+            for v in (getattr(res, f.name) for f in fields(res))
+        ))
+
+    def __call__(self, rg_ri, pil_ri, beta, params=None):
+        if params is None and self.plan.config.smoothing in ("learned", "learned2d"):
+            raise ValueError(f"smoothing={self.plan.config.smoothing!r} needs denoiser params")
+        rg_ri, pil_ri, beta = self._inputs(rg_ri, pil_ri, beta)
         with full_f32_matmul():
             res = receiver_impl(
-                self.plan, self.plan_tensors(dev, dt), _ri_to_complex(rg_ri),
+                self.plan, self.plan_tensors(rg_ri.device, rg_ri.dtype), _ri_to_complex(rg_ri),
                 _ri_to_complex(pil_ri), beta, self.factored, self.data_beta, self.kernels,
-                self.modulation, self.llr_scale,
+                self.modulation, self.llr_scale, params,
             )
-        if not self.batched:
-            res = type(res)(*(
-                tuple(p[0] for p in v) if isinstance(v, tuple) else v[0]
-                for v in (getattr(res, f.name) for f in fields(res))
-            ))
-        return res
+        return self._unbatch(res)
 
 
 @functools.lru_cache(maxsize=128)
@@ -234,9 +251,10 @@ def build_receiver_ri(
     llr_scale: float = 8.0,
     device="cuda",
 ) -> BatchedReceiver:
-    """`fn(rg_ri, pil_ri, beta) -> ReceiverResult | LlrResult` in ri layout, the
-    signature of `srsran_ce_tpu.models.receiver.build_receiver_ri` (cached per
-    arguments).
+    """`fn(rg_ri, pil_ri, beta[, params]) -> ReceiverResult | LlrResult` in ri
+    layout, the signature of `srsran_ce_tpu.models.receiver.build_receiver_ri`
+    (cached per arguments); `params` (the denoiser's, replicated) is required
+    when config.smoothing is a learned mode.
 
     rg_ri (2, n_rx, n_sc, n_sym), one received grid per RX port; pil_ri
     (2, n_re, n_dsym, n_layers), shared; beta the pilot amplitude scale. With
@@ -262,10 +280,6 @@ def build_receiver_ri(
         raise ValueError(f"n_rx must be >= 1: {n_rx}")
     if mode == "factored" and config.time_interp != "none":
         raise ValueError("mode='factored' requires time_interp='none'")
-    if config.smoothing in ("learned", "learned2d"):
-        raise NotImplementedError(
-            f"smoothing={config.smoothing!r} needs the denoisers (ROADMAP.md queue 1, item 8)"
-        )
     dsp.precision_of(config.matmul_precision)  # "high"/"highest" -> full f32; "default" raises
     if modulation is not None:
         demap.bits_per_symbol(modulation)  # validate early
@@ -275,12 +289,97 @@ def build_receiver_ri(
     )
 
 
-def tracked_receiver_impl(*args, **kwargs):
-    """The multi-slot tracked receiver (`srsran_ce_tpu.models.receiver`), not
-    ported yet."""
-    raise NotImplementedError("the tracked receiver is ROADMAP.md queue 1, item 9")
+def tracked_receiver_impl(plan, pt, rg, pil, beta, h_prev, w, data_beta: float = 1.0,
+                          modulation: Optional[str] = None, llr_scale: float = 8.0):
+    """Tracked multi-RX receiver over a batch: per-port tracked estimation (each
+    RX port carries its own state; models/tracking.py) on the factored path,
+    then the plain receiver's cross-port MMSE equalize (+ demap) tail, whose
+    per-subcarrier filter is rebuilt each slot from the tracked profiles.
+
+    rg (B, n_rx, n_sc, n_sym) complex; pil (B, n_re, n_dsym, nL) complex;
+    beta (B,); h_prev a tuple (one per hop) of complex (B, n_rx, nL, n_re);
+    w (B, n_rx). The (B, n_rx) pairs fold into the estimator's batch as in
+    `receiver_impl`. Returns (ReceiverResult | LlrResult, h_new, w_new) in the
+    state's shapes."""
+    B, n_rx, n_sc, n_sym = rg.shape
+    est, (h_new, w_new) = _estimate_impl(
+        plan, pt, rg.reshape(B * n_rx, n_sc, n_sym),
+        pil.repeat_interleave(n_rx, dim=0), beta.repeat_interleave(n_rx, dim=0),
+        "xla", "factored",
+        h_prev=tuple(h.reshape((B * n_rx,) + h.shape[2:]) for h in h_prev),
+        track_w=w.reshape(B * n_rx),
+    )
+    out = _equalize_tail(plan, rg, est, True, data_beta, modulation, llr_scale)
+    h_new = tuple(h.reshape((B, n_rx) + h.shape[1:]) for h in h_new)
+    return out, h_new, w_new.reshape(B, n_rx)
 
 
-def build_tracked_receiver_ri(*args, **kwargs):
-    """`build_tracked_receiver_ri` of the JAX package, not ported yet."""
-    raise NotImplementedError("the tracked receiver is ROADMAP.md queue 1, item 9")
+class TrackedReceiver(BatchedReceiver):
+    """`fn(rg_ri, pil_ri, beta, h_prev_ri, w) -> (result, h_new_ri, w_new)` of
+    `build_tracked_receiver_ri`: the state is a tuple of per-hop ri tensors
+    ([B,] n_rx, 2, nL, n_re) and the weights ([B,] n_rx)."""
+
+    def __call__(self, rg_ri, pil_ri, beta, h_prev_ri, w):
+        rg_ri, pil_ri, beta = self._inputs(rg_ri, pil_ri, beta)
+        dev, dt = rg_ri.device, rg_ri.dtype
+        as_t = lambda a: torch.as_tensor(a, device=dev, dtype=dt)
+        h_prev_ri, w = tuple(as_t(h) for h in h_prev_ri), as_t(w)
+        if not self.batched:
+            h_prev_ri, w = tuple(h[None] for h in h_prev_ri), w[None]
+        with full_f32_matmul():
+            res, h_new, w_new = tracked_receiver_impl(
+                self.plan, self.plan_tensors(dev, dt), _ri_to_complex(rg_ri),
+                _ri_to_complex(pil_ri), beta,
+                tuple(torch.complex(h[:, :, 0], h[:, :, 1]) for h in h_prev_ri), w,
+                self.data_beta, self.modulation, self.llr_scale,
+            )
+        h_new = tuple(torch.stack([h.real, h.imag], dim=2) for h in h_new)
+        if not self.batched:
+            h_new, w_new = tuple(h[0] for h in h_new), w_new[0]
+        return self._unbatch(res), h_new, w_new
+
+
+@functools.lru_cache(maxsize=128)
+def _build_tracked_receiver_cached(plan_key, n_rx, data_beta, modulation, llr_scale, batched,
+                                   device):
+    return TrackedReceiver(make_plan(*plan_key), n_rx, batched, True, data_beta, "xla",
+                           modulation, llr_scale, device)
+
+
+def build_tracked_receiver_ri(
+    hop1: HopConfig,
+    hop2: Optional[HopConfig],
+    config: EstimatorConfig,
+    n_layers: int,
+    n_rx: int,
+    data_beta: float = 1.0,
+    modulation: Optional[str] = None,
+    llr_scale: float = 8.0,
+    batched: bool = False,
+    device="cuda",
+) -> TrackedReceiver:
+    """The tracked multi-RX receiver,
+    `fn(rg_ri, pil_ri, beta, h_prev_ri, w) -> (result, h_new_ri, w_new)`, the
+    signature of `srsran_ce_tpu.models.receiver.build_tracked_receiver_ri`
+    (cached per arguments).
+
+    Thread the returned state into the next sounding's call; slot 0's state
+    is `models.tracking.init_state(hop1, hop2, config, n_layers, batch=n_rx)`
+    (weight 0: the first call equals the plain receiver). Requires
+    time_interp="none" and refuses the learned smoothings, as JAX does.
+    `modulation` adds the int8 demapper as in build_receiver_ri. With
+    batched=True every argument, the state included, gains a leading problem
+    axis. Numpy inputs go to `device` (the card by default)."""
+    device = devices.resolve(device)
+    if hop2 is not None and hop2.is_empty:
+        hop2 = None
+    if n_rx < 1:
+        raise ValueError(f"n_rx must be >= 1: {n_rx}")
+    tracking.check_config(config)
+    dsp.precision_of(config.matmul_precision)
+    if modulation is not None:
+        demap.bits_per_symbol(modulation)
+    return _build_tracked_receiver_cached(
+        (hop1, hop2, config, n_layers), int(n_rx), float(data_beta), modulation,
+        float(llr_scale), batched, device,
+    )

@@ -1,5 +1,4 @@
-"""Serving front-end of the port: `srsran_ce_tpu/serving.py` in torch, without
-`TrackedServer` (ROADMAP.md queue 1, item 9).
+"""Serving front-end of the port: `srsran_ce_tpu/serving.py` in torch.
 
 A stream of heterogeneous problems (cells, UEs, ports, slots with different
 configurations) is served in three steps:
@@ -22,6 +21,10 @@ chunks are pending. On the CPU (`device="cpu"`) the same code runs in order.
 LDPC decoding (ops/ldpc) and the CRC, either on the host (`_decode_soft`) or
 on the device (`decode_on_device=True`, `_process_decoded_device`).
 
+`TrackedServer` is the stateful counterpart: multi-slot tracking
+(models/tracking.py) per caller-chosen stream, the states threaded across
+calls on the host.
+
 The batch packing is the JAX package's numpy branch; its native packer
 (`native/loader.py`) is not ported yet (ROADMAP.md queue 1, item 5).
 """
@@ -38,7 +41,7 @@ import torch
 
 from . import devices, transport
 from .config import EstimatorConfig, HopConfig
-from .models import estimator, receiver
+from .models import estimator, receiver, tracking
 from .models.plan import make_plan
 from .ops import demap, ldpc
 
@@ -508,9 +511,16 @@ def _device_decode_builder(coding, hop1, hop2, n_sc: int, n_sym: int, n_layers: 
     return run
 
 
+def _check_params(config: EstimatorConfig, params) -> None:
+    """The learned smoothings need the denoiser's params (serving.py:632, :976
+    of the JAX package)."""
+    if config.smoothing in ("learned", "learned2d") and params is None:
+        raise ValueError(f"smoothing={config.smoothing!r} needs params")
+
+
 def _process_decoded_device(problems, coding, batch_size, matmul_precision, data_beta,
                             modulation, llr_scale, inflight, wiener_auto_delay,
-                            auto_time_interp_hz, device):
+                            auto_time_interp_hz, device, params=None):
     """process(out="decoded", decode_on_device=True): the whole chain per
     chunk on the device; the host fetches the packed payloads, the parity
     bytes and one (5, B) row of measurement scalars (soft=None on the
@@ -558,6 +568,7 @@ def _process_decoded_device(problems, coding, batch_size, matmul_precision, data
         hop1, hop2, config, n_layers, n_rx = sig
         if matmul_precision is not None:
             config = dataclasses.replace(config, matmul_precision=matmul_precision)
+        _check_params(config, params)
         fn = receiver.build_receiver_ri(
             hop1, hop2, config, n_layers, n_rx, batched=True, data_beta=data_beta,
             modulation=modulation, llr_scale=llr_scale, device=device,
@@ -566,7 +577,7 @@ def _process_decoded_device(problems, coding, batch_size, matmul_precision, data
         run = _device_decode_builder(coding, hop1, hop2, int(n_sc), int(n_sym), n_layers,
                                      nbits, device)
         for chunk, take in _chunks(idxs, batch_size):
-            res = fn(*_batch_inputs(problems, take, device, multi_rx=True))
+            res = fn(*_batch_inputs(problems, take, device, multi_rx=True), params)
             scal = torch.stack([getattr(res, n).to(torch.float32) for n in scal_names])
             pending.append((_HostCopy((run(res.llr), scal)), chunk))
             if len(pending) >= max(1, inflight):
@@ -660,6 +671,7 @@ def process(
     problems: List[Problem],
     batch_size: int = 128,
     matmul_precision: Optional[str] = "high",
+    params=None,
     inflight: int = 3,
     wiener_auto_delay=None,
     auto_time_interp_hz: Optional[float] = None,
@@ -673,14 +685,17 @@ def process(
 ):
     """Serve a heterogeneous list of problems on `device` (the card by default;
     raises when there is none); results in submission order. The signature of
-    `srsran_ce_tpu.serving.process` without `params` (learned smoothing is
-    not ported: its build functions raise).
+    `srsran_ce_tpu.serving.process`.
 
     Problems are bucketed by plan signature and each bucket runs in
     `batch_size` chunks (the tail chunk padded by repetition).
     `matmul_precision` overrides every problem's config precision (None keeps
-    each config's own). Up to `inflight` dispatched chunks stay unfetched
-    while the host packs the next one.
+    each config's own). `params` is the denoiser's (`models.denoiser.
+    load_shipped` or `params_from_flax`), required for problems whose config
+    uses a learned smoothing (one shared params: mixed 1-D / 2-D learned
+    problems need separate calls); it reaches every output. Up to
+    `inflight` dispatched chunks stay unfetched while the host packs the
+    next one.
 
     `wiener_auto_delay`: candidate delay spreads (seconds); each wiener
     problem's prior is snapped to the nearest one to its measured delay
@@ -709,11 +724,11 @@ def process(
         if decode_on_device:
             return _process_decoded_device(
                 problems, coding, batch_size, matmul_precision, data_beta, modulation,
-                llr_scale, inflight, wiener_auto_delay, auto_time_interp_hz, device,
+                llr_scale, inflight, wiener_auto_delay, auto_time_interp_hz, device, params,
             )
         soft = process(
             problems, batch_size=batch_size, matmul_precision=matmul_precision,
-            inflight=inflight, wiener_auto_delay=wiener_auto_delay,
+            params=params, inflight=inflight, wiener_auto_delay=wiener_auto_delay,
             auto_time_interp_hz=auto_time_interp_hz, out="llrs", data_beta=data_beta,
             modulation=modulation, llr_scale=llr_scale, device=device,
         )
@@ -761,6 +776,7 @@ def process(
         hop1, hop2, config, n_layers, n_rx = sig
         if matmul_precision is not None:
             config = dataclasses.replace(config, matmul_precision=matmul_precision)
+        _check_params(config, params)
         if equalized:
             fn = receiver.build_receiver_ri(
                 hop1, hop2, config, n_layers, n_rx, batched=True, data_beta=data_beta,
@@ -782,7 +798,7 @@ def process(
             scatter = (functools.partial(_scatter_out_factored, sig=(hop1, hop2))
                        if factored else _scatter_out)
         for chunk, take in _chunks(idxs, batch_size):
-            res = fn(*_batch_inputs(problems, take, device, multi_rx=equalized))
+            res = fn(*_batch_inputs(problems, take, device, multi_rx=equalized), params)
             pending.append((scatter, _HostCopy(res), chunk))
             if len(pending) >= max(1, inflight):
                 sc, copy, c = pending.popleft()
@@ -791,3 +807,113 @@ def process(
         sc, copy, c = pending.popleft()
         sc(copy.get(), c, results=results)
     return results
+
+
+class TrackedServer:
+    """Stateful serving on `device` (the card by default): multi-slot tracking
+    (models/tracking.py) per stream, `srsran_ce_tpu.serving.TrackedServer` in
+    torch.
+
+    A stream is a recurring sounding of one physical link (same plan
+    signature, same cell/UE/port), named by a caller-chosen `stream_id`. The
+    server buckets requests by plan signature as `process` does, runs the
+    batched tracked function, and threads each stream's (h, w) state across
+    calls; an unseen stream starts from the zero state (its first sounding
+    passes through). Submit at most one sounding per stream per call: two
+    requests for one stream in a call both read the same prior state (the
+    last write wins).
+
+    The state is keyed per (signature, mode family): the grid mode
+    (out="grid", one RX port) and the receiver modes (out="equalized" /
+    "llrs", a state per RX port) carry different shapes, so a stream that
+    switches between the two families is reset (its next sounding passes
+    through, as for a new stream). States live on the host as numpy arrays,
+    as in the JAX package; in grid mode w is stored as a float."""
+
+    def __init__(self, batch_size: int = 128, matmul_precision: Optional[str] = "high",
+                 device="cuda"):
+        self.batch_size = batch_size
+        self.matmul_precision = matmul_precision
+        self.device = devices.resolve(device)
+        self._state: Dict[Tuple, tuple] = {}  # (sig, stream_id) -> (h tuple, w)
+        self._mode: Dict = {}  # stream_id -> last mode family (True = receiver)
+
+    def reset(self, stream_id=None) -> None:
+        """Drop the tracking state of one stream, or of all when stream_id is None."""
+        if stream_id is None:
+            self._state.clear()
+            self._mode.clear()
+        else:
+            self._state = {k: v for k, v in self._state.items() if k[1] != stream_id}
+            self._mode.pop(stream_id, None)
+
+    def process(self, problems: List[Problem], stream_ids: List, out: str = "grid",
+                modulation: Optional[str] = None, data_beta: float = 1.0,
+                llr_scale: float = 8.0):
+        """out="grid" (default): tracked channel-estimate grids, ServeResults
+        (single-port problems). out="equalized" / "llrs": the tracked multi-RX
+        receiver (models/receiver.build_tracked_receiver_ri), each stream's
+        per-port states threaded across soundings; `modulation` required for
+        "llrs", as in `process`."""
+        if out not in ("grid", "equalized", "llrs"):
+            raise ValueError(f"out must be 'grid', 'equalized' or 'llrs': {out!r}")
+        if out == "llrs" and modulation is None:
+            raise ValueError("out='llrs' requires modulation=")
+        if len(problems) != len(stream_ids):
+            raise ValueError(f"{len(problems)} problems, {len(stream_ids)} stream ids")
+        device = self.device
+        mode = out != "grid"
+        for sid in stream_ids:
+            if self._mode.get(sid, mode) != mode:
+                self.reset(sid)
+            self._mode[sid] = mode
+        buckets: Dict[Tuple, List[int]] = {}
+        for i, p in enumerate(problems):
+            buckets.setdefault(p.signature(), []).append(i)
+
+        results: list = [None] * len(problems)
+        for sig, idxs in buckets.items():
+            hop1, hop2, config, n_layers, n_rx = sig
+            if out == "grid" and n_rx != 1:
+                raise ValueError("out='grid' tracks one RX port per problem")
+            if self.matmul_precision is not None:
+                config = dataclasses.replace(config, matmul_precision=self.matmul_precision)
+            eff_sig = (hop1, hop2, config, n_layers, n_rx, mode)
+            if out == "grid":
+                fn = tracking.build_tracked_ri(hop1, hop2, config, n_layers, batched=True,
+                                               out_layout="serve", device=device)
+                zero_h, zero_w = tracking.init_state(hop1, hop2, config, n_layers, device="cpu")
+                zero_w = float(zero_w)
+            else:
+                fn = receiver.build_tracked_receiver_ri(
+                    hop1, hop2, config, n_layers, n_rx, data_beta=data_beta,
+                    modulation=modulation if out == "llrs" else None, llr_scale=llr_scale,
+                    batched=True, device=device,
+                )
+                zero_h, zero_w = tracking.init_state(hop1, hop2, config, n_layers, batch=n_rx,
+                                                     device="cpu")
+                zero_w = zero_w.numpy()
+            zero_h = tuple(h.numpy() for h in zero_h)
+            for chunk, take in _chunks(idxs, self.batch_size):
+                states = [self._state.get((eff_sig, stream_ids[i]), (zero_h, zero_w))
+                          for i in take]
+                h_b = tuple(np.stack([s[0][j] for s in states]) for j in range(len(zero_h)))
+                w_b = np.asarray([s[1] for s in states], np.float32)
+                res, h_new, w_new = fn(
+                    *_batch_inputs(problems, take, device, multi_rx=mode),
+                    tuple(_to_device(h, device) for h in h_b), _to_device(w_b, device),
+                )
+                o, h_new, w_new = _HostCopy((res, h_new, w_new)).get()
+                if out == "llrs":
+                    _scatter_out_llrs(o, chunk, results, sig=(hop1, hop2), factored=True,
+                                      llr_scale=llr_scale)
+                elif out == "equalized":
+                    _scatter_out_equalized(o, chunk, results, sig=(hop1, hop2), factored=True)
+                else:
+                    _scatter_out(o, chunk, results)
+                for k, i in enumerate(chunk):
+                    self._state[(eff_sig, stream_ids[i])] = (
+                        tuple(h[k] for h in h_new),
+                        w_new[k] if mode else float(w_new[k]),
+                    )
+        return results

@@ -195,9 +195,9 @@ def test_ineligible_and_unported_raise():
     with pytest.raises(ValueError, match="serve layout"):
         est.build_ri(case.hop1, case.hop2, case.config, 1, kernels="pallas_front",
                      out_layout="factored", out_dtype="bfloat16")
-    # what the port does not carry yet raises, naming its ROADMAP.md item
+    # learned smoothing is outside the fused front's coverage, as in JAX
     learned = synthetic.make_case(seed=8, n_prbs=16, n_layers=1, smoothing="learned")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
+    with pytest.raises(ValueError, match="not eligible"):
         est.build_ri(learned.hop1, learned.hop2, learned.config, 1, out_layout="serve",
                      kernels="pallas_front")
     # cnn interpolation and the bf16 grid are ported: the fused front takes them

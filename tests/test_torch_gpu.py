@@ -879,3 +879,117 @@ def test_decoded_serving_host_and_device_on_card():
     for rh, rd in zip(out[False], out[True]):
         assert rd.soft is None and np.array_equal(rh.info, rd.info) and np.array_equal(rh.ok, rd.ok)
         assert np.array_equal(rd.info, u) and bool(np.all(rd.ok))
+
+
+# --- multi-slot tracking and the denoisers on the card (plain torch and cuDNN,
+# with K2 / K6 behind learned smoothing on the pallas tier) -------------------
+
+
+def _ri_batch(cases, dtype, device):
+    t = lambda a: torch.as_tensor(np.stack(a), dtype=dtype, device=device)
+    return (t([est.split_ri(c.received_rg) for c in cases]),
+            t([est.split_ri(c.pilots) for c in cases]), t([c.beta for c in cases]))
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("layout", ["serve", "factored"])
+def test_tracked_estimator_on_card_matches_cpu_f64(layout):
+    """Four soundings of a static channel, two problems: the card (float32)
+    against the CPU (float64) at grid NMSE <= 1e-9, states and weights within
+    relative 1e-5."""
+    from srsran_ce_tpu_torch.models import tracking
+
+    kw = dict(n_prbs=24, n_layers=2, snr_db=5.0, cfo_hz=200.0)
+    c0 = synthetic.make_case(seed=5, **kw)
+    fn = tracking.build_tracked_ri(c0.hop1, c0.hop2, c0.config, 2, batched=True,
+                                   out_layout=layout)
+    s_gpu = tracking.init_state(c0.hop1, c0.hop2, c0.config, 2, batch=2)
+    s_cpu = tracking.init_state(c0.hop1, c0.hop2, c0.config, 2, batch=2, dtype=torch.float64,
+                                device="cpu")
+    field = "profiles" if layout == "factored" else "channel_est_rg"
+    for s in range(4):
+        cases = [synthetic.make_case(seed=5 + k, noise_seed=100 + s, **kw) for k in range(2)]
+        rg, pil, beta = _ri_batch(cases, torch.float32, "cuda")
+        got, *s_gpu = fn(rg, pil, beta, *s_gpu)
+        want, *s_cpu = fn(*(a.double().cpu() for a in (rg, pil, beta)), *s_cpu)
+        g, w = getattr(got, field).double().cpu(), getattr(want, field)
+        assert float(((g - w) ** 2).sum() / (w**2).sum()) <= 1e-9
+        assert rel(s_gpu[1], s_cpu[1]) <= 1e-5
+        assert all(rel(a, b) <= 1e-5 for a, b in zip(s_gpu[0], s_cpu[0]))
+    assert s_gpu[1].device.type == "cuda" and float(s_gpu[1].min()) > 3.0
+
+
+@NEEDS_GPU
+def test_tracked_receiver_on_card_matches_cpu_f64():
+    from srsran_ce_tpu_torch.models import tracking
+
+    mk = dict(n_rx=4, modulation="qpsk", n_prbs=12, n_layers=2, snr_db=5.0)
+    c0 = synthetic.make_mimo_case(seed=3, **mk)
+    fn = rcv.build_tracked_receiver_ri(c0.hop1, c0.hop2, c0.config, 2, 4, batched=True,
+                                       modulation="qpsk")
+    h0, w0 = tracking.init_state(c0.hop1, c0.hop2, c0.config, 2, batch=4, device="cpu")
+    st = lambda dt, dev: (tuple(torch.stack([h] * 2).to(dev, dt) for h in h0),
+                          torch.stack([w0] * 2).to(dev, dt))
+    s_gpu, s_cpu = st(torch.float32, "cuda"), st(torch.float64, "cpu")
+    for s in range(3):
+        cases = [synthetic.make_mimo_case(seed=3 + k, noise_seed=40 + s, **mk) for k in range(2)]
+        rg, pil, beta = _ri_batch(cases, torch.float32, "cuda")
+        got, *s_gpu = fn(rg, pil, beta, *s_gpu)
+        want, *s_cpu = fn(*(a.double().cpu() for a in (rg, pil, beta)), *s_cpu)
+        d = torch.stack([(a.cpu().to(torch.int16) - b.to(torch.int16)).abs()
+                         for a, b in zip(got.llr, want.llr)])
+        assert int(d.max()) <= 1 and float((d > 0).double().mean()) <= 1e-3
+        assert rel(got.sinr, want.sinr) <= 1e-4
+        assert rel(s_gpu[1], s_cpu[1]) <= 1e-5
+    assert float(s_gpu[1].min()) > 2.0
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("kind", ["1d", "2d"])
+def test_denoiser_on_card_matches_cpu_with_tf32_allowed(kind):
+    """The module pins cudnn.allow_tf32 off around its convolutions: with
+    TF32 allowed by the caller the card still agrees with the CPU to float32
+    rounding (TF32 would leave ~1e-3), and the caller's flag comes back."""
+    from srsran_ce_tpu_torch.models import denoiser as dn
+
+    rng = np.random.default_rng(5)
+    shape = (64, 636) if kind == "1d" else (8, 4, 636)
+    h = torch.as_tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape),
+                        dtype=torch.complex64)
+    apply = dn.apply_complex if kind == "1d" else dn.apply_complex_2d
+    want = apply(dn.load_shipped(kind, device="cpu"), h)
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        got = apply(dn.load_shipped(kind), h.cuda())
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert got.device.type == "cuda" and err <= 1e-5, err
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("layout", ["serve", "ref"])
+def test_learned_pallas_launches_k2_k6_and_matches_cpu_f64(layout):
+    """Learned smoothing with the shipped params on kernels="pallas": the
+    serve layout takes the deferred fill, K2 once a hop; the reference layout
+    K6 once a hop. Against the float64 CPU run at NMSE <= 1e-9."""
+    from srsran_ce_tpu_torch.models import denoiser as dn
+
+    for kw in (dict(n_prbs=24, n_layers=2), dict(n_prbs=12, n_layers=1, two_hops=True)):
+        cases = [synthetic.make_case(seed=s, snr_db=10.0, smoothing="learned", **kw)
+                 for s in (7, 8)]
+        c = cases[0]
+        n_hops = 2 if kw.get("two_hops") else 1
+        fn = est.build_ri(c.hop1, c.hop2, c.config, kw["n_layers"], batched=True,
+                          kernels="pallas", out_layout=layout)
+        rg, pil, beta = _ri_batch(cases, torch.float32, "cuda")
+        n2, n6 = k2.launches, k6.launches
+        got = fn(rg, pil, beta, dn.load_shipped("1d"))
+        torch.cuda.synchronize()
+        assert (k2.launches - n2, k6.launches - n6) == (
+            (n_hops, 0) if layout == "serve" else (0, n_hops))
+        want = fn(*(a.double().cpu() for a in (rg, pil, beta)), dn.load_shipped("1d", device="cpu"))
+        g, w = got.channel_est_rg.double().cpu(), want.channel_est_rg
+        assert float(((g - w) ** 2).sum() / (w**2).sum()) <= 1e-9

@@ -198,6 +198,23 @@ def test_port_imports_no_jax():
         "    r = serving.process([prob], out='decoded', modulation='qpsk', coding=coding,\n"
         "                        decode_on_device=dev_decode, device='cpu')[0]\n"
         "    assert r.info.shape == (r.ok.shape[0], ldpc.make_ldpc_plan(code).k)\n"
+        "from srsran_ce_tpu_torch.models import denoiser, estimator, tracking\n"
+        "case = synthetic.make_case(seed=4, n_prbs=4, n_layers=1, smoothing='learned')\n"
+        "args = (estimator.split_ri(case.received_rg), estimator.split_ri(case.pilots), case.beta)\n"
+        "params = denoiser.load_shipped('1d', device='cpu')\n"
+        "res = estimator.build_ri(case.hop1, case.hop2, case.config, 1)(*args, params)\n"
+        "assert bool(np.isfinite(res.channel_est_rg.numpy()).all())\n"
+        "assert sorted(denoiser.load_shipped('2d', device='cpu')) == sorted(\n"
+        "    denoiser.PilotDenoiser2D().state_dict())\n"
+        "case = synthetic.make_case(seed=4, n_prbs=4, n_layers=1)\n"
+        "args = (estimator.split_ri(case.received_rg), estimator.split_ri(case.pilots), case.beta)\n"
+        "fn = tracking.build_tracked_ri(case.hop1, case.hop2, case.config, 1, device='cpu')\n"
+        "state = tracking.init_state(case.hop1, case.hop2, case.config, 1, device='cpu')\n"
+        "for _ in range(2):\n"
+        "    res, *state = fn(*args, *state)\n"
+        "assert float(state[1]) == 2.0\n"
+        "srv = serving.TrackedServer(batch_size=2, device='cpu')\n"
+        "srv.process([prob], ['ue'], out='llrs', modulation='qpsk')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'srsran_ce_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

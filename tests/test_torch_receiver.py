@@ -246,11 +246,15 @@ def test_receiver_build_refusals():
     ti = tsyn.make_case(seed=1, n_prbs=4, time_interp="linear")
     with pytest.raises(ValueError, match="time_interp"):
         trcv.build_receiver_ri(ti.hop1, ti.hop2, ti.config, 1, 2, mode="factored", device="cpu")
+    # learned smoothing builds and needs the denoiser's params at the call;
+    # the tracked receiver refuses time interpolation, as in JAX
     learned = dataclasses.replace(c.config, smoothing="learned")
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        trcv.build_receiver_ri(c.hop1, c.hop2, learned, 1, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        trcv.build_tracked_receiver_ri(c.hop1, c.hop2, c.config, 1, 2)
+    fn_l = trcv.build_receiver_ri(c.hop1, c.hop2, learned, 1, 2, device="cpu")
+    rg2 = np.stack([port_est.split_ri(c.received_rg)] * 2, axis=1)
+    with pytest.raises(ValueError, match="needs denoiser params"):
+        fn_l(rg2, port_est.split_ri(c.pilots), 1.0)
+    with pytest.raises(ValueError, match="time_interp"):
+        trcv.build_tracked_receiver_ri(ti.hop1, ti.hop2, ti.config, 1, 2, device="cpu")
     fn = trcv.build_receiver_ri(*args, device="cpu")
     rg = np.zeros((2, 3) + c.received_rg.shape)
     with pytest.raises(ValueError, match="n_rx=2"):

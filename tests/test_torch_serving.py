@@ -21,8 +21,8 @@ device="cpu")`, both in float32, and every output is compared:
   (an array code, NR BG2 at Z=32 with TS 38.212 rate matching), scrambled and
   not, CRC-gated, per-problem codings and the two-phase early-termination
   retry.
-Learned smoothing is not ported, and the JAX package's `params` argument has
-no counterpart.
+`process(params=...)` (learned smoothing) is compared in
+tests/test_torch_denoiser.py.
 """
 import dataclasses
 

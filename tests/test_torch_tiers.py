@@ -216,16 +216,25 @@ def test_ta_fft_route_matches_dft_route():
 
 
 def test_unported_options_raise():
+    """What stays refused: tracking with learned smoothing and with time
+    interpolation (the JAX builders' refusals), and the layout options."""
+    from srsran_ce_tpu_torch.models import tracking
+
     case = synthetic.make_case(seed=8, n_prbs=16, n_layers=1, smoothing="learned")
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        est.build_ri(case.hop1, case.hop2, case.config, 1)
-    case = synthetic.make_case(seed=8, n_prbs=16, n_layers=1)
+    with pytest.raises(ValueError, match="learned"):
+        tracking.build_tracked_ri(case.hop1, case.hop2, case.config, 1, device="cpu")
+    case = synthetic.make_case(seed=8, n_prbs=16, n_layers=1, time_interp="linear")
+    with pytest.raises(ValueError, match="time_interp"):
+        tracking.build_tracked_ri(case.hop1, case.hop2, case.config, 1, device="cpu")
     plan = make_plan(case.hop1, case.hop2, case.config, 1)
     rg = torch.complex(*torch.as_tensor(est.split_ri(case.received_rg[None])).unbind(0))
     pil = torch.complex(*torch.as_tensor(est.split_ri(case.pilots[None])).unbind(0))
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    h0 = (torch.zeros((1, 1, plan.hop1.n_re), dtype=torch.complex128),)
+    with pytest.raises(ValueError, match="time_interp"):
         est._estimate_impl(plan, plan_tensors(plan, "cpu", torch.float64), rg, pil,
-                           torch.ones(1, dtype=torch.float64), h_prev=(None,), track_w=1.0)
+                           torch.ones(1, dtype=torch.float64), h_prev=h0,
+                           track_w=torch.zeros(1, dtype=torch.float64))
+    case = synthetic.make_case(seed=8, n_prbs=16, n_layers=1)
     with pytest.raises(ValueError, match="serve"):
         est.build_ri(case.hop1, case.hop2, case.config, 1, out_dtype="bfloat16")
     with pytest.raises(ValueError, match="pallas_front"):
