@@ -125,7 +125,22 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
  30. learned2d at the bench's q_learned2d_52prb (52 PRB x 2 layers,
      time_interp="linear", Doppler 300 Hz, the shipped 2-D checkpoint) on
      both tiers, the same checks;
- 31. `serving.process(out="grid", params=...)` against single build_ri calls.
+ 31. `serving.process(out="grid", params=...)` against single build_ri calls;
+ 32. `cli train` at its defaults (1-D, batch 256, n_re 128, 500 steps,
+     cosine lr) on the card: its first 5 steps against the CPU's (loss
+     relative 1e-4, params within 5 x 2 lr), the last logged loss below the
+     first, ms a step (CUDA events, batch on the card), device busy time and
+     the forward + backward bound; the multi-geometry cycle (24, 128, 1638);
+     `cli train --model 2d` at batch 128, n_re 128, n_dsym 4, the same
+     checks; a save -> `--resume` (the Adam count goes on);
+ 33. `cli quality --device cuda --cases 2` with the shipped checkpoints:
+     every table printed, learned below filter at 0 dB, tracked 8 slots
+     below single slot, its wall time;
+ 34. `selftest --deep --device cuda` at geometry 20, coded 9, header 120 (each
+     cut printed): all pass, the geometry NMSE max, K4's launches over the
+     run (counts set to 0 just before) and over each decode path;
+ 35. `validate --debug-case` on a synthesized suite whose golden carries an
+     injected 0.8 at 37 degrees gain: the gain recovered.
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -133,7 +148,9 @@ repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import cProfile
+import contextlib
 import dataclasses
+import io
 import json
 import pstats
 import re
@@ -530,7 +547,9 @@ def main() -> int:
     def kernel_ms(fn, n=50, activities=(ProfilerActivity.CUDA,)):
         """ms a call of each device kernel, by name: torch.profiler over n calls
         after a warm-up; {} when no session recorded one (a session now and
-        then records no kernel: up to three are taken)."""
+        then records no kernel: up to three are taken). A user annotation's
+        device range (torch.optim's "Optimizer.step#...") spans kernels
+        already counted, so it is left out."""
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -540,7 +559,8 @@ def main() -> int:
                     fn()
                 torch.cuda.synchronize()
             ms = {e.key: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-                  / n / 1e3 for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+                  / n / 1e3 for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)}
             if sum(ms.values()) > 0:
                 return ms
         return {}
@@ -1728,6 +1748,201 @@ def main() -> int:
     print(f"phase 31 serving.process(out='grid', params=shipped 1-D) on {dev}: {len(lp_cases)} "
           f"learned problems, 2 signatures, batch 4 with tail padding, vs single build_ri calls "
           f"rel err {lp_err:.3e} (<= 1e-5)")
+
+    # 32. `cli train` at its full defaults on the card (1-D, batch 256, n_re 128,
+    # 500 steps, cosine lr), its first 5 steps held to the CPU's, ms a step,
+    # the multi-geometry cycle, train2d at its CLI width, a save -> resume
+    from srsran_ce_tpu_torch.models import training
+
+    def run_cli(argv):
+        """(rc, stdout, wall s) of one CLI call, its output echoed."""
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(buf.getvalue(), end="")
+        return rc, buf.getvalue(), wall
+
+    def logged_losses(out):
+        return [float(m) for m in re.findall(r"^step +\d+ .*nmse ([0-9.e+-]+)$", out, re.M)]
+
+    def train_flop(two_d, positions):
+        """Forward + backward float32 operations of one training step: every
+        layer's weight gradient, every layer's input gradient but the first's."""
+        m = denoiser.PilotDenoiser2D() if two_d else denoiser.PilotDenoiser()
+        per = [2 * c.weight.numel() for c in m.convs]  # 2 x MACs a position
+        return (2 * sum(per) + sum(per[1:])) * positions
+
+    def first_steps_vs_cpu(two_d, B, n_re):
+        init = training.init_state_2d if two_d else training.init_state
+        make = denoiser.make_training_batch_2d if two_d else denoiser.make_training_batch
+        out = {}
+        for d_ in (dev, "cpu"):
+            st, _ = init(0, device=d_)
+            step = (training.build_train_step_2d if two_d else training.build_train_step)(
+                training.make_optimizer(1e-3, decay_steps=500))
+            rng_t = np.random.default_rng(0)
+            p_, o_, losses = st.params, st.opt_state, []
+            for _ in range(5):
+                p_, o_, loss = step(p_, o_, *make(rng_t, B, n_re))
+                losses.append(float(loss))
+            out[d_] = (p_, losses)
+        l_err = max(abs(a - b) / b for a, b in zip(out[dev][1], out["cpu"][1]))
+        p_err = max(float((out[dev][0][k].cpu() - v).abs().max()) for k, v in out["cpu"][0].items())
+        # Adam moves a parameter by ~lr * sign(g): a gradient element near zero
+        # whose sign differs between the two summation orders moves it by 2 lr,
+        # at most once a step
+        if not (l_err <= 1e-4 and p_err <= 1e-2):
+            fail(f"train{' 2-D' if two_d else ''}: 5 steps on the card vs the CPU: loss rel "
+                 f"{l_err:.3e} (<= 1e-4), params max abs {p_err:.3e} (<= 1e-2 = 5 x 2 lr)")
+        return l_err, p_err
+
+    def step_ms(two_d, B, n_re, n=50):
+        """CUDA-event ms of one training step (forward, backward, AdamW, lr
+        step) on batches already on the card, and its device busy time and
+        idle share (torch.profiler)."""
+        init = training.init_state_2d if two_d else training.init_state
+        make = denoiser.make_training_batch_2d if two_d else denoiser.make_training_batch
+        st, tx = init(0, device=dev)
+        trainer = training._Trainer(st.params, st.opt_state, tx, two_d)
+        batch = [torch.as_tensor(a, device=dev) for a in make(np.random.default_rng(1), B, n_re)]
+        ev = time_ms(lambda: trainer.step(*batch), iters=n, cold=False)
+        ms = kernel_ms(lambda: trainer.step(*batch), 20, (ProfilerActivity.CPU, ProfilerActivity.CUDA))
+        top = sorted(ms.items(), key=lambda kv: -kv[1])[:3]
+        return ev, sum(ms.values()), ", ".join(f"{k[:60]} {v:.4f} ms" for k, v in top)
+
+    td32 = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        l_err, p_err = first_steps_vs_cpu(False, 256, 128)
+        rc, out, wall1 = run_cli(["train", "--device", "cuda", "--checkpoint", str(td32 / "d.npz")])
+        losses = logged_losses(out)
+        if rc != 0 or len(losses) < 2 or not losses[-1] < losses[0]:
+            fail(f"cli train: rc {rc}, logged losses {losses} (the last must be below the first)")
+        ev1, busy1, top1 = step_ms(False, 256, 128)
+        flop1 = train_flop(False, 256 * 128)
+        print(f"phase 32 cli train (1-D, batch 256, n_re 128, 500 steps, cosine lr) on {dev}: "
+              f"loss {losses[0]:.4e} -> {losses[-1]:.4e}; first 5 steps vs the CPU: loss rel "
+              f"{l_err:.3e} (<= 1e-4), params max abs {p_err:.3e} (<= 1e-2); {wall1:.2f} s wall "
+              f"({wall1 / 500 * 1e3:.3f} ms a step with the host's batches); a step on the card "
+              f"{ev1:.4f} ms on CUDA events (batch on the card), device busy {busy1:.4f} ms, bound "
+              f"{flop1 / 67e12 * 1e3:.4f} ms ({flop1 / 1e9:.3f} GFLOP forward + backward over "
+              f"67 TFLOP/s); heaviest: {top1} {card}")
+        st, loss = training.train(n_steps=6, batch=256, n_re=(24, 128, 1638), log_every=1,
+                                  device=dev)
+        if not (st.step == 6 and np.isfinite(loss)):
+            fail(f"multi-geometry train: step {st.step}, loss {loss}")
+        t0 = time.perf_counter()
+        training.train(n_steps=6, batch=256, n_re=(24, 128, 1638), log_every=0, device=dev)
+        torch.cuda.synchronize()
+        print(f"phase 32 multi-geometry cycle (24, 128, 1638) batch 256 -> (256, 48, 8): 6 steps, "
+              f"{(time.perf_counter() - t0) / 6 * 1e3:.3f} ms a step wall {card}")
+        l2_err, p2_err = first_steps_vs_cpu(True, 128, 128)
+        rc, out, wall2 = run_cli(["train", "--model", "2d", "--batch", "128", "--device", "cuda"])
+        losses2 = logged_losses(out)
+        if rc != 0 or not losses2[-1] < losses2[0]:
+            fail(f"cli train --model 2d: rc {rc}, logged losses {losses2}")
+        ev2, busy2, top2 = step_ms(True, 128, 128)
+        flop2 = train_flop(True, 128 * 4 * 128)
+        print(f"phase 32 cli train --model 2d (batch 128, n_re 128, n_dsym 4, 500 steps): loss "
+              f"{losses2[0]:.4e} -> {losses2[-1]:.4e}; first 5 steps vs the CPU loss rel "
+              f"{l2_err:.3e}, params max abs {p2_err:.3e}; {wall2:.2f} s wall; a step {ev2:.4f} ms "
+              f"on CUDA events, device busy {busy2:.4f} ms, bound {flop2 / 67e12 * 1e3:.4f} ms "
+              f"({flop2 / 1e9:.3f} GFLOP); heaviest: {top2} {card}")
+        rc, out, _ = run_cli(["train", "--device", "cuda", "--steps", "5", "--resume",
+                              str(td32 / "d.npz"), "--checkpoint", str(td32 / "d2.npz")])
+        back = training.load_checkpoint(td32 / "d2.npz", device=dev)
+        if rc != 0 or back.step != 505 or back.opt_state.count != 505:
+            fail(f"cli train --resume: rc {rc}, step {back.step}, Adam count {back.opt_state.count}")
+        print(f"phase 32 save -> resume: 500 + 5 steps, step {back.step}, Adam count "
+              f"{back.opt_state.count} (the bias correction goes on)")
+    finally:
+        shutil.rmtree(td32, ignore_errors=True)
+
+    # 33. `cli quality --device cuda --cases 2` with the shipped checkpoints
+    td33 = Path(tempfile.mkdtemp(prefix="chip_smoke_quality_"))
+    try:
+        rc, out, wall_q = run_cli(["quality", "--device", "cuda", "--cases", "2",
+                                   "--report", str(td33 / "q.json")])
+        rep = json.loads((td33 / "q.json").read_text())
+    finally:
+        shutil.rmtree(td33, ignore_errors=True)
+    titles = ("learned-vs-filter gain", "Geometry generalization", "Doppler tracking",
+              "CFO RMS error", "Multi-slot tracking", "Auto-matched MMSE prior",
+              "Link-level uncoded BER", "Coded link")
+    missing = [t for t in titles if t not in out]
+    learned0, filter0 = rep["snr"]["learned"]["0.0"], rep["snr"]["filter"]["0.0"]
+    single, tracked = rep["tracking"]["single_slot_db"], rep["tracking"]["tracked_8slots_db"]
+    if rc != 0 or missing or not learned0 < filter0 or not tracked < single:
+        fail(f"cli quality: rc {rc}, tables missing {missing}, learned {learned0:.2f} vs filter "
+             f"{filter0:.2f} dB at 0 dB, tracked {tracked:.2f} vs single {single:.2f} dB")
+    print(f"phase 33 cli quality --cases 2 on {dev}: learned {learned0:.2f} dB < filter "
+          f"{filter0:.2f} dB at 0 dB SNR; tracked 8 slots {tracked:.2f} dB < single slot "
+          f"{single:.2f} dB; {len(titles)} tables printed; {wall_q:.2f} s wall {card}")
+
+    # 34. `selftest --deep --device cuda` at reduced counts; K4's launches over
+    # the coded fuzz (counts set to 0 just before), then per decode path
+    from srsran_ce_tpu_torch.validation import deepfuzz
+
+    cuts = dict(geometry=(20, 100), coded=(9, 30), header=(120, 120))
+    print("phase 34 selftest --deep cuts: " + ", ".join(
+        f"{k} {n} of the CLI's default {d}" for k, (n, d) in cuts.items()) + "; sp not run "
+          "(the parallel paths are not ported)")
+    td34 = Path(tempfile.mkdtemp(prefix="chip_smoke_deep_"))
+    try:
+        reset_counts()
+        rc, out, wall_d = run_cli(["selftest", "--deep", "--device", "cuda",
+                                   "--geometry-n", str(cuts["geometry"][0]),
+                                   "--coded-n", str(cuts["coded"][0]),
+                                   "--header-n", str(cuts["header"][0]),
+                                   "--report", str(td34 / "deep.json")])
+        deep_counts = read_counts()
+        deep = json.loads((td34 / "deep.json").read_text())
+    finally:
+        shutil.rmtree(td34, ignore_errors=True)
+    k4_path = {False: 0, True: 0}
+    for t in range(cuts["coded"][0]):
+        reset_counts()
+        row = deepfuzz.coded_trial(t, device=dev)
+        torch.cuda.synchronize()
+        k4_path[row["config"]["dev"]] += read_counts()["ldpc_posterior"]
+        if not row["ok"]:
+            fail(f"coded trial {t}: {row['config']}")
+    if rc != 0 or not deep["all_pass"] or deep_counts["ldpc_posterior"] < 1 \
+            or min(k4_path.values()) < 1:
+        fail(f"selftest --deep: rc {rc}, all_pass {deep['all_pass']}, launches {deep_counts}, "
+             f"K4 per decode path (host, device) {k4_path[False]}, {k4_path[True]}")
+    g = deep["geometry"]
+    print(f"phase 34 selftest --deep on {dev} ({deep['device_name']}): geometry "
+          f"{g['n_pass']}/{g['n_cases']}, NMSE max {g['nmse_max']:.3e} (< {g['nmse_bound']}), "
+          f"coded {deep['coded']['n_pass']}/{deep['coded']['n_cases']}, header "
+          f"{deep['header']['n_pass']}/{deep['header']['n_cases']}; launches over the run "
+          f"{deep_counts}; K4 per coded trial path: host {k4_path[False]}, device "
+          f"{k4_path[True]}; {wall_d:.2f} s wall {card}")
+
+    # 35. `validate --debug-case` on a synthesized suite with an injected gain
+    td35 = Path(tempfile.mkdtemp(prefix="chip_smoke_debug_"))
+    try:
+        synth_vectors.generate_suite(td35, [dict(n_prbs=24, n_layers=2, comb=2, scs_hz=30e3)],
+                                     seed0=7100)
+        from srsran_ce_tpu_torch.utils import vectors
+
+        path = td35 / "port_channel_estimator_test_output_ch_est0.dat"
+        ent = vectors.load_entries(path)
+        vectors.write_entries(path, ent["sym"], ent["port"], ent["sc"],
+                              ent["value"] * 0.8 * np.exp(1j * np.deg2rad(37.0)))
+        rc, out, _ = run_cli(["validate", "--data-dir", str(td35), "--debug-case", "0",
+                              "--device", "cuda", "--report", str(td35 / "d.json")])
+        best = json.loads((td35 / "d.json").read_text())["candidates"][0]
+    finally:
+        shutil.rmtree(td35, ignore_errors=True)
+    if rc != 0 or abs(best["gain_abs"] - 0.8) >= 1e-3 or abs(best["gain_deg"] - 37.0) >= 0.1 \
+            or not best["nmse_after_gain"] < 1e-9 < best["nmse"]:
+        fail(f"validate --debug-case: rc {rc}, best candidate {best}")
+    print(f"phase 35 validate --debug-case 0 on {dev}, golden scaled by 0.8 at 37 deg: recovered "
+          f"{best['gain_abs']:.6f} at {best['gain_deg']:+.4f} deg, NMSE {best['nmse']:.3e} -> "
+          f"{best['nmse_after_gain']:.3e} after the gain")
 
     sources = {"fused_front": ("srsran_ce_tpu_torch/csrc/front.cu",
                                "srsran_ce_tpu/ops/pallas/kernels.py:639"),

@@ -21,3 +21,9 @@ def resolve(device, arg: str = "device=") -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise RuntimeError(f"{arg}{device}: the port runs on 'cpu' or 'cuda'")
     return dev
+
+
+def name(device: torch.device) -> str:
+    """The card's name for a CUDA device, "cpu" for the CPU (reports name
+    the device every result ran on)."""
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"

@@ -11,7 +11,8 @@ rules in device code:
                 successive difference to [-pi, pi) by floor, map a wrapped -pi
                 with positive difference to +pi (numpy's ddmod convention),
                 then add the running correction;
-  argmax_last — FIRST maximum along the last axis (jnp.argmax's tie rule).
+  argmax_last — FIRST maximum along the last axis (jnp.argmax's tie rule; a
+                NaN counts as the maximum, as in jnp.argmax).
 """
 from __future__ import annotations
 
@@ -39,9 +40,10 @@ def argmax_last(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """First-maximum argmax along the last axis, as int64.
 
     torch.argmax documents no tie rule, so the first maximum is taken
-    explicitly: the smallest index whose value equals the maximum."""
+    explicitly: the smallest index whose value equals the maximum, or is NaN
+    (amax propagates a NaN, which then equals nothing)."""
     m = torch.amax(x, dim=-1, keepdim=True)
     n = x.shape[-1]
     iota = torch.arange(n, device=x.device).expand_as(x)
     big = torch.full_like(iota, n)
-    return torch.amin(torch.where(x == m, iota, big), dim=-1, keepdim=keepdim)
+    return torch.amin(torch.where((x == m) | torch.isnan(x), iota, big), dim=-1, keepdim=keepdim)

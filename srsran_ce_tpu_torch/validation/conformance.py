@@ -8,8 +8,7 @@ reference layout, float64 by default, on an explicit torch device.
 Every (pilot ordering x RX port) problem of a case runs in one batched call:
 the JAX runner's fixed power-of-two chunks and its single-problem executable
 for small searches exist to bound XLA compiles, which eager PyTorch does not
-have. `debug_case` (failure forensics) is not ported yet (ROADMAP.md queue 1,
-item 11).
+have. `debug_case` gives the failure forensics of one case.
 """
 from __future__ import annotations
 
@@ -225,6 +224,120 @@ def run_case(
         if best is None or cand.rms_err < best.rms_err:
             best = cand
     return best
+
+
+def debug_case(case: ParsedCase, data_dir, use_x64: bool = True, device="cuda") -> dict:
+    """Failure forensics for one vector case on `device` (the card by
+    default; raises when there is none): the reference's DEBUG_CASES dump
+    (validate_all.py:490-525) plus validate_case4.py:152-167's complex-gain
+    alignment, float64 by default.
+
+    Returns a JSON-able dict with, per pilot-ordering candidate (best first):
+      * rms/nmse at every reference coordinate (what run_case scores),
+      * rms at the DM-RS coordinates only (where the estimate is anchored: a
+        case good here but bad elsewhere failed in interp/fill, not in
+        LS/smoothing),
+      * the best-fit complex scalar g = <est, ref> / <est, est> and the
+        residual NMSE after applying it, which tells "wrong by a global
+        complex gain/phase" (a pilot convention mismatch) from "wrong".
+    Plus the case's DMRS coordinate sets and candidate pilot shapes.
+    """
+    device = devices.resolve(device)
+    data_dir = Path(data_dir)
+    ch_entries = vectors.load_entries(
+        data_dir / f"port_channel_estimator_test_output_ch_est{case.idx}.dat"
+    )
+    rg_entries = vectors.load_entries(
+        data_dir / f"port_channel_estimator_test_input_rg{case.idx}.dat"
+    )
+    pilots_flat = np.fromfile(
+        data_dir / f"port_channel_estimator_test_pilots{case.idx}.dat", dtype=np.complex64
+    )
+    n_sc = case.grid_size_prbs * 12
+    n_sym = max(case.n_alloc_syms, int(rg_entries["sym"].max()) + 1 if rg_entries.size else 0, 14)
+    rg_all = vectors.entries_to_grid(rg_entries, n_sc, n_sym)
+
+    hops = _group_hops(case)
+    hop1 = build_hop_config(*hops[0], case.start_symbol, case.n_alloc_syms)
+    hop2 = (
+        build_hop_config(*hops[1], case.start_symbol, case.n_alloc_syms)
+        if len(hops) > 1
+        else None
+    )
+    config = EstimatorConfig(
+        scs_hz=case.scs_hz,
+        cp_durations_ms=tuple(normal_cp_durations_ms(case.scs_hz, 14)),
+        smoothing=case.smoothing,
+        cfo_compensate=case.cfo_compensate,
+    )
+    n_dsym_total = sum(h[0].sum() for h in hops)
+    dmrs_per_prb = int(hops[0][2][:, 0].sum())
+    n_re = dmrs_per_prb * int(hops[0][1].sum())
+    n_layers = pilots_flat.size // max(n_dsym_total * n_re, 1)
+
+    # DM-RS coordinate sets per hop (sc indices x dmrs symbol indices)
+    dmrs_coords = []
+    for mask, pm, rm in hops:
+        sc0 = 12 * int(np.nonzero(np.asarray(pm, bool))[0][0])
+        band = np.kron(np.asarray(pm, bool), np.ones(12, bool))
+        re_any = np.asarray(rm, bool).any(axis=1)
+        scs_hop = np.nonzero(band & np.tile(re_any, band.size // 12))[0]
+        dmrs_coords.append(
+            dict(
+                dmrs_symbols=np.nonzero(mask)[0].tolist(),
+                first_sc=int(scs_hop[0]) if scs_hop.size else None,
+                n_dmrs_sc=int(scs_hop.size),
+                sc_band_start=sc0,
+            )
+        )
+    dmrs_sym_set = sorted({s for d in dmrs_coords for s in d["dmrs_symbols"]})
+    at_dmrs = np.isin(ch_entries["sym"], dmrs_sym_set)
+
+    dtype = np.complex128 if use_x64 else np.complex64
+    ref_vals = ch_entries["value"].astype(np.complex128)
+    ref_power = float(np.mean(np.abs(ref_vals) ** 2)) + 1e-30
+    fn = estimator.build(hop1, hop2, config, int(n_layers), device=device)
+    cand_reports = []
+    for ordering, pil in vectors.pilot_candidates(
+        pilots_flat, int(n_dsym_total), int(n_re), int(n_layers)
+    ):
+        ch_ports = [
+            fn(rg_all[:, :, p].astype(dtype), pil.astype(dtype), case.beta_dmrs).channel_est_rg
+            for p in range(rg_all.shape[2])
+        ]
+        ch = ch_ports[0] if rg_all.shape[2] == 1 else np.concatenate(ch_ports, axis=2)
+        est = ch[ch_entries["sc"], ch_entries["sym"], ch_entries["port"]].astype(np.complex128)
+        diff = est - ref_vals
+        # best-fit complex gain (validate_case4.py:152-167)
+        den = float(np.sum(np.abs(est) ** 2)) + 1e-300
+        g = complex(np.sum(np.conj(est) * ref_vals) / den)
+        resid = est * g - ref_vals
+        dm_rms = (
+            float(np.sqrt(np.mean(np.abs(diff[at_dmrs]) ** 2))) if at_dmrs.any() else None
+        )
+        cand_reports.append(
+            dict(
+                ordering=ordering,
+                pilot_shape=list(pil.shape),
+                rms=float(np.sqrt(np.mean(np.abs(diff) ** 2))),
+                nmse=float(np.mean(np.abs(diff) ** 2)) / ref_power,
+                dmrs_rms=dm_rms,
+                gain_abs=abs(g),
+                gain_deg=float(np.angle(g, deg=True)),
+                nmse_after_gain=float(np.mean(np.abs(resid) ** 2)) / ref_power,
+            )
+        )
+    cand_reports.sort(key=lambda r: r["rms"])
+    return dict(
+        idx=case.idx,
+        n_layers=int(n_layers),
+        n_rx=int(rg_all.shape[2]),
+        n_re=int(n_re),
+        n_dsym=int(n_dsym_total),
+        dmrs_coords=dmrs_coords,
+        n_ref_coords=int(ch_entries.size),
+        candidates=cand_reports,
+    )
 
 
 def run_suite(

@@ -60,9 +60,8 @@ def restore_flax(kind: str) -> dict:
 def write_artifacts() -> None:
     """The npz files of the port from the orbax checkpoints."""
     for kind, name in dn.SHIPPED.items():
-        p = restore_flax(kind)["params"]
-        np.savez(dn.ARTIFACTS / name,
-                 **{f"{layer}/{leaf}": v for layer, d in p.items() for leaf, v in d.items()})
+        p = restore_flax(kind)
+        np.savez(dn.ARTIFACTS / name, **dn.flax_npz_entries(p))
 
 
 @pytest.fixture(scope="module")

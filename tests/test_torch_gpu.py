@@ -993,3 +993,122 @@ def test_learned_pallas_launches_k2_k6_and_matches_cpu_f64(layout):
         want = fn(*(a.double().cpu() for a in (rg, pil, beta)), dn.load_shipped("1d", device="cpu"))
         g, w = got.channel_est_rg.double().cpu(), want.channel_est_rg
         assert float(((g - w) ** 2).sum() / (w**2).sum()) <= 1e-9
+
+
+def _train_steps(params, opt_state, two_d, n, seed=4):
+    """n TrainStep calls from (params, opt_state) on the params' device, the
+    seeded batches made on the host; returns (params, opt_state, losses)."""
+    from srsran_ce_tpu_torch.models import denoiser as dn
+    from srsran_ce_tpu_torch.models import training as tr
+
+    tx = tr.make_optimizer(1e-3, decay_steps=5)
+    step = tr.build_train_step_2d(tx) if two_d else tr.build_train_step(tx)
+    rng = np.random.default_rng(seed)
+    losses = []
+    for _ in range(n):
+        if two_d:
+            noisy, truth = dn.make_training_batch_2d(rng, 32, 128)
+        else:
+            noisy, truth = dn.make_training_batch(rng, 64, 128)
+        params, opt_state, loss = step(params, opt_state, noisy, truth)
+        losses.append(float(loss))
+    return params, opt_state, losses
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("kind", ["1d", "2d"])
+def test_training_steps_on_card_match_cpu(kind):
+    """5 float32 training steps on the card against the CPU from the same
+    params and batches (cuDNN with TF32 pinned off against the CPU's
+    convolutions): losses within relative 1e-4; the params within 1e-2
+    absolute (Adam's update is about lr * sign(g), so a gradient element
+    near zero whose sign differs between two summation orders moves its
+    parameter by 2 lr = 2e-3: at most one such flip a step, five steps)."""
+    from srsran_ce_tpu_torch.models import training as tr
+
+    init = tr.init_state_2d if kind == "2d" else tr.init_state
+    st_cpu, _ = init(0, device="cpu")
+    st_gpu, _ = init(0, device="cuda")
+    assert all(torch.equal(st_gpu.params[k].cpu(), v) for k, v in st_cpu.params.items())
+    p_c, _, l_c = _train_steps(st_cpu.params, st_cpu.opt_state, kind == "2d", 5)
+    p_g, _, l_g = _train_steps(st_gpu.params, st_gpu.opt_state, kind == "2d", 5)
+    assert p_g["convs.0.weight"].device.type == "cuda"
+    assert max(abs(a - b) / b for a, b in zip(l_g, l_c)) <= 1e-4, (l_g, l_c)
+    assert max(float((p_g[k].cpu() - p_c[k]).abs().max()) for k in p_c) <= 1e-2
+
+
+@NEEDS_GPU
+def test_checkpoint_resume_on_card_bit_equal(tmp_path):
+    """3 steps, save, load, 2 more steps equal to 5 uninterrupted steps bit for
+    bit, with cuDNN's deterministic algorithms (set here only)."""
+    from srsran_ce_tpu_torch.models import training as tr
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        st, _ = tr.init_state(1, device="cuda")
+        p5, o5, l5 = _train_steps(st.params, st.opt_state, False, 5)
+        p3, o3, l3 = _train_steps(st.params, st.opt_state, False, 3)
+        tr.save_checkpoint(tmp_path / "c.npz", tr.TrainState(p3, o3, 3))
+        back = tr.load_checkpoint(tmp_path / "c.npz", device="cuda")
+        assert back.step == 3 and back.opt_state.count == 3 == back.opt_state.schedule_count
+        # the same batches 4 and 5: replay the generator past the first 3
+        from srsran_ce_tpu_torch.models import denoiser as dn
+
+        rng = np.random.default_rng(4)
+        for _ in range(3):
+            dn.make_training_batch(rng, 64, 128)
+        step = tr.build_train_step(tr.make_optimizer(1e-3, decay_steps=5))
+        p, o = back.params, back.opt_state
+        losses = []
+        for _ in range(2):
+            p, o, loss = step(p, o, *dn.make_training_batch(rng, 64, 128))
+            losses.append(float(loss))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert l3 == l5[:3] and losses == l5[3:]
+    assert all(torch.equal(p[k], p5[k]) for k in p5)
+    assert all(torch.equal(o.mu[k], o5.mu[k]) and torch.equal(o.nu[k], o5.nu[k]) for k in p5)
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("trial", [0, 2])
+def test_coded_fuzz_trial_on_card_launches_k4(trial):
+    """A deep coded-fuzz trial on the card: the exact payload, and K4 launched
+    on the host decode path (trial 0) and on the device decode path (trial 2):
+    the fuzz's array_code(4, 8, 23) takes the "pallas" tier on the card."""
+    from srsran_ce_tpu_torch.ops.kernels import ldpc as k4
+    from srsran_ce_tpu_torch.validation import deepfuzz
+
+    n0 = k4.launches
+    row = deepfuzz.coded_trial(trial, device="cuda")
+    torch.cuda.synchronize()
+    assert row["ok"], row["config"]
+    assert row["config"]["dev"] == (trial == 2)
+    assert k4.launches > n0
+
+
+@NEEDS_GPU
+def test_debug_case_on_card(tmp_path):
+    """conformance.debug_case on the card in float64 with an injected
+    0.8 at 37 degrees gain: the gain recovered, the report equal to the CPU's
+    (numbers within relative 1e-9)."""
+    from srsran_ce_tpu_torch.utils import vectors
+    from srsran_ce_tpu_torch.validation import conformance, synth_vectors
+
+    header = synth_vectors.generate_suite(tmp_path, [dict(n_prbs=24, n_layers=2, comb=2,
+                                                          scs_hz=30e3)], seed0=7100)
+    case = vectors.parse_test_header(header)[0]
+    path = tmp_path / f"port_channel_estimator_test_output_ch_est{case.idx}.dat"
+    ent = vectors.load_entries(path)
+    vectors.write_entries(path, ent["sym"], ent["port"], ent["sc"],
+                          ent["value"] * 0.8 * np.exp(1j * np.deg2rad(37.0)))
+    rep = conformance.debug_case(case, tmp_path, device="cuda")
+    best = rep["candidates"][0]
+    assert abs(best["gain_abs"] - 0.8) < 1e-3 and abs(best["gain_deg"] - 37.0) < 0.1
+    assert best["nmse_after_gain"] < 1e-9 < best["nmse"]
+    want = conformance.debug_case(case, tmp_path, device="cpu")
+    for g, w in zip(rep["candidates"], want["candidates"]):
+        assert g["ordering"] == w["ordering"]
+        for key in ("rms", "nmse", "gain_abs", "gain_deg", "nmse_after_gain"):
+            assert abs(g[key] - w[key]) <= 1e-9 * max(abs(w[key]), 1e-4), (key, g[key], w[key])

@@ -215,6 +215,14 @@ def test_port_imports_no_jax():
         "assert float(state[1]) == 2.0\n"
         "srv = serving.TrackedServer(batch_size=2, device='cpu')\n"
         "srv.process([prob], ['ue'], out='llrs', modulation='qpsk')\n"
+        "from srsran_ce_tpu_torch.models import training\n"
+        "from srsran_ce_tpu_torch.utils import debug\n"
+        "from srsran_ce_tpu_torch.validation import deepfuzz, quality\n"
+        "st, loss = training.train(n_steps=2, batch=8, n_re=16, log_every=0, device='cpu')\n"
+        "assert st.step == 2 and np.isfinite(loss)\n"
+        "assert deepfuzz.run_header_fuzz(5)['n_pass'] == 5\n"
+        "assert deepfuzz.coded_trial(2, device='cpu')['ok']\n"
+        "debug.checked(fn)(*args, *state)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'srsran_ce_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
