@@ -140,7 +140,35 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      cut printed): all pass, the geometry NMSE max, K4's launches over the
      run (counts set to 0 just before) and over each decode path;
  35. `validate --debug-case` on a synthesized suite whose golden carries an
-     injected 0.8 at 37 degrees gain: the gain recovered.
+     injected 0.8 at 37 degrees gain: the gain recovered;
+ 36. the native batch packer (`srsran_ce_tpu_torch/native`, g++): it must
+     build; the c2 B=128 chunk packed by it equal to numpy's (np.array_equal),
+     the serve grid merged equal; the host's ms a chunk, numpy branch against
+     native, and packed + staged to the card before (numpy + a fresh pinned
+     copy) and after (native into a pinned buffer); a `serving.process` run
+     must count native packs and merges;
+ 37. one CUDA graph per builder call (`graphs.py`): for pallas_front/serve
+     c2, pallas/ref c2 and c4 (two hops, B=256), pallas/serve c2, xla/serve
+     and xla/ref c2, learned c2 pallas/serve, tracked serve c2 (3 slots with
+     the state threaded), the receiver at c2_receiver_4rx4l and the e2e
+     decoded device path over 8 slots: the replay bit-identical to the eager
+     call (torch.equal; payloads and ok for the e2e path), the kernels of one
+     replay (torch.profiler, by name) and the launch counters equal to the
+     eager call's, a result held across the next call unchanged, and wall
+     (back to back), CUDA-event ms, device busy and idle share before
+     (eager) and after (graphed); the time of a replay's output clone; the
+     cuDNN kernels frozen into the learned call's graph;
+ 38. `serving.process` on the card, graphed against eager (`graphs.eager()`):
+     each route called once (each key's first call is eager), then again with
+     every graphed call a replay: grid, factored and decoded (host and device
+     paths) bit-identical field by field, the scalars included;
+ 39. `cli diagnose --device cuda`, per problem and `--batched --kernels
+     pallas_front`: exit 0, graph_count: 1 for each call, replays
+     bit-identical;
+ 40. a traffic mix through `serving.process`: 11 signatures, a Zipf share
+     each, 1-48 requests a call, so bucket sizes vary; its wall graphed
+     against eager over the same calls, in turn, three times each; the
+     share of graphed calls that replayed a kept graph, and the captures.
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -1943,6 +1971,363 @@ def main() -> int:
     print(f"phase 35 validate --debug-case 0 on {dev}, golden scaled by 0.8 at 37 deg: recovered "
           f"{best['gain_abs']:.6f} at {best['gain_deg']:+.4f} deg, NMSE {best['nmse']:.3e} -> "
           f"{best['nmse_after_gain']:.3e} after the gain")
+
+    # 36. the native batch packer (srsran_ce_tpu_torch/native): built with g++,
+    # the c2 B=128 chunk packed equal to numpy's, the host's packing time per
+    # chunk, and the serving run's native packs counted
+    from srsran_ce_tpu_torch import graphs
+    from srsran_ce_tpu_torch.native import loader as native
+
+    graphs.clear()
+    if not native.available():
+        fail("native.available() is false on the card: the native packer did not build")
+    cases_n = [synthetic.make_case(seed=s, **C2) for s in SEEDS]
+    probs_n = [prob_of(cases_n[i % len(cases_n)]) for i in range(128)]  # 128 allocations each
+    rg_list = [p.received_rg for p in probs_n]
+    pil_list = [p.pilots for p in probs_n]
+
+    def numpy_pack(arrays):
+        """The numpy branch of `serving._assemble` (the port's packing before)."""
+        return np.stack([estimator.split_ri(np.asarray(a).astype(np.complex64)) for a in arrays])
+
+    for label, arrays in (("grids", rg_list), ("pilots", pil_list)):
+        a, b = native.assemble_batch_ri(arrays), numpy_pack(arrays)
+        if not (a.shape == b.shape and np.array_equal(a, b)):
+            fail(f"native assemble_batch_ri of the c2 B=128 {label} differs from numpy's")
+
+    def host_ms(fn, n=15):
+        fn()
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    t_pack_np = host_ms(lambda: (numpy_pack(rg_list), numpy_pack(pil_list)))
+    t_pack_nat = host_ms(lambda: (native.assemble_batch_ri(rg_list),
+                                  native.assemble_batch_ri(pil_list)))
+
+    def stage_before():
+        """The route before the native packer: the numpy branch, then a fresh pinned
+        copy of each batch."""
+        for arrays in (rg_list, pil_list):
+            torch.from_numpy(numpy_pack(arrays)).pin_memory().to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+
+    def stage_after():
+        serving._batch_inputs(probs_n, list(range(128)), dev, multi_rx=False)
+        torch.cuda.synchronize()
+
+    t_stage_before, t_stage_after = host_ms(stage_before), host_ms(stage_after)
+    grid_h = fn_c2(*c2_args).channel_est_rg.cpu().numpy()  # (128, 2, 4, 14, 1272) float32
+
+    def merge_np(x):
+        out = np.empty(x.shape[:1] + x.shape[2:], np.complex64)
+        out.real, out.imag = x[:, 0], x[:, 1]
+        return out
+
+    if not np.array_equal(native.ri_to_complex(grid_h), merge_np(grid_h)):
+        fail("native ri_to_complex of the c2 serve grid differs from numpy's")
+    t_merge_np, t_merge_nat = host_ms(lambda: merge_np(grid_h)), host_ms(
+        lambda: native.ri_to_complex(grid_h))
+    native.packs = native.merges = 0
+    serving.process(probs_n * 2, batch_size=128, device=dev)
+    torch.cuda.synchronize()
+    if native.packs < 4 or native.merges < 2:
+        fail(f"serving.process on the card: {native.packs} native packs, {native.merges} merges "
+             "(expected >= 4 and >= 2: the native branch did not run)")
+    print(f"phase 36 native packer built (g++, {native._target().name}); c2 B=128 chunk packed "
+          f"equal to numpy (grids {tuple(numpy_pack(rg_list[:1]).shape[1:])}, pilots); host ms a "
+          f"chunk, grids + pilots: numpy {t_pack_np:.3f}, native {t_pack_nat:.3f}; packed and "
+          f"staged to the card: before (numpy + a fresh pinned copy) {t_stage_before:.3f}, after "
+          f"(native into a pinned buffer) {t_stage_after:.3f}; merge of the serve grid "
+          f"(72.9 MB): numpy {t_merge_np:.3f}, native {t_merge_nat:.3f}; serving.process 256 c2 "
+          f"problems: {native.packs} native packs, {native.merges} merges {card}")
+
+    # 37. one CUDA graph per builder call: for each builder, the replay against
+    # the eager call (graphs.eager()) on the same inputs, bit for bit
+    # (torch.equal), the kernels of one replay (torch.profiler, by name) and the
+    # launch counters equal to the eager call's, a result held across the next
+    # call unchanged, then wall (back to back), CUDA-event ms (cold L2), device
+    # busy and idle share before (eager) and after (graphed)
+    K_RE = re.compile(r"\b(front_kernel|fill_rotate_serve_kernel|rc_smooth_kernel|"
+                      r"fill_rotate_kernel|flooding_kernel|layered_kernel|inpaint_kernel)\b")
+
+    def eager_of(fn):
+        def run(*a):
+            with graphs.eager():
+                return fn(*a)
+        return run
+
+    def leaves(res):
+        if isinstance(res, (tuple, list)):
+            return [t for r in res for t in leaves(r)]
+        if dataclasses.is_dataclass(res):
+            return leaves([getattr(res, f.name) for f in dataclasses.fields(res)])
+        return [res]
+
+    def device_ops(call):
+        """{device operation name: count} of one call (torch.profiler): a
+        session now and then misses a kernel, so each name's count is the
+        most that any of three sessions (one call each) saw."""
+        ops = {}
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+                    ops[e.key] = max(ops.get(e.key, 0), e.count)
+        if not ops:
+            fail("the profiler saw no device operation in 3 sessions")
+        return ops
+
+    def kernel_counts(call):
+        """({our kernel name: launches}, device operations) of one call (torch.profiler)."""
+        ops = device_ops(call)
+        kc = {}
+        for key, n in ops.items():
+            m = K_RE.search(key)
+            if m:
+                kc[m.group(1)] = kc.get(m.group(1), 0) + n
+        return kc, sum(ops.values())
+
+    def busy_ms(fn, args):
+        return sum(kernel_ms(lambda: fn(*args), 20,
+                             (ProfilerActivity.CPU, ProfilerActivity.CUDA)).values())
+
+    graph_rows = {}
+
+    def replayed_run(label, run):
+        """`run()` once (each key's first call, eager), then again, its result
+        returned: every graphed call of the second run must replay."""
+        run()
+        k0, r0 = graphs.calls, graphs.replays
+        out = run()
+        torch.cuda.synchronize()
+        n_calls, n_rep = graphs.calls - k0, graphs.replays - r0
+        if n_calls == 0 or n_rep != n_calls:
+            fail(f"{label}: {n_rep} of {n_calls} graphed calls replayed (expected all)")
+        return out
+
+    def same_results(label, got, want):
+        """Every field of every result equal, nested results (a decoded
+        result's soft bits) field by field: arrays with np.array_equal,
+        scalars with ==, None with None."""
+        def same(a, b):
+            if dataclasses.is_dataclass(a):
+                return all(same(getattr(a, f.name), getattr(b, f.name))
+                           for f in dataclasses.fields(a))
+            return np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
+
+        if len(got) != len(want):
+            fail(f"{label}: {len(got)} results, the eager route {len(want)}")
+        for g, w in zip(got, want):
+            for f in dataclasses.fields(g):
+                if not same(getattr(g, f.name), getattr(w, f.name)):
+                    fail(f"{label}: {f.name} differs from the eager route")
+
+    def graph_phase(label, fn, args, other):
+        want = eager_of(fn)(*args)
+        fn(*args)  # a key's first call runs eagerly (the warm-up)
+        fn(*args)  # its second captures and replays
+        r0 = graphs.replays
+        reset_counts()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        g_cnt = read_counts()
+        if graphs.replays != r0 + 1:
+            fail(f"graphs {label}: the call did not replay a graph")
+        reset_counts()
+        eager_of(fn)(*args)
+        torch.cuda.synchronize()
+        e_cnt = read_counts()
+        if not all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want))):
+            fail(f"graphs {label}: the replay differs from the eager call")
+        held = [t.clone() for t in leaves(got)]
+        fn(*other)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(leaves(got), held)):
+            fail(f"graphs {label}: a held result changed on the next call")
+        kc_e, n_e = kernel_counts(lambda: eager_of(fn)(*args))
+        kc_g, n_g = kernel_counts(lambda: fn(*args))
+        if kc_e != kc_g or g_cnt != e_cnt:
+            fail(f"graphs {label}: kernels of one replay {kc_g} / counters {g_cnt} differ from "
+                 f"the eager call's {kc_e} / {e_cnt}")
+        ev_e, wall_e = call_ms(eager_of(fn), args)
+        busy_e = busy_ms(eager_of(fn), args)
+        ev_g, wall_g = call_ms(fn, args)
+        busy_g = busy_ms(fn, args)
+        idle = lambda b, w: 100 * (1 - b / w)
+        graph_rows[label] = (wall_e, ev_e, busy_e, idle(busy_e, wall_e), wall_g, ev_g, busy_g,
+                             idle(busy_g, wall_g), n_e, n_g)
+        print(f"phase 37 graphs {label}: replay bit-identical to eager, a held result unchanged; "
+              f"our kernels a call {kc_g} (profiler, eager the same), counters {g_cnt}; device "
+              f"operations a call eager {n_e} / graphed {n_g}; before (eager) wall "
+              f"{wall_e:.4f} ms, events {ev_e:.4f} ms, busy {busy_e:.4f} ms, idle "
+              f"{idle(busy_e, wall_e):.1f} %; after (graphed) wall {wall_g:.4f} ms, events "
+              f"{ev_g:.4f} ms, busy {busy_g:.4f} ms, idle {idle(busy_g, wall_g):.1f} % {card}")
+
+    roll = lambda args: tuple(a.roll(1, 0) if torch.is_tensor(a) else a for a in args)
+    graph_phase("pallas_front/serve c2 B=128", fn_c2, c2_args, roll(c2_args))
+    grid_c2 = fn_c2(*c2_args).channel_est_rg
+    t_clone = time_ms(lambda: grid_c2.clone(), cold=False)
+    print(f"phase 37 the output clone of a replay: the c2 serve grid "
+          f"({grid_c2.numel() * 4 / 1e6:.1f} MB) {t_clone:.4f} ms back to back on CUDA events "
+          f"(bound {2 * grid_c2.numel() * 4 / PEAK_BPS * 1e3:.4f} ms) {card}")
+    del grid_c2
+    graph_phase("pallas/ref c2 B=128", fn_pref, args_c2, roll(args_c2))
+    _, _, _, fn_c4, args_c4 = run_path(C4, 256, "pallas", "ref")
+    graph_phase("pallas/ref c4 B=256", fn_c4, args_c4, roll(args_c4))
+    graph_phase("pallas/serve c2 B=128", fn_pserve, args_c2, roll(args_c2))
+    graph_phase("xla/serve c2 B=128", fns_xla["serve"], args_c2, roll(args_c2))
+    graph_phase("xla/ref c2 B=128", fns_xla["ref"], args_c2, roll(args_c2))
+    graphs.clear()
+    cases_l, cfg_l, rg_l, pil_l, beta_l = tiled(C2L, 128)
+    fn_l = estimator.build_ri(cases_l[0].hop1, cases_l[0].hop2, cfg_l, 4, batched=True,
+                              kernels="pallas", out_layout="serve")
+    graph_phase("learned c2 pallas/serve B=128", fn_l, (rg_l, pil_l, beta_l, params1),
+                (rg_l.roll(1, 0), pil_l, beta_l, params1))
+    # the cuDNN algorithms chosen at the warm-up are frozen into the graph:
+    # the convolution kernels of one replay, by name (IEEE f32: no tf32)
+    conv_ops = {k: n for k, n in device_ops(lambda: fn_l(rg_l, pil_l, beta_l, params1)).items()
+                if re.search(r"conv|fprop|dgrad|implicit_gemm|winograd|fft|nhwc|nchw", k, re.I)}
+    if not conv_ops or any("tf32" in k.lower() for k in conv_ops):
+        fail(f"graphs learned c2: the replay's convolution kernels {sorted(conv_ops)} (expected "
+             "some, none of them tf32)")
+    print(f"phase 37 graphs learned c2 pallas/serve B=128: the denoiser's convolutions run with "
+          f"torch.backends.cudnn.allow_tf32 = False (models/denoiser._no_tf32_conv); the "
+          f"cuDNN kernels frozen into the graph at capture, a replay: " + "; ".join(
+              f"{k} x{n}" for k, n in sorted(conv_ops.items())) + f" {card}")
+    fn_t, t_args, _ = tracked_fns["c2"]
+    s_g = s_e = t_args[3:]
+    r0 = graphs.replays
+    for slot in range(3):
+        a = tuple(x.roll(slot, 0) for x in t_args[:3])
+        got, *s_g = fn_t(*a, *s_g)
+        want, *s_e = eager_of(fn_t)(*a, *s_e)
+        if not all(torch.equal(x, y) for x, y in zip(leaves((got, s_g)), leaves((want, s_e)))):
+            fail(f"graphs tracked serve c2: slot {slot} (result or state) differs from eager")
+    if graphs.replays - r0 != 2:
+        fail(f"graphs tracked serve c2: {graphs.replays - r0} replays over 3 slots (expected 2: "
+             "the first slot eager, the second the capture's replay, the third a replay)")
+    print(f"phase 37 graphs tracked serve c2 B=128: 3 slots with the state threaded, slots 1 and "
+          f"2 replayed, graphed results and states bit-identical to eager (w "
+          f"{float(s_g[1].min()):.0f})")
+    graph_phase("tracked serve c2 B=128 (a slot)", fn_t, t_args, roll(t_args))
+    graphs.clear()
+    graph_phase(f"receiver c2_receiver_4rx4l auto/xla B={B_RX}", rx_fns[("auto", "xla")],
+                (rx_rg, rx_pil, rx_beta), roll((rx_rg, rx_pil, rx_beta)))
+    graphs.clear()
+    e2e_g = replayed_run("graphs e2e decoded device path", lambda: run_slots(8, True)[1])
+    with graphs.eager():
+        e2e_e = run_slots(8, True)[1]
+    same_results("graphs e2e decoded device path", e2e_g, e2e_e)
+    walls = {}
+    for mode in ("eager", "graphed", "eager", "graphed", "eager", "graphed"):
+        ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            walls.setdefault(mode, []).append(run_slots(8, True)[0] * 1e3)
+    busy_e2e = {}
+    for mode in ("eager", "graphed"):
+        ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            ms = kernel_ms(lambda: run_slots(8, True), 3, (ProfilerActivity.CPU, ProfilerActivity.CUDA))
+        busy_e2e[mode] = sum(ms.values())
+    graph_rows["e2e decoded device path, 8 slots"] = tuple(
+        v for mode in ("eager", "graphed") for v in (
+            min(walls[mode]), float("nan"), busy_e2e[mode],
+            100 * (1 - busy_e2e[mode] / min(walls[mode])))) + (0, 0)
+    print(f"phase 37 graphs e2e decoded device path, 8 slots (273 PRB, BG1 Z=384): payloads, ok "
+          f"and scalars bit-identical to eager; wall a call (min of 3) eager "
+          f"{min(walls['eager']):.3f} ms, graphed {min(walls['graphed']):.3f} ms; device busy "
+          f"eager {busy_e2e['eager']:.3f} ms, graphed {busy_e2e['graphed']:.3f} ms; idle eager "
+          f"{graph_rows['e2e decoded device path, 8 slots'][3]:.1f} %, graphed "
+          f"{graph_rows['e2e decoded device path, 8 slots'][7]:.1f} % {card}")
+    print(f"phase 37 graphs kept {graphs.cached()} (of {graphs.MAX_GRAPHS}), captured in this run "
+          f"{graphs.captures}, replayed {graphs.replays}; device memory reserved "
+          f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB")
+
+    # 38. serving.process end to end on the card: the graphed route against the
+    # eager one (graphs.eager(), the route before this change) for grid,
+    # factored and decoded (host and device paths), bit for bit
+    graphs.clear()
+    n_rep38 = graphs.replays
+    for out in ("grid", "factored"):
+        cs = [c for c in g_cases if out == "grid" or c.config.time_interp == "none"]
+        got = replayed_run(f"process(out={out!r})", lambda: serving.process(
+            [prob_of(c) for c in cs], batch_size=4, out=out, device=dev))
+        with graphs.eager():
+            want = serving.process([prob_of(c) for c in cs], batch_size=4, out=out, device=dev)
+        same_results(f"process(out={out!r}) graphed", got, want)
+    for on_device in (False, True):
+        got = replayed_run(f"process(out='decoded', decode_on_device={on_device})",
+                           lambda: run_slots(8, on_device)[1])
+        with graphs.eager():
+            want = run_slots(8, on_device)[1]
+        same_results(f"process(out='decoded', decode_on_device={on_device}) graphed", got, want)
+    print(f"phase 38 serving.process on {dev}: grid ({len(g_cases)} problems, 4 signatures), "
+          f"factored and decoded (host and device paths, 8 e2e slots): each route called once "
+          f"(eager, the warm-up), then again with every graphed call a replay "
+          f"({graphs.replays - n_rep38} replays in all), bit-identical to the eager route in "
+          f"every field, the scalars included")
+
+    # 39. `cli diagnose --device cuda`, per problem and with the main path's
+    # batched serve call (pallas_front)
+    for argv, n in ((["diagnose", "--device", "cuda"], 1),
+                    (["diagnose", "--device", "cuda", "--batched", "--kernels", "pallas_front"], 2)):
+        rc, out, wall_dg = run_cli(argv)
+        if rc != 0 or out.count("graph_count: 1 ") != n or out.count("bit-identical") != n \
+                or "offload verdict: fully offloadable" not in out:
+            fail(f"cli {' '.join(argv)}: rc {rc}")
+        print(f"phase 39 cli {' '.join(argv)}: rc 0, graph_count: 1 for each of {n} call(s), "
+              f"replays bit-identical, {wall_dg:.2f} s wall")
+
+    # 40. a traffic mix: graphs pay off only where a key (builder, batch,
+    # shapes) comes again, and a key's first call stays eager. 11 signatures,
+    # a Zipf share each, 1-48 requests a call in chunks of up to 16, so the
+    # tails' batch sizes vary; the same 30 calls eager and graphed in turn,
+    # three times each, the graphs kept from one graphed pass to the next
+    mix_specs = ([dict(n_prbs=p, n_layers=nl) for p in (24, 52, 106) for nl in (1, 2, 4)]
+                 + [dict(n_prbs=12, n_layers=1, two_hops=True), dict(n_prbs=273, n_layers=2)])
+    mix_probs = [[prob_of(synthetic.make_case(seed=400 + 10 * j + i, snr_db=30.0, **sp))
+                  for i in range(2)] for j, sp in enumerate(mix_specs)]
+    rng = np.random.default_rng(40)
+    share = 1.0 / np.arange(1, len(mix_specs) + 1)
+    share /= share.sum()
+    mix_calls = []
+    for _ in range(30):
+        sigs = rng.choice(len(mix_specs), size=int(rng.integers(1, 49)), p=share)
+        mix_calls.append([mix_probs[j][int(rng.integers(2))] for j in sigs])
+    n_req = sum(len(c) for c in mix_calls)
+
+    def run_mix():
+        t0 = time.perf_counter()
+        for probs in mix_calls:
+            serving.process(probs, batch_size=16, device=dev)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    graphs.clear()
+    mix = []  # (mode, ms, graphed calls, captures, replays of a kept graph)
+    for mode in ("eager", "graphed", "eager", "graphed", "eager", "graphed"):
+        k0, c0, r0 = graphs.calls, graphs.captures, graphs.replays
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            ms = run_mix()
+        caps = graphs.captures - c0
+        mix.append((mode, ms, graphs.calls - k0, caps, graphs.replays - r0 - caps))
+    e_ms = [m[1] for m in mix if m[0] == "eager"]
+    g = [m for m in mix if m[0] == "graphed"]
+    print(f"phase 40 traffic mix: {len(mix_calls)} serving.process calls, {n_req} requests over "
+          f"{len(mix_specs)} signatures (Zipf shares), chunks of up to 16, passes in turn eager / "
+          f"graphed (from no graph, then with the graphs kept): wall eager "
+          f"{[round(x, 1) for x in e_ms]} ms, graphed {[round(m[1], 1) for m in g]} ms; of each "
+          f"graphed pass's builder calls, replays of a kept graph / captures / eager first "
+          f"calls: " + ", ".join(f"{m[4]} / {m[3]} / {m[2] - m[4] - m[3]} of {m[2]} "
+                                 f"({100 * m[4] / max(m[2], 1):.1f} % replayed)" for m in g)
+          + f"; at most {graphs.MAX_GRAPHS} graphs kept {card}")
 
     sources = {"fused_front": ("srsran_ce_tpu_torch/csrc/front.cu",
                                "srsran_ce_tpu/ops/pallas/kernels.py:639"),

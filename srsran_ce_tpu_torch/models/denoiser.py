@@ -42,6 +42,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import graphs
+
 ARTIFACTS = Path(__file__).resolve().parent.parent / "artifacts"
 SHIPPED = {"1d": "denoiser.npz", "2d": "denoiser2d.npz"}
 
@@ -195,11 +197,13 @@ def module_for(params, two_d: bool, device) -> nn.Module:
     hit = _MODULES.get(key)
     if hit is not None and hit[0] is params:
         _MODULES.move_to_end(key)
+        graphs.hold(hit[1])  # a CUDA graph that reads its weights keeps it
         return hit[1]
     model = PilotDenoiser2D() if two_d else PilotDenoiser()
     model.load_state_dict({k: torch.as_tensor(v, dtype=torch.float32) for k, v in params.items()})
     model = model.to(device).eval().requires_grad_(False)
     _MODULES[key] = (params, model)
+    graphs.hold(model)
     if len(_MODULES) > 16:
         _MODULES.popitem(last=False)
     return model

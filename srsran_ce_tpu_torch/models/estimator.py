@@ -45,7 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import devices
+from .. import devices, graphs
 from ..config import EstimatorConfig, HopConfig
 from ..ops import dsp, mathx
 from ..ops.kernels import fill_rotate as _k6
@@ -400,15 +400,15 @@ def _grid_fill(
         if config.interp == "linear":
             full = dsp.inpaint_matmul(vals, ht["interp"][c])
         else:  # "cnn"
-            known = hp.inpaint_known[c]
             transient, steady = hp.inpaint_schedules[c]
-            if len(transient) + steady > 16:
+            if len(transient) + steady > dsp.INPAINT_CHAIN_MAX_ITERS:
                 full = dsp.inpaint_matmul(vals, ht["interp"][c])
             else:
-                filled = torch.as_tensor(np.nonzero(known)[0], device=vals.device)
+                filled, consts = ht["inpaint"][c]
                 sparse = vals.new_zeros(vals.shape[:-1] + (hp.n_sc_hop,))
                 sparse[..., filled] = vals
-                full = dsp.cnn_inpaint(sparse, known, 0, schedule=hp.inpaint_schedules[c])
+                full = dsp.cnn_inpaint(sparse, hp.inpaint_known[c], 0,
+                                       schedule=hp.inpaint_schedules[c], consts=consts)
         outs.append(full)
     return torch.cat(outs, dim=1)
 
@@ -537,8 +537,7 @@ def _process_hop(
     # --- Pilot RE gather + LS de-spread (ce_rule_baseline.py:583-605) ---
     rx = _gather_rx(hp, ht, received_rg)  # (B, n_cdm, n_dsym, n_re)
     epre_inc = dsp.fro_norm_sq(rx, batch_dims=1)
-    cdm_of_layer = [l // 2 for l in range(nL)]
-    rx_l = rx[:, cdm_of_layer]  # (B, nL, n_dsym, n_re)
+    rx_l = rx.repeat_interleave(2, dim=1)[:, :nL]  # layer l reads CDM group l // 2: (B, nL, n_dsym, n_re)
     pil_l = pilots_h.permute(0, 3, 2, 1)  # (B, nL, n_dsym, n_re)
     rec_x = rx_l * torch.conj(pil_l)
 
@@ -931,7 +930,9 @@ class BatchedEstimator:
     the inputs' device and dtype, with the plan's device tensors built once per
     (device, dtype) and kept by this object. `params` (the denoiser's, a
     replicated argument, not batched) is required by the learned smoothings and
-    moved to the inputs' device once (`denoiser.module_for`)."""
+    moved to the inputs' device once (`denoiser.module_for`). On the card a
+    call replays one CUDA graph per input shape (`graphs.Graphed`; eagerly
+    inside `graphs.eager()`)."""
 
     def __init__(self, plan: EstimatorPlan, batched: bool, kernels: str, out_layout: str,
                  out_dtype=None):
@@ -941,6 +942,15 @@ class BatchedEstimator:
         self.out_layout = out_layout
         self.out_dtype = out_dtype
         self._tensors: dict = {}
+        self._graphed = graphs.Graphed(self._forward, self._name())
+
+    def _name(self) -> str:
+        p = self.plan
+        hops = [h for h in (p.hop1, p.hop2) if h is not None]
+        return (f"{type(self).__name__}(kernels={self.kernels!r}, out_layout={self.out_layout!r}, "
+                f"batched={self.batched}, n_layers={p.n_layers}, smoothing="
+                f"{p.config.smoothing!r}, interp={p.config.interp!r}, hops "
+                f"{[(h.sc_start, h.n_sc_hop, h.sym_start, h.n_alloc_syms) for h in hops]})")
 
     def plan_tensors(self, device, dtype) -> dict:
         key = (torch.device(device), dtype)
@@ -963,9 +973,12 @@ class BatchedEstimator:
             )
         pil_ri = torch.as_tensor(pil_ri, device=dev, dtype=dt)
         beta = torch.as_tensor(beta, device=dev, dtype=dt)
+        return self._graphed(rg_ri, pil_ri, beta, params)
+
+    def _forward(self, rg_ri, pil_ri, beta, params):
         if not self.batched:
             rg_ri, pil_ri, beta = rg_ri[None], pil_ri[None], beta.reshape(1)
-        pt = self.plan_tensors(dev, dt)
+        pt = self.plan_tensors(rg_ri.device, rg_ri.dtype)
         plan, kernels = self.plan, self.kernels
         with full_f32_matmul():
             if kernels == "pallas_front":

@@ -482,6 +482,10 @@ def plan_tensors(plan, device, dtype) -> dict:
                    interpolation matrices, or with interp="cnn" the exact
                    inpainting operators (`ops.dsp.inpaint_operator`, built on
                    the device);
+      inpaint      with interp="cnn", per CDM group whose chain the fill runs
+                   pass by pass (`ops.dsp.INPAINT_CHAIN_MAX_ITERS` or fewer
+                   iterations), the known positions' indices and the
+                   schedule's tensors (`ops.dsp.inpaint_consts`), else None;
       vp           the virtual-pilot fit matrix (n_pils, n_pils);
       fused        the fused smoothing matrices pair_l, pair_r, smooth,
                    smooth_vb, smooth_ve;
@@ -497,7 +501,7 @@ def plan_tensors(plan, device, dtype) -> dict:
     """
     import torch
 
-    from ..ops.dsp import inpaint_operator
+    from ..ops.dsp import INPAINT_CHAIN_MAX_ITERS, inpaint_consts, inpaint_operator
     from .estimator import _front_mats
 
     def real(a):
@@ -513,11 +517,17 @@ def plan_tensors(plan, device, dtype) -> dict:
     for hp in (plan.hop1, plan.hop2):
         if hp is None:
             continue
+        inpaint = None
         if plan.config.interp == "cnn":
             interp = torch.stack([
                 inpaint_operator(known, len(transient) + steady, dtype, device)
                 for known, (transient, steady) in zip(hp.inpaint_known, hp.inpaint_schedules)
             ])
+            inpaint = [
+                (index(np.nonzero(known)[0]), inpaint_consts(known, sched, dtype, device))
+                if len(sched[0]) + sched[1] <= INPAINT_CHAIN_MAX_ITERS else None
+                for known, sched in zip(hp.inpaint_known, hp.inpaint_schedules)
+            ]
         else:
             interp = real(hp.interp_matrix)
         fused = None
@@ -536,6 +546,7 @@ def plan_tensors(plan, device, dtype) -> dict:
                 re_idx=index(hp.re_idx),  # (n_cdm * n_re,) group-major
                 dmrs_sym_idx=index(hp.dmrs_sym_idx),
                 interp=interp,
+                inpaint=inpaint,
                 vp=real(hp.vp_matrix),
                 fused=fused,
                 wiener=None if hp.wiener_u is None else (

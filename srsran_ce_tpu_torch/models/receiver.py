@@ -34,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from .. import devices
+from .. import devices, graphs
 from ..config import EstimatorConfig, HopConfig
 from ..ops import demap, dsp, equalize
 from ..ops.kernels import full_f32_matmul
@@ -166,7 +166,8 @@ class BatchedReceiver:
     their plain versions); numpy inputs go to the device given to
     `build_receiver_ri`. The plan's tensors are built once per (device,
     dtype) and kept here. `params` (the denoiser's, not batched) is required
-    by the learned smoothings."""
+    by the learned smoothings. On the card a call replays one CUDA graph per
+    input shape (`graphs.Graphed`; eagerly inside `graphs.eager()`)."""
 
     def __init__(self, plan, n_rx: int, batched: bool, factored: bool, data_beta: float,
                  kernels: str, modulation: Optional[str], llr_scale: float, device: torch.device):
@@ -180,6 +181,14 @@ class BatchedReceiver:
         self.llr_scale = llr_scale
         self.device = device
         self._tensors: dict = {}
+        self._graphed = graphs.Graphed(self._forward, self._name())
+
+    def _name(self) -> str:
+        p = self.plan
+        return (f"{type(self).__name__}(n_rx={self.n_rx}, factored={self.factored}, "
+                f"kernels={self.kernels!r}, modulation={self.modulation!r}, batched="
+                f"{self.batched}, n_layers={p.n_layers}, smoothing={p.config.smoothing!r}, "
+                f"n_sc_hop={p.hop1.n_sc_hop}, two hops={p.hop2 is not None})")
 
     def plan_tensors(self, device, dtype) -> dict:
         key = (torch.device(device), dtype)
@@ -198,9 +207,7 @@ class BatchedReceiver:
             raise TypeError(f"kernels={self.kernels!r} runs CUDA kernels, which take float32, not {dt}")
         pil_ri = torch.as_tensor(pil_ri, device=dev, dtype=dt)
         beta = torch.as_tensor(beta, device=dev, dtype=dt)
-        if not self.batched:
-            rg_ri, pil_ri, beta = rg_ri[None], pil_ri[None], beta.reshape(1)
-        if rg_ri.dim() != 5 or rg_ri.shape[1] != 2 or rg_ri.shape[2] != self.n_rx:
+        if rg_ri.dim() != 4 + self.batched or rg_ri.shape[-4] != 2 or rg_ri.shape[-3] != self.n_rx:
             raise ValueError(
                 f"rg_ri must be ([B,] 2, n_rx={self.n_rx}, n_sc, n_sym), got {tuple(rg_ri.shape)}"
             )
@@ -217,7 +224,11 @@ class BatchedReceiver:
     def __call__(self, rg_ri, pil_ri, beta, params=None):
         if params is None and self.plan.config.smoothing in ("learned", "learned2d"):
             raise ValueError(f"smoothing={self.plan.config.smoothing!r} needs denoiser params")
-        rg_ri, pil_ri, beta = self._inputs(rg_ri, pil_ri, beta)
+        return self._graphed(*self._inputs(rg_ri, pil_ri, beta), params)
+
+    def _forward(self, rg_ri, pil_ri, beta, params):
+        if not self.batched:
+            rg_ri, pil_ri, beta = rg_ri[None], pil_ri[None], beta.reshape(1)
         with full_f32_matmul():
             res = receiver_impl(
                 self.plan, self.plan_tensors(rg_ri.device, rg_ri.dtype), _ri_to_complex(rg_ri),
@@ -321,14 +332,18 @@ class TrackedReceiver(BatchedReceiver):
 
     def __call__(self, rg_ri, pil_ri, beta, h_prev_ri, w):
         rg_ri, pil_ri, beta = self._inputs(rg_ri, pil_ri, beta)
-        dev, dt = rg_ri.device, rg_ri.dtype
-        as_t = lambda a: torch.as_tensor(a, device=dev, dtype=dt)
-        h_prev_ri, w = tuple(as_t(h) for h in h_prev_ri), as_t(w)
+        as_t = lambda a: torch.as_tensor(a, device=rg_ri.device, dtype=rg_ri.dtype)
+        res, *state = self._graphed(rg_ri, pil_ri, beta, as_t(w), *(as_t(h) for h in h_prev_ri))
+        return res, tuple(state[:-1]), state[-1]
+
+    def _forward(self, rg_ri, pil_ri, beta, w, *h_prev_ri):
+        """The state's hops come last; returns (result, *h_new_ri, w_new)."""
         if not self.batched:
+            rg_ri, pil_ri, beta = rg_ri[None], pil_ri[None], beta.reshape(1)
             h_prev_ri, w = tuple(h[None] for h in h_prev_ri), w[None]
         with full_f32_matmul():
             res, h_new, w_new = tracked_receiver_impl(
-                self.plan, self.plan_tensors(dev, dt), _ri_to_complex(rg_ri),
+                self.plan, self.plan_tensors(rg_ri.device, rg_ri.dtype), _ri_to_complex(rg_ri),
                 _ri_to_complex(pil_ri), beta,
                 tuple(torch.complex(h[:, :, 0], h[:, :, 1]) for h in h_prev_ri), w,
                 self.data_beta, self.modulation, self.llr_scale,
@@ -336,7 +351,7 @@ class TrackedReceiver(BatchedReceiver):
         h_new = tuple(torch.stack([h.real, h.imag], dim=2) for h in h_new)
         if not self.batched:
             h_new, w_new = tuple(h[0] for h in h_new), w_new[0]
-        return self._unbatch(res), h_new, w_new
+        return (self._unbatch(res), *h_new, w_new)
 
 
 @functools.lru_cache(maxsize=128)

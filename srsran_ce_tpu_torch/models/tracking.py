@@ -68,7 +68,8 @@ class TrackedEstimator(_est.BatchedEstimator):
     """`fn(rg_ri, pil_ri, beta, h_prev_ri, w) -> (result, h_new_ri, w_new)` of
     `build_tracked_ri`, on the plain tier. Tensors stay on their device
     (numpy inputs go to the build's `device`); the plan's tensors are built
-    once per (device, dtype)."""
+    once per (device, dtype). On the card a call replays one CUDA graph per
+    input shape, the state among its static inputs."""
 
     def __init__(self, plan, batched: bool, out_layout: str, device: torch.device):
         super().__init__(plan, batched, "xla", out_layout)
@@ -80,22 +81,27 @@ class TrackedEstimator(_est.BatchedEstimator):
         if dt not in (torch.float32, torch.float64):
             raise TypeError(f"the tracked estimator takes float32 or float64 ri tensors, not {dt}")
         as_t = lambda a: torch.as_tensor(a, device=dev, dtype=dt)
-        pil_ri, beta, w = as_t(pil_ri), as_t(beta), as_t(w)
-        h_prev_ri = tuple(as_t(h) for h in h_prev_ri)
+        res, *state = self._graphed(rg_ri, as_t(pil_ri), as_t(beta), as_t(w),
+                                    *(as_t(h) for h in h_prev_ri))
+        return res, tuple(state[:-1]), state[-1]
+
+    def _forward(self, rg_ri, pil_ri, beta, w, *h_prev_ri):
+        """The state's hops come last; returns (result, *h_new_ri, w_new)."""
         if not self.batched:
             rg_ri, pil_ri, beta, w = rg_ri[None], pil_ri[None], beta.reshape(1), w.reshape(1)
             h_prev_ri = tuple(h[None] for h in h_prev_ri)
         with full_f32_matmul():
             res, (h_new, w_new) = _est._estimate_impl(
-                self.plan, self.plan_tensors(dev, dt), _est._ri_to_complex(rg_ri),
-                _est._ri_to_complex(pil_ri), beta, "xla", self.out_layout,
-                h_prev=tuple(_est._ri_to_complex(h) for h in h_prev_ri), track_w=w,
+                self.plan, self.plan_tensors(rg_ri.device, rg_ri.dtype),
+                _est._ri_to_complex(rg_ri), _est._ri_to_complex(pil_ri), beta, "xla",
+                self.out_layout, h_prev=tuple(_est._ri_to_complex(h) for h in h_prev_ri),
+                track_w=w,
             )
         h_new = tuple(_est._complex_to_ri(h) for h in h_new)
         if not self.batched:
             res = type(res)(*(getattr(res, f.name)[0] for f in fields(res)))
             h_new, w_new = tuple(h[0] for h in h_new), w_new[0]
-        return res, h_new, w_new
+        return (res, *h_new, w_new)
 
 
 @functools.lru_cache(maxsize=256)

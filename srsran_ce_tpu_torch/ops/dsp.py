@@ -142,34 +142,52 @@ def make_inpaint_schedule(known_mask: np.ndarray, n_iters: int):
     return schedule, steady
 
 
+#: the deepest inpainting chain the estimator's fill runs pass by pass; a deeper
+#: one runs as its operator (`inpaint_operator`)
+INPAINT_CHAIN_MAX_ITERS = 16
+
+
+def inpaint_consts(known_mask: np.ndarray, schedule, dtype, device):
+    """The device tensors of `cnn_inpaint`'s static schedule: (known (n,)
+    bool, [(m_t, 1 / (den_t + eps)) per transient iteration], 1 / (1 + eps)),
+    in `dtype` on `device`. The plan builds them once (`models.plan.
+    plan_tensors`), so that the call makes no tensor from host data."""
+    eps = 1e-12
+    known = np.array(known_mask, dtype=bool).reshape(-1)
+    transient, _ = schedule
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return (
+        torch.as_tensor(known, device=device),
+        [(t(m_t), t(1.0 / (den_t + eps))) for m_t, den_t in transient],
+        t(1.0 / (1.0 + eps)),
+    )
+
+
 def cnn_inpaint(
     x_sparse: torch.Tensor,  # (..., n), zeros at unknown positions
     known_mask: np.ndarray,  # (n,) bool, static
     n_iters: int,
     schedule=None,
+    consts=None,
 ) -> torch.Tensor:
     """Partial-convolution inpainting with a static mask schedule (reference
-    _cnn_inpaint_1d_complex, ce_dl_cnn.py:473-508)."""
+    _cnn_inpaint_1d_complex, ce_dl_cnn.py:473-508). `consts`: the schedule's
+    tensors (`inpaint_consts`), built here when not given."""
     known = np.asarray(known_mask, dtype=bool).reshape(-1)
     if known.all():
         return cnn_lowpass(x_sparse, passes=2)
     if schedule is None:
         schedule = make_inpaint_schedule(known, n_iters)
-    transient, steady = schedule
-    eps = 1e-12
-    dev = x_sparse.device
-    rdtype = x_sparse.real.dtype
-    known_t = torch.tensor(known, device=dev)
+    if consts is None:
+        consts = inpaint_consts(known, schedule, x_sparse.real.dtype, x_sparse.device)
+    steady = schedule[1]
+    known_t, transient, inv = consts
     x0 = x_sparse
     x = x_sparse
-    for m_t, den_t in transient:
-        m_j = torch.as_tensor(m_t, dtype=rdtype, device=dev)
-        inv_den = torch.as_tensor(1.0 / (den_t + eps), dtype=rdtype, device=dev)
+    for m_j, inv_den in transient:
         x = torch.where(known_t, x0, conv3_reflect(x * m_j) * inv_den)
-    if steady > 0:
-        inv = torch.as_tensor(1.0 / (1.0 + eps), dtype=rdtype, device=dev)
-        for _ in range(steady):
-            x = torch.where(known_t, x0, conv3_reflect(x) * inv)
+    for _ in range(steady):
+        x = torch.where(known_t, x0, conv3_reflect(x) * inv)
     return torch.where(known_t, x0, cnn_lowpass(x, passes=2))
 
 
@@ -209,14 +227,17 @@ def inpaint_matmul(values: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def lerp_gather(values: torch.Tensor, left, right, alpha) -> torch.Tensor:
-    """Linear interpolation via static gather tables (ordinals into the last axis)."""
-    dev = values.device
-    left = torch.as_tensor(np.asarray(left, dtype=np.int64), device=dev)
-    right = torch.as_tensor(np.asarray(right, dtype=np.int64), device=dev)
-    lv = values.index_select(-1, left)
-    rv = values.index_select(-1, right)
-    a = torch.as_tensor(np.asarray(alpha), dtype=values.real.dtype, device=dev)
-    return lv + a * (rv - lv)
+    """Linear interpolation via static gather tables (ordinals into the last
+    axis): numpy tables, or tensors on `values`' device (what a call inside a
+    CUDA graph passes: no host data crosses in the call)."""
+    def table(a, dtype):
+        if torch.is_tensor(a):
+            return a.to(dtype)
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=values.device)
+
+    lv = values.index_select(-1, table(left, torch.int64))
+    rv = values.index_select(-1, table(right, torch.int64))
+    return lv + table(alpha, values.real.dtype) * (rv - lv)
 
 
 def fro_norm_sq(x: torch.Tensor, batch_dims: int = 0) -> torch.Tensor:

@@ -121,7 +121,9 @@ def _hermitian_inverse_lead(a: torch.Tensor) -> torch.Tensor:
             rows.append(torch.stack([-B10[r][0], -B10[r][1], Ti[r][0], Ti[r][1]]))
         return torch.stack(rows)
     moved = a.movedim((0, 1), (-2, -1))
-    return torch.linalg.inv(moved).movedim((-2, -1), (0, 1))
+    # inv_ex: the Gram + sigma^2 I is PD, and `linalg.inv`'s singularity check
+    # would read the info flags back on the host
+    return torch.linalg.inv_ex(moved).inverse.movedim((-2, -1), (0, 1))
 
 
 def _sinr_from_inv_lead(inv: torch.Tensor, noise_over_beta2: torch.Tensor) -> torch.Tensor:
@@ -164,8 +166,15 @@ def _apply_inv_lead(inv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _noise_over_beta2(noise_var, beta: float, like: torch.Tensor) -> torch.Tensor:
-    """sigma^2 / beta^2 as a real tensor of `like`'s precision and device."""
-    return torch.as_tensor(noise_var, dtype=like.real.dtype, device=like.device) / (beta * beta)
+    """sigma^2 / beta^2 as a real tensor of `like`'s precision and device (a
+    tensor `noise_var` is cast on its device, a number filled in: no host
+    data crosses to the device)."""
+    rdt = like.real.dtype
+    if torch.is_tensor(noise_var):
+        s = noise_var.to(device=like.device, dtype=rdt)
+    else:
+        s = torch.full((), float(noise_var), dtype=rdt, device=like.device)
+    return s / (beta * beta)
 
 
 def mmse_equalize_serve(

@@ -192,8 +192,9 @@ def fused_front_plain(
         b3 = beta[:, None, None]
         epre = (rx_r * rx_r + rx_i * rx_i).sum(dim=(1, 2, 3))
 
-        cdm_of_layer = [min(l // 2, n_cdm - 1) for l in range(nL)]
-        rxl_r, rxl_i = rx_r[:, cdm_of_layer], rx_i[:, cdm_of_layer]  # (B, nL, nd, n_re)
+        # layer l reads CDM group l // 2 (n_cdm = ceil(nL / 2))
+        rxl_r = rx_r.repeat_interleave(2, dim=1)[:, :nL]  # (B, nL, nd, n_re)
+        rxl_i = rx_i.repeat_interleave(2, dim=1)[:, :nL]
         rec_r = rxl_r * pil_r + rxl_i * pil_i
         rec_i = rxl_i * pil_r - rxl_r * pil_i
 

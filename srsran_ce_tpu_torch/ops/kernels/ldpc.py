@@ -99,6 +99,8 @@ class Wiring:
       info_cols (k,)   systematic positions
       table            int32 [edge_var | edge_shift | row_ptr | col_ptr | col_edge]
                        for the CUDA kernels
+      row_lo, row_hi   row_ptr[:-1] and row_ptr[1:] on the device (the parity
+                       check's row sums)
     """
 
     n_edges: int
@@ -112,6 +114,8 @@ class Wiring:
     valid: torch.Tensor
     info_cols: torch.Tensor
     table: torch.Tensor
+    row_lo: torch.Tensor
+    row_hi: torch.Tensor
 
 
 _wiring_cache: dict = {}
@@ -146,7 +150,7 @@ def wiring(plan, device) -> Wiring:
         n_edges=E, mb=mb, nb=nb, z=z, d=d,
         gidx=t(gidx), row_ptr=tuple(int(x) for x in row_ptr),
         slot_gidx=t(slot_gidx.reshape(-1)), valid=t(plan.slot_valid),
-        info_cols=t(plan.info_cols), table=t(table),
+        info_cols=t(plan.info_cols), table=t(table), row_lo=t(row_ptr[:-1]), row_hi=t(row_ptr[1:]),
     )
     _wiring_cache[key] = w
     return w

@@ -586,7 +586,7 @@ def _parity_ok(bits: torch.Tensor, w) -> torch.Tensor:
     sum is the difference of two running sums over the edges)."""
     run = bits[:, w.gidx].to(torch.int32).cumsum(1, dtype=torch.int32)  # (B, E, z)
     run = torch.nn.functional.pad(run, (0, 0, 1, 0))
-    par = run[:, list(w.row_ptr[1:])] - run[:, list(w.row_ptr[:-1])]  # (B, mb, z)
+    par = run[:, w.row_hi] - run[:, w.row_lo]  # (B, mb, z)
     return (par % 2 == 0).flatten(1).all(dim=1)
 
 

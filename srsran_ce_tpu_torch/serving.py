@@ -11,11 +11,17 @@ configurations) is served in three steps:
   3. run the batched function per chunk on the device and scatter the results
      back into submission order.
 
-Pipelining (`inflight`): each chunk's inputs go to the card from pinned host
-buffers and its outputs come back with `non_blocking=True` copies into pinned
-buffers behind a CUDA event, all on the current stream; the host packs the
-next chunk while the card runs and waits on a chunk only when `inflight`
-chunks are pending. On the CPU (`device="cpu"`) the same code runs in order.
+Pipelining (`inflight`): each chunk is packed by the native packer
+(`native/loader.py`, g++ at first use; the numpy branch, with one warning,
+when it does not build) straight into a pinned staging buffer and
+goes to the card with a `non_blocking=True` copy; its outputs come back the
+same way into pinned buffers behind a CUDA event, all on the current stream.
+PyTorch's caching host allocator reuses a staging buffer only after the copy
+that reads it has completed. The host packs the next chunk while the card runs and waits
+on a chunk only when `inflight` chunks are pending. On the card each builder
+call replays one CUDA graph (`graphs.py`), the device decode chunk (the
+receiver and the decode tail) one graph a chunk. On the CPU (`device="cpu"`)
+the same code runs in order, eagerly.
 
 `out="decoded"` continues through descrambling, deinterleaving, rate recovery,
 LDPC decoding (ops/ldpc) and the CRC, either on the host (`_decode_soft`) or
@@ -24,9 +30,6 @@ on the device (`decode_on_device=True`, `_process_decoded_device`).
 `TrackedServer` is the stateful counterpart: multi-slot tracking
 (models/tracking.py) per caller-chosen stream, the states threaded across
 calls on the host.
-
-The batch packing is the JAX package's numpy branch; its native packer
-(`native/loader.py`) is not ported yet (ROADMAP.md queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -39,16 +42,35 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import devices, transport
+from . import devices, graphs, transport
 from .config import EstimatorConfig, HopConfig
 from .models import estimator, receiver, tracking
 from .models.plan import make_plan
+from .native import loader as _native
 from .ops import demap, ldpc
 
 
-def _assemble(arrays) -> np.ndarray:
-    """B scattered complex problems -> one contiguous (B, 2, ...) f32 ri batch."""
-    return np.stack([estimator.split_ri(np.asarray(a).astype(np.complex64)) for a in arrays])
+def _assemble(arrays, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """B scattered complex problems -> one contiguous (B, 2, ...) f32 ri batch
+    (into `out` when given): the native packer, or the numpy branch when it
+    did not build."""
+    if _native.available():
+        return _native.assemble_batch_ri(arrays, out=out)
+    return np.stack([estimator.split_ri(np.asarray(a).astype(np.complex64)) for a in arrays],
+                    out=out)
+
+
+def _stage(fill, shape, dtype, device: torch.device) -> torch.Tensor:
+    """A host batch on `device`: `fill(out)` writes it into a numpy array of
+    `shape`. On the card `out` is a pinned buffer, sent with a non_blocking
+    copy that does not wait for the work already queued. PyTorch's caching
+    host allocator records the copy's event and hands the buffer out again
+    only once that copy has completed, so a chunk in flight keeps its own."""
+    if device.type != "cuda":
+        return torch.from_numpy(fill(None))
+    buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+    fill(buf.numpy())
+    return buf.to(device, non_blocking=True)
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -60,16 +82,6 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
-def _map(fn, value):
-    """`fn` over every tensor of a result dataclass or tuple, the structure kept."""
-    if dataclasses.is_dataclass(value):
-        return type(value)(**{f.name: _map(fn, getattr(value, f.name))
-                              for f in dataclasses.fields(value)})
-    if isinstance(value, tuple):
-        return tuple(_map(fn, v) for v in value)
-    return fn(value)
-
-
 class _HostCopy:
     """A dispatched result on its way to the host: each CUDA tensor is copied
     with non_blocking=True into a pinned buffer, one event recorded after the
@@ -79,7 +91,7 @@ class _HostCopy:
     def __init__(self, value):
         self._event = None
         self._device = None
-        self._value = _map(self._start, value)
+        self._value = graphs.map_tensors(self._start, value)
         if self._event is not None:
             self._event.record(torch.cuda.current_stream(self._device))
 
@@ -95,7 +107,7 @@ class _HostCopy:
     def get(self):
         if self._event is not None:
             self._event.synchronize()
-        return _map(lambda t: t.numpy(), self._value)
+        return graphs.map_tensors(lambda t: t.numpy(), self._value)
 
 
 @dataclass
@@ -344,7 +356,11 @@ def _auto_time_interp(problems: List[Problem], thr_hz: float) -> List[Problem]:
 
 
 def _merge_batch(ch_ri: np.ndarray) -> np.ndarray:
-    """(B, 2, ...) ri batch -> (B, ...) complex."""
+    """(B, 2, ...) ri batch -> (B, ...) complex: the native threaded
+    interleave for float32 when it built; the numpy branch otherwise and for
+    float64."""
+    if ch_ri.dtype == np.float32 and _native.available():
+        return _native.ri_to_complex(ch_ri)
     cdt = np.complex128 if ch_ri.dtype == np.float64 else np.complex64
     out = np.empty(ch_ri.shape[:1] + ch_ri.shape[2:], cdt)
     out.real = ch_ri[:, 0]
@@ -430,10 +446,13 @@ def _batch_inputs(problems, take, device, multi_rx: bool):
         return np.asarray(p.received_rg)[None] if multi_rx and p.received_rg.ndim == 2 \
             else p.received_rg
 
-    rg_b = _assemble([rg(problems[i]) for i in take])
-    pil_b = _assemble([problems[i].pilots for i in take])
+    def packed(arrays):
+        shape = (len(arrays), 2) + np.shape(arrays[0])
+        return _stage(functools.partial(_assemble, arrays), shape, torch.float32, device)
+
     beta = np.asarray([problems[i].beta for i in take], np.float32)
-    return _to_device(rg_b, device), _to_device(pil_b, device), _to_device(beta, device)
+    return (packed([rg(problems[i]) for i in take]), packed([problems[i].pilots for i in take]),
+            _to_device(beta, device))
 
 
 # ---------------------------------------------------------------------------
@@ -511,6 +530,24 @@ def _device_decode_builder(coding, hop1, hop2, n_sc: int, n_sym: int, n_layers: 
     return run
 
 
+_SCALARS = ("noise_est", "rsrp", "epre", "time_alignment", "cfo_hz")
+
+
+@functools.lru_cache(maxsize=64)
+def _device_decode_chunk(fn, run) -> graphs.Graphed:
+    """`step(rg_ri, pil_ri, beta, params) -> (packed, scalars)`: one chunk of
+    the device decode path, the receiver `fn` and the decode tail `run`
+    (`_device_decode_builder`), one CUDA graph a chunk shape on the card.
+    `scalars` is the (5, B) float32 row of the receiver's measurements."""
+
+    def step(rg_ri, pil_ri, beta, params):
+        res = fn(rg_ri, pil_ri, beta, params)
+        scal = torch.stack([getattr(res, n).to(torch.float32) for n in _SCALARS])
+        return run(res.llr), scal
+
+    return graphs.Graphed(step, f"device decode chunk of {fn._name()}")
+
+
 def _check_params(config: EstimatorConfig, params) -> None:
     """The learned smoothings need the denoiser's params (serving.py:632, :976
     of the JAX package)."""
@@ -542,7 +579,6 @@ def _process_decoded_device(problems, coding, batch_size, matmul_precision, data
         buckets.setdefault(p.signature(), []).append(i)
     results: List[Optional[DecodedServeResult]] = [None] * len(problems)
     pending: deque = deque()
-    scal_names = ("noise_est", "rsrp", "epre", "time_alignment", "cfo_hz")
 
     def fetch(copy, chunk):
         blob, scal = copy.get()  # (B, c_words, k8/8 + 1) uint8, (5, B) f32
@@ -561,7 +597,7 @@ def _process_decoded_device(problems, coding, batch_size, matmul_precision, data
                 info = info[:, :k_pay]
             results[i] = DecodedServeResult(
                 info=info, ok=ok_h[k], soft=None,
-                **{n: float(scal[j, k]) for j, n in enumerate(scal_names)},
+                **{n: float(scal[j, k]) for j, n in enumerate(_SCALARS)},
             )
 
     for sig, idxs in buckets.items():
@@ -576,10 +612,10 @@ def _process_decoded_device(problems, coding, batch_size, matmul_precision, data
         n_sc, n_sym = problems[idxs[0]].received_rg.shape[-2:]
         run = _device_decode_builder(coding, hop1, hop2, int(n_sc), int(n_sym), n_layers,
                                      nbits, device)
+        step = _device_decode_chunk(fn, run)
         for chunk, take in _chunks(idxs, batch_size):
-            res = fn(*_batch_inputs(problems, take, device, multi_rx=True), params)
-            scal = torch.stack([getattr(res, n).to(torch.float32) for n in scal_names])
-            pending.append((_HostCopy((run(res.llr), scal)), chunk))
+            pending.append((_HostCopy(step(*_batch_inputs(problems, take, device, multi_rx=True),
+                                           params)), chunk))
             if len(pending) >= max(1, inflight):
                 fetch(*pending.popleft())
     while pending:

@@ -15,8 +15,9 @@ orderings are searched per case exactly like the reference does.
 
 A numpy copy of `srsran_ce_tpu/utils/vectors.py` (the port cannot import the JAX
 package, whose `__init__` imports `jax`); tests/test_torch_plan.py holds the two
-packages' parses bit-identical. The JAX package's optional C++ record parser
-(`srsran_ce_tpu/native`) is not ported: records are parsed with numpy.
+packages' parses bit-identical. Records are parsed by the port's native C++
+parser (`native/loader.py`, the counterpart of `srsran_ce_tpu/native`) when it
+builds, else by the numpy branch `parse_entries_np`.
 """
 from __future__ import annotations
 
@@ -41,10 +42,14 @@ _ENTRY_DTYPE = np.dtype(
 
 def load_entries(path) -> np.ndarray:
     """Read expected_entry_t records into a structured array with fields
-    (sym, port, sc, value)."""
+    (sym, port, sc, value). Uses the native C++ parser when available."""
+    from ..native import loader as _native
+
     raw = Path(path).read_bytes()
     if len(raw) % 12 != 0:
         raise ValueError(f"{path}: size {len(raw)} is not a multiple of 12 bytes")
+    if _native.available():
+        return _native.parse_entries(raw)
     return parse_entries_np(raw)
 
 

@@ -1,4 +1,4 @@
-"""CLI of the port: `validate`, `selftest`, `train` and `quality`.
+"""CLI of the port: `validate`, `selftest`, `diagnose`, `train` and `quality`.
 
   python -m srsran_ce_tpu_torch.validation.cli selftest --device cuda
   python -m srsran_ce_tpu_torch.validation.cli selftest --deep --device cuda
@@ -6,13 +6,15 @@
   python -m srsran_ce_tpu_torch.validation.cli validate --debug-case 4
   python -m srsran_ce_tpu_torch.validation.cli train --steps 500 --checkpoint den.npz
   python -m srsran_ce_tpu_torch.validation.cli quality --cases 2
+  python -m srsran_ce_tpu_torch.validation.cli diagnose --device cuda
+  python -m srsran_ce_tpu_torch.validation.cli diagnose --batched --kernels pallas_front
 
 Counterpart of `srsran_ce_tpu/validation/cli.py`. The device is explicit
 (`--device`, default `cuda`); a device that is not there is an error, never a
 quiet move to the CPU. Checkpoints are the port's npz files
-(`models/training.save_checkpoint`). Not ported yet: `diagnose` (ROADMAP.md
-queue 1, with item 5), the sharded sweep of `selftest --deep` (item 10),
-`bench` and `scaling` (item 4).
+(`models/training.save_checkpoint`). Not ported yet: the sharded sweep of
+`selftest --deep` (ROADMAP.md queue 1, item 10), `bench` and `scaling`
+(item 4).
 """
 from __future__ import annotations
 
@@ -159,6 +161,128 @@ def _selftest_deep(args, dev) -> int:
     print(f"report written to {out}")
     print("deep selftest:", "ALL PASS" if report["all_pass"] else "FAILURES (see report)")
     return 0 if report["all_pass"] else 1
+
+
+def _device_ops(call, sessions: int = 3):
+    """{device operation name: count} of one `call()` on the card
+    (torch.profiler: kernels, copies and fills); a session now and then
+    records nothing, so up to `sessions` are taken."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        ops = collections.Counter({
+            e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+        })
+        if ops:
+            return ops
+    raise RuntimeError("the profiler recorded no device operation in 3 sessions")
+
+
+def _diagnose_call(label, fn, args, dev) -> bool:
+    """The proof for one builder call: on the card one CUDA graph captured and
+    replayed, bit-identical to the eager call, with the device operations of
+    one replay; on the CPU the aten ops of one call and what would stop its
+    capture. Returns True when it holds."""
+    import dataclasses
+
+    import torch
+
+    from .. import graphs
+
+    print(f"== {label}")
+    if dev.type == "cpu":
+        fn(*args)  # the plan's tensors are built by the first call
+        with graphs.CaptureCheck() as chk:
+            fn(*args)
+        print(f"op_count: {sum(chk.ops.values())} aten ops in one call (TorchDispatchMode)")
+        for op, n in chk.ops.most_common(15):
+            print(f"  {op:45s} {n}")
+        print(f"capture hazards: {len(chk.hazards)} (host synchronisations, tensors made from host "
+              "data)")
+        for h in chk.hazards:
+            print(f"  {h}")
+        print("graph_count: not measured on the CPU: the CUDA graph capture is proven on the card "
+              "(--device cuda)")
+        return not chk.hazards
+    graphs.clear()  # a graph of this key kept from an earlier call would hide the capture
+    with graphs.eager():
+        want = fn(*args)
+        eager_ops = _device_ops(lambda: fn(*args))
+    before = graphs.captures
+    fn(*args)  # the key's first call: eager, the warm-up
+    fn(*args)  # its second: the capture and a replay
+    n_graphs = graphs.captures - before
+    replays = graphs.replays
+    got = fn(*args)  # a replay
+    if graphs.replays != replays + 1:
+        raise RuntimeError(f"{label}: the third call of the key did not replay its graph")
+    replay_ops = _device_ops(lambda: fn(*args))
+    fields = lambda r: [getattr(r, f.name) for f in dataclasses.fields(r)]
+    same = all(torch.equal(a, b) for a, b in zip(fields(got), fields(want)))
+    print(f"graph_count: {n_graphs} (the whole call captures into a single CUDA graph)")
+    print("graph_break_count: 0 (static plan: no data-dependent Python control flow)")
+    print(f"op_count: {sum(replay_ops.values())} device operations in one graphed call "
+          "(the replay, its input copies and output clones; torch.profiler)")
+    for op, n in replay_ops.most_common(15):
+        print(f"  {op[:60]:60s} {n}")
+    print(f"eager host launches: {sum(eager_ops.values())} device operations, each launched by "
+          "the host")
+    print(f"replay vs eager: {'bit-identical' if same else 'DIFFERENT'} (torch.equal on every "
+          "output)")
+    return n_graphs == 1 and same
+
+
+#: the batched diagnose call's problems: the main path's serve batch
+DIAGNOSE_BATCH = 128
+
+
+def cmd_diagnose(args) -> int:
+    """The port's counterpart of the JAX CLI's `diagnose` (one XLA program, no
+    host fallbacks): on the card, one builder call captures into one CUDA
+    graph whose replay is bit-identical to the eager call; on the CPU, the
+    aten ops of one call and no host synchronisation in it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ..models import estimator
+    from ..utils import synthetic
+
+    dev = _device(args.device)
+    case = synthetic.make_case(seed=8, n_prbs=int(args.n_prbs), n_layers=int(args.n_layers))
+    nL = case.pilots.shape[2]
+    as_t = lambda a: torch.as_tensor(a, device=dev)
+    fn = estimator.build_ri(case.hop1, case.hop2, case.config, nL, batched=False)
+    args1 = (as_t(estimator.split_ri(case.received_rg.astype(np.complex64))),
+             as_t(estimator.split_ri(case.pilots.astype(np.complex64))), as_t(np.float32(1.0)))
+    ok = _diagnose_call(f"build_ri(batched=False) per problem, {args.n_prbs} PRB x {nL} layers "
+                        f"(device {dev})", fn, args1, dev)
+    if args.batched:
+        cfg = dataclasses.replace(case.config, matmul_precision="high")
+        fn = estimator.build_ri(case.hop1, case.hop2, cfg, nL, batched=True, kernels=args.kernels,
+                                out_layout="serve")
+        b = DIAGNOSE_BATCH
+        argsb = tuple(a.expand((b,) + a.shape).contiguous() for a in args1)
+        ok = _diagnose_call(f"build_ri(batched=True, kernels={args.kernels!r}, out_layout='serve')"
+                            f", B={b} (device {dev})", fn, argsb, dev) and ok
+    if ok and dev.type == "cpu":
+        print("offload verdict: no host fallbacks in the call on the CPU; the single-graph "
+              "proof is the card's (--device cuda)")
+    elif ok:
+        print("offload verdict: fully offloadable — single fused program, no host fallbacks")
+    else:
+        print("offload verdict: NOT offloadable as one program (see above)")
+    return 0 if ok else 1
 
 
 def cmd_train(args) -> int:
@@ -323,6 +447,16 @@ def main(argv=None) -> int:
                    help="deep-report path (default DEEPFUZZ_REPORT.json)")
     s.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
     s.set_defaults(fn=cmd_selftest)
+
+    d = sub.add_parser("diagnose", help="graph-capture / offload diagnostic")
+    d.add_argument("--n-prbs", default=52)
+    d.add_argument("--n-layers", default=2)
+    d.add_argument("--batched", action="store_true",
+                   help="also the batched serve call (the main path's builder)")
+    d.add_argument("--kernels", choices=("xla", "pallas", "pallas_front"), default="pallas_front",
+                   help="the batched call's tier")
+    d.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
+    d.set_defaults(fn=cmd_diagnose)
 
     t = sub.add_parser("train", help="train the pilot denoiser (smoothing='learned'/'learned2d')")
     t.add_argument("--model", choices=("1d", "2d"), default="1d",

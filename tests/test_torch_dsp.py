@@ -114,6 +114,8 @@ def test_lerp_gather():
     got = dsp.lerp_gather(t(vals), left, right, alpha)
     close(got[0], np.array([1, 2, 3, 4, 5, 6, 7, 7], dtype=np.complex128))
     close(got, jdsp.lerp_gather(jnp.asarray(vals), left, right, alpha))
+    tabs = (torch.as_tensor(left), torch.as_tensor(right), torch.as_tensor(alpha))
+    assert torch.equal(dsp.lerp_gather(t(vals), *tabs), got)  # device tables, as in a graph
 
 
 def test_fro_norm_sq_per_problem():

@@ -1112,3 +1112,188 @@ def test_debug_case_on_card(tmp_path):
         assert g["ordering"] == w["ordering"]
         for key in ("rms", "nmse", "gain_abs", "gain_deg", "nmse_after_gain"):
             assert abs(g[key] - w[key]) <= 1e-9 * max(abs(w[key]), 1e-4), (key, g[key], w[key])
+
+
+# --- one CUDA graph per builder call (graphs.py) and the pinned staging of
+# the serving front-end --------------------------------------------------------
+
+from srsran_ce_tpu_torch import graphs  # noqa: E402
+from srsran_ce_tpu_torch.models import tracking  # noqa: E402
+
+KMODS = (k1, k2, k5, k6, k4, k3, k7)
+
+
+def _fields(res):
+    import dataclasses
+
+    if isinstance(res, (tuple, list)):
+        return [t for r in res for t in _fields(r)]
+    if dataclasses.is_dataclass(res):
+        return _fields(tuple(getattr(res, f.name) for f in dataclasses.fields(res)))
+    return [res]
+
+
+def _graphed_vs_eager(fn, args, other):
+    """The eager result, the key's first call (eager, the warm-up), its second
+    (the capture and a replay), its third (a replay) and a fourth call on
+    `other` inputs: every call bit-identical to the eager one, the replay's
+    launches per kernel equal to the eager call's, and the replay's result
+    unchanged by the later call."""
+    graphs.clear()  # a builder of an earlier test may hold this key's graph
+    with graphs.eager():
+        want = fn(*args)
+        n0 = [m.launches for m in KMODS]
+        fn(*args)
+        eager_n = [m.launches - a for m, a in zip(KMODS, n0)]
+    c0 = graphs.captures
+    first = fn(*args)
+    assert graphs.captures == c0
+    second = fn(*args)
+    assert graphs.captures == c0 + 1
+    n0, r0 = [m.launches for m in KMODS], graphs.replays
+    got = fn(*args)
+    assert graphs.captures == c0 + 1 and graphs.replays == r0 + 1
+    assert [m.launches - a for m, a in zip(KMODS, n0)] == eager_n
+    held = [t.clone() for t in _fields(got)]
+    fn(*other)
+    torch.cuda.synchronize()
+    for a, b, c, d, e in zip(_fields(got), _fields(want), _fields(first), held,
+                             _fields(second)):
+        assert torch.equal(a, b) and torch.equal(c, b) and torch.equal(a, d)
+        assert torch.equal(e, b)
+    return eager_n
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("kernels,layout", [
+    ("pallas_front", "serve"), ("pallas_front", "factored"), ("pallas", "ref"),
+    ("pallas", "serve"), ("xla", "serve"), ("xla", "ref"), ("xla", "factored")])
+@pytest.mark.parametrize("name,kw", [FRONT_CASES[0], FRONT_CASES[2]], ids=["nL4", "two_hops"])
+def test_graphed_estimator_equals_eager(name, kw, kernels, layout):
+    case, rg, pil, beta = case_inputs(kw, 8, torch.float32, "cuda", seed=11)
+    _, rg2, pil2, beta2 = case_inputs(kw, 8, torch.float32, "cuda", seed=12)
+    fn = est.build_ri(case.hop1, case.hop2, case.config, case.pilots.shape[2], batched=True,
+                      kernels=kernels, out_layout=layout)
+    n = _graphed_vs_eager(fn, (rg, pil, beta), (rg2, pil2, beta2))
+    assert (n[0] > 0) == (kernels == "pallas_front")
+    assert (n[2] > 0) == (kernels == "pallas" and layout == "ref")
+    one = est.build_ri(case.hop1, case.hop2, case.config, case.pilots.shape[2])
+    _graphed_vs_eager(one, (rg[0], pil[0], beta[0]), (rg2[0], pil2[0], beta2[0]))
+
+
+@NEEDS_GPU
+def test_graphed_tracked_estimator_equals_eager_over_slots():
+    kw = dict(n_prbs=24, n_layers=2, snr_db=5.0, cfo_hz=200.0)
+    c0 = synthetic.make_case(seed=5, **kw)
+    fn = tracking.build_tracked_ri(c0.hop1, c0.hop2, c0.config, 2, batched=True,
+                                   out_layout="serve")
+    s_g = s_e = tracking.init_state(c0.hop1, c0.hop2, c0.config, 2, batch=2)
+    for s in range(3):
+        cases = [synthetic.make_case(seed=5 + k, noise_seed=100 + s, **kw) for k in range(2)]
+        args = _ri_batch(cases, torch.float32, "cuda")
+        got, *s_g = fn(*args, *s_g)
+        with graphs.eager():
+            want, *s_e = fn(*args, *s_e)
+        for a, b in zip(_fields((got, s_g)), _fields((want, s_e))):
+            assert torch.equal(a, b)
+    assert float(s_g[1].min()) > 2.0
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("mode,kernels,modulation", [
+    ("auto", "xla", None), ("auto", "pallas", "qpsk"), ("dense", "pallas", "16qam")])
+def test_graphed_receiver_equals_eager(mode, kernels, modulation):
+    mk = dict(n_rx=4, modulation="qpsk", n_prbs=12, n_layers=2, snr_db=20.0)
+    cases = [synthetic.make_mimo_case(seed=s, **mk) for s in (3, 4)]
+    c = cases[0]
+    fn = rcv.build_receiver_ri(c.hop1, c.hop2, c.config, 2, 4, batched=True, mode=mode,
+                               kernels=kernels, modulation=modulation)
+    args = _ri_batch(cases, torch.float32, "cuda")
+    other = _ri_batch(cases[::-1], torch.float32, "cuda")
+    n = _graphed_vs_eager(fn, args, other)
+    assert (n[2] > 0) == (kernels == "pallas") and (n[1] > 0) == (mode == "dense")
+    fn = rcv.build_tracked_receiver_ri(c.hop1, c.hop2, c.config, 2, 4, batched=True,
+                                       modulation=modulation)
+    h0, w0 = tracking.init_state(c.hop1, c.hop2, c.config, 2, batch=4)
+    st = (tuple(torch.stack([h] * 2) for h in h0), torch.stack([w0] * 2))
+    _graphed_vs_eager(fn, args + st, other + st)
+
+
+@NEEDS_GPU
+def test_graphed_device_decode_equals_eager():
+    code = tl.array_code(8, 16, 61)
+    coding = transport.TransportCoding(code=code, n_iters=12, interleave_seed=77, crc="crc16",
+                                       early_iters=None, kernels="pallas", schedule="layered")
+    probs = []
+    for s in (5100, 5101):
+        case = synthetic.make_mimo_case(seed=s, n_rx=2, modulation="16qam", scramble=False,
+                                        n_prbs=12, n_layers=2, snr_db=25.0)
+        probs.append(serving.Problem(case.received_rg.astype(np.complex64),
+                                     case.pilots.astype(np.complex64), case.beta, case.hop1,
+                                     case.hop2, case.config))
+    kw = dict(batch_size=2, out="decoded", modulation="16qam", coding=coding,
+              decode_on_device=True)
+    with graphs.eager():
+        want = serving.process(probs * 3, **kw)
+    n4, r0 = k4.launches, graphs.replays
+    got = serving.process(probs * 3, **kw)
+    assert k4.launches - n4 == 3  # one a chunk: eager, then the capture's replay, a replay
+    assert graphs.replays - r0 == 2
+    for g, w in zip(got, want):
+        assert np.array_equal(g.info, w.info) and np.array_equal(g.ok, w.ok)
+        assert all(getattr(g, f) == getattr(w, f) for f in serving._SCALARS)
+
+
+@NEEDS_GPU
+def test_failed_capture_raises_and_never_falls_back():
+    calls = []
+
+    def forward(x):
+        calls.append(1)
+        return x * float(x.sum())  # a host synchronisation: no graph holds it
+
+    fn = graphs.Graphed(forward, "sync_probe")
+    x = torch.ones(4, device="cuda")
+    assert torch.equal(fn(x), x * 4.0)  # the key's first call runs eagerly
+    for _ in range(2):
+        with pytest.raises(graphs.GraphCaptureError, match="sync_probe on cuda"):
+            fn(x)
+    assert graphs.cached() <= graphs.MAX_GRAPHS and len(calls) == 3  # eager, then two captures
+    with graphs.eager():
+        assert torch.equal(fn(x), x * 4.0)
+
+
+@NEEDS_GPU
+def test_staging_buffers_wait_for_their_copies():
+    """Three batches staged while the stream is held by a long kernel
+    (inflight=3): each gets its own pinned buffer (its copy has not run), and
+    every device tensor holds its own batch."""
+    dev = torch.device("cuda")
+    shape = (5, 2, 37, 3)
+    torch.cuda._sleep(200_000_000)
+    outs, ptrs = [], []
+    for i in range(3):
+        def fill(out, i=i):
+            ptrs.append(out.ctypes.data)
+            out[...] = i
+            return out
+        outs.append(serving._stage(fill, shape, torch.float32, dev))
+    assert len(set(ptrs)) == 3
+    torch.cuda.synchronize()
+    for i, t in enumerate(outs):
+        assert bool((t == i).all())
+
+
+@NEEDS_GPU
+def test_process_inflight_three_equals_one_and_eager():
+    cases = [synthetic.make_case(seed=70 + i, n_prbs=24, n_layers=2, snr_db=30.0)
+             for i in range(9)]
+    probs = [serving.Problem(c.received_rg.astype(np.complex64), c.pilots.astype(np.complex64),
+                             c.beta, c.hop1, c.hop2, c.config) for c in cases]
+    res = {n: serving.process(probs, batch_size=2, inflight=n) for n in (1, 3)}
+    with graphs.eager():
+        res[0] = serving.process(probs, batch_size=2, inflight=3)
+    for a, b, c in zip(res[3], res[1], res[0]):
+        assert np.array_equal(a.channel_est_rg, b.channel_est_rg)
+        assert np.array_equal(a.channel_est_rg, c.channel_est_rg)
+        assert a.noise_est == b.noise_est == c.noise_est

@@ -177,8 +177,11 @@ def test_port_imports_no_jax():
         "import srsran_ce_tpu_torch.ops.kernels.ldpc, srsran_ce_tpu_torch.ops.kernels.ldpc_stream\n"
         "import srsran_ce_tpu_torch.ops.equalize, srsran_ce_tpu_torch.ops.demap\n"
         "import srsran_ce_tpu_torch.models.receiver, srsran_ce_tpu_torch.ops.kernels.inpaint\n"
+        "import srsran_ce_tpu_torch.native.loader, srsran_ce_tpu_torch.graphs\n"
         "from srsran_ce_tpu_torch.validation import cli\n"
         "assert cli.main(['selftest', '--device', 'cpu']) == 0\n"
+        "assert cli.main(['diagnose', '--device', 'cpu', '--n-prbs', '4', '--batched']) == 0\n"
+        "assert srsran_ce_tpu_torch.native.loader.available()\n"
         "from srsran_ce_tpu_torch.ops import ldpc, nr_ldpc\n"
         "code = nr_ldpc.nr_base_graph(2, 16)\n"
         "res = ldpc.build_decoder(code, n_iters=2, kernels='auto', schedule='layered',\n"
