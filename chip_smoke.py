@@ -136,7 +136,7 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
  33. `cli quality --device cuda --cases 2` with the shipped checkpoints:
      every table printed, learned below filter at 0 dB, tracked 8 slots
      below single slot, its wall time;
- 34. `selftest --deep --device cuda` at geometry 20, coded 9, header 120 (each
+ 34. `selftest --deep --device cuda` at geometry 20, coded 9, header 120, sp 0 (each
      cut printed): all pass, the geometry NMSE max, K4's launches over the
      run (counts set to 0 just before) and over each decode path;
  35. `validate --debug-case` on a synthesized suite whose golden carries an
@@ -169,6 +169,34 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      each, 1-48 requests a call, so bucket sizes vary; its wall graphed
      against eager over the same calls, in turn, three times each; the
      share of graphed calls that replayed a kept graph, and the captures.
+ 41. the sharded paths (`srsran_ce_tpu_torch/parallel/`) over NCCL at world
+     size 1 in this process (`parallel.mesh.multihost_initialize` on a free
+     localhost port), float32 on the card: build_dp_batched at c2 B=128 (ref
+     and factored), build_dp_receiver at c2_receiver_4rx4l B=128 with 16QAM
+     LLRs, build_dp_decoder at the e2e decode shape (BG1 Z=384, layered,
+     bfloat16, B=24: K3) and n976 B=512 (K4), build_sp_batched at BASELINE
+     config[4] (c4_hopped_24prb, B=4096) and sp_wideband_273prb (B=2),
+     build_sp at 273 PRB, the factored SP layout at c2, build_sp_receiver
+     (c2_receiver_4rx4l, QPSK, B=16), build_sp_tracked (c2, 3 slots), the
+     data-parallel training step and `entry.dryrun_body`: each against the
+     unsharded port on the same card and dtype (bit-identical where the
+     sharded body is the unsharded code: the DP builders and the hopped
+     route; relative 1e-4 otherwise, LLRs within one step on <= 0.1 %),
+     the float64 oracle (NMSE < 1e-12), its graphed replay against eager
+     bit for bit, ms a call beside the unsharded builder's; the DP decoder's
+     K3 / K4 launches of one call (counts set to 0 just before it), added to
+     the kernels line;
+ 42. spawned gloo worlds of 2 and 4 ranks, every rank on cuda:0 (NCCL
+     refuses two ranks on one card; gloo's send/recv take no CUDA tensor,
+     so the halos go by all_gather), eagerly: build_sp at 273 PRB (padded
+     over 4 shards) in float64 (relative 1e-12 against the unsharded
+     float64 port, NMSE < 1e-18 against the oracle) and float32 (NMSE
+     < 1e-12), config[4] at B=4096 on a (2, 2) and a (1, 2) mesh, the
+     hopped route in float64, DP c2, the DP decoder (K4 and K3) and the
+     dry run, with ms a call beside the unsharded builder's;
+ 43. all_device_barrier and Heartbeat over NCCL and gloo, and
+     `selftest --deep --sp-n 6` (the sharded deep-fuzz sweep, a spawned
+     world per shard count) on the card: 6/6 pass.
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -1913,10 +1941,10 @@ def main() -> int:
     # the coded fuzz (counts set to 0 just before), then per decode path
     from srsran_ce_tpu_torch.validation import deepfuzz
 
-    cuts = dict(geometry=(20, 100), coded=(9, 30), header=(120, 120))
+    cuts = dict(geometry=(20, 100), coded=(9, 30), header=(120, 120), sp=(0, 30))
     print("phase 34 selftest --deep cuts: " + ", ".join(
-        f"{k} {n} of the CLI's default {d}" for k, (n, d) in cuts.items()) + "; sp not run "
-          "(the parallel paths are not ported)")
+        f"{k} {n} of the CLI's default {d}" for k, (n, d) in cuts.items()) + " (phase 43 runs "
+          "the sharded sweep)")
     td34 = Path(tempfile.mkdtemp(prefix="chip_smoke_deep_"))
     try:
         reset_counts()
@@ -1924,6 +1952,7 @@ def main() -> int:
                                    "--geometry-n", str(cuts["geometry"][0]),
                                    "--coded-n", str(cuts["coded"][0]),
                                    "--header-n", str(cuts["header"][0]),
+                                   "--sp-n", str(cuts["sp"][0]),
                                    "--report", str(td34 / "deep.json")])
         deep_counts = read_counts()
         deep = json.loads((td34 / "deep.json").read_text())
@@ -2069,10 +2098,11 @@ def main() -> int:
 
     def device_ops(call):
         """{device operation name: count} of one call (torch.profiler): a
-        session now and then misses a kernel, so each name's count is the
-        most that any of three sessions (one call each) saw."""
+        session now and then misses a kernel (three sessions in a row have
+        missed K1's cluster launch), so each name's count is the most that
+        any of five sessions (one call each) saw."""
         ops = {}
-        for _ in range(3):
+        for _ in range(5):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 call()
@@ -2081,7 +2111,7 @@ def main() -> int:
                 if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
                     ops[e.key] = max(ops.get(e.key, 0), e.count)
         if not ops:
-            fail("the profiler saw no device operation in 3 sessions")
+            fail("the profiler saw no device operation in 5 sessions")
         return ops
 
     def kernel_counts(call):
@@ -2328,6 +2358,191 @@ def main() -> int:
           f"calls: " + ", ".join(f"{m[4]} / {m[3]} / {m[2] - m[4] - m[3]} of {m[2]} "
                                  f"({100 * m[4] / max(m[2], 1):.1f} % replayed)" for m in g)
           + f"; at most {graphs.MAX_GRAPHS} graphs kept {card}")
+
+    # 41. the sharded paths (srsran_ce_tpu_torch/parallel/) over NCCL at world
+    # size 1, in this process: every builder of the slice at full width against
+    # the unsharded port on the same card and dtype, graphed replays against
+    # eager, K3 / K4 launched by the DP decoder
+    import socket
+
+    import torch.distributed as tdist
+
+    from srsran_ce_tpu_torch import entry
+    from srsran_ce_tpu_torch.parallel import comm as pcomm
+    from srsran_ce_tpu_torch.parallel import data_parallel, launch
+    from srsran_ce_tpu_torch.parallel import mesh as pmesh
+    from srsran_ce_tpu_torch.validation import sharded
+
+    graphs.clear()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        free_port = sock.getsockname()[1]
+    pmesh.multihost_initialize(f"localhost:{free_port}", 1, 0)
+    if tdist.get_backend() != "nccl" or tdist.get_world_size() != 1:
+        fail(f"phase 41: world {tdist.get_backend()} x {tdist.get_world_size()}, expected nccl x 1")
+    g384 = ldpc.default_layered_group(code384)
+    dec_k3 = dict(schedule="layered", layered_group=g384, stream_c2v_dtype="bfloat16")
+    # bench_scaling.py's cases (measure_config4, seed 88; measure_sp_wideband,
+    # seed 99), problem k of a batch scaled by 1 + 0.01 k (`sharded.case_inputs`)
+    C4_KW = dict(n_prbs=24, n_layers=1, comb=2, scs_hz=30e3, snr_db=30.0, two_hops=True)
+    W273 = dict(n_prbs=273, n_layers=1, comb=2, scs_hz=30e3, snr_db=30.0)
+    f32 = dict(dtype="float32")
+    specs41 = [
+        dict(name="build_dp_batched c2 ref B=128", kind="dp_batched", mesh=(1, 1), kw=C2, seed=11,
+             batch=128, **f32),
+        dict(name="build_dp_batched c2 factored B=128", kind="dp_batched", mesh=(1, 1), kw=C2,
+             seed=11, batch=128, layout="factored", **f32),
+        dict(name="build_dp_receiver c2_receiver_4rx4l 16qam B=128", kind="dp_receiver",
+             mesh=(1, 1), kw=C2_RX, seed=11, n_rx=N_RX, batch=128, modulation="16qam", **f32),
+        dict(name="build_dp_decoder BG1 Z=384 layered bf16 B=24 (K3)", kind="dp_decoder",
+             mesh=(1, 1), code=("nr", 1, 384), batch=24, n_iters=16, dec=dec_k3),
+        dict(name="build_dp_decoder n976 B=512 (K4)", kind="dp_decoder", mesh=(1, 1),
+             code=("array", 6, 16, 61), batch=512, n_iters=25),
+        dict(name="build_sp_batched c4_hopped_24prb B=4096", kind="sp_batched", mesh=(1, 1),
+             kw=C4_KW, seed=88, batch=4096, **f32),
+        dict(name="build_sp_batched sp_wideband_273prb B=2", kind="sp_batched", mesh=(1, 1),
+             kw=W273, seed=99, batch=2, **f32),
+        dict(name="build_sp sp_wideband_273prb", kind="sp", mesh=(1, 1), kw=W273, seed=99, **f32),
+        dict(name="build_sp_batched factored c2 B=128", kind="sp_batched", mesh=(1, 1), kw=C2,
+             seed=11, batch=128, layout="factored", **f32),
+        dict(name="build_sp_receiver c2_receiver_4rx4l qpsk B=16", kind="sp_receiver",
+             mesh=(1, 1), kw=C2_RX, seed=11, n_rx=N_RX, batch=16, modulation="qpsk", **f32),
+        dict(name="build_sp_tracked c2 (3 slots)", kind="sp_tracked", mesh=(1, 1), kw=C2, seed=11,
+             noise_seeds=[1, 2, 3], **f32),
+        dict(name="build_train_step(mesh) 1-D B=256", kind="train", mesh=(1, 1), batch=256,
+             n_re=128, steps=2, **f32),
+        dict(name="all_device_barrier / Heartbeat", kind="barrier"),
+        dict(name="entry.dryrun_body", kind="dryrun"),
+    ]
+    t41 = time.perf_counter()
+    r41 = sharded.run_cases(specs41, "cuda", True)
+    # the DP decoder's launches: counts set to 0 just before one call, read just after
+    mesh1 = pmesh.make_mesh((1, 1))
+    for code, batch, kw in ((code384, 24, dict(n_iters=16, **dec_k3)),
+                            (ldpc_rows[0][1], 512, dict(n_iters=25))):
+        plan_d, u_d, ch_d = words(code, batch, 3.5 if code is code384 else 4.0)
+        dec_dp = data_parallel.build_dp_decoder(code, mesh1, device=dev, **kw)
+        dec_dp(ch_d)
+        torch.cuda.synchronize()
+        reset_counts()
+        res_d = dec_dp(dec_dp.shard(ch_d))
+        torch.cuda.synchronize()
+        cnt = read_counts()
+        want_n = (0, 1) if code is code384 else (1, 0)
+        if (cnt["ldpc_posterior"], cnt["ldpc_stream_posterior"]) != want_n:
+            fail(f"phase 41 build_dp_decoder launches {cnt}, expected (K4, K3) = {want_n}")
+        if not (bool(res_d.ok.all()) and np.array_equal(res_d.info.cpu().numpy(), u_d)):
+            fail("phase 41 build_dp_decoder: not payload-exact")
+        for k in ldpc_launches:
+            ldpc_launches[k] += cnt[k]
+        print(f"phase 41 build_dp_decoder {dec_dp.local.tier} B={batch}: launches of one call "
+              f"K4 {cnt['ldpc_posterior']}, K3 {cnt['ldpc_stream_posterior']}, payload-exact")
+    tdist.destroy_process_group()
+
+    def report(phase, name, r, f64=False):
+        """One sharded builder's line; fails on any comparison out of bounds."""
+        if "rel" in r:
+            worst = max(v for k, v in r["rel"].items() if k != "llr")
+            bound = 1e-12 if f64 else 1e-4  # float32: phase 22's receiver bar
+            if "llr" in r["rel"]:
+                if r["llr_max_step"] > 1 or r["llr_diff_share"] > 1e-3:
+                    fail(f"phase {phase} {name}: LLRs {r['llr_max_step']} steps apart on "
+                         f"{r['llr_diff_share']:.2e} of the entries")
+            elif worst > bound:
+                fail(f"phase {phase} {name}: relative error {worst:.3e} against the unsharded "
+                     f"port (bound {bound})")
+        if "nmse_vs_oracle" in r and r["nmse_vs_oracle"] >= (1e-18 if f64 else REF_NMSE_BOUND):
+            fail(f"phase {phase} {name}: NMSE vs the float64 oracle {r['nmse_vs_oracle']:.3e}")
+        if r.get("graph_replayed") is False or r.get("graphed_equal") is False:
+            fail(f"phase {phase} {name}: graphed replay {r.get('graph_replayed')}, equal to "
+                 f"eager {r.get('graphed_equal')}")
+        if "payload_exact" in r and not (r["payload_exact"] and r["ok"] and r["bit_identical"]):
+            fail(f"phase {phase} {name}: decode {r}")
+        if "loss_rel" in r and (r["loss_rel"] > 1e-5 or r["params_rel"] > 1e-5):
+            fail(f"phase {phase} {name}: DP step vs the unsharded step {r}")
+        parts = []
+        if "bit_identical" in r:
+            parts.append("bit-identical to the unsharded port" if r["bit_identical"] else
+                         f"max relative error vs the unsharded port "
+                         f"{max(r['rel'].values()):.3e}")
+        elif "rel" in r:
+            parts.append(f"max relative error vs the unsharded port {max(r['rel'].values()):.3e}")
+        if "nmse_vs_oracle" in r:
+            parts.append(f"NMSE vs the float64 oracle {r['nmse_vs_oracle']:.3e}")
+        if "llr_max_step" in r:
+            parts.append(f"LLRs within {r['llr_max_step']} step on {r['llr_diff_share']:.2e}")
+        if "graphed_equal" in r:
+            parts.append("graphed replay bit-identical to eager")
+        if "loss_rel" in r:
+            parts.append(f"loss rel {r['loss_rel']:.2e}, params rel {r['params_rel']:.2e} vs the "
+                         f"unsharded step")
+        if "ms" in r:
+            parts.append(f"{r['ms']:.4f} ms a call (wall, synchronised, best of 5) against the "
+                         f"unsharded {r['unsharded_ms']:.4f} ms")
+        print(f"phase {phase} {name}: " + "; ".join(parts) + f" {card}")
+
+    for spec in specs41:
+        r = r41[spec["name"]]
+        if spec["kind"] == "barrier":
+            if not (r["healthy"] and r["rounds"] >= 1 and r["failure"] == (False, ["injected"])):
+                fail(f"phase 43 barrier / heartbeat over NCCL: {r}")
+            print(f"phase 43 all_device_barrier over NCCL x 1: {r['barrier_s'] * 1e3:.3f} ms; "
+                  f"Heartbeat (its own gloo group) {r['rounds']} rounds healthy, last "
+                  f"{r['latency'] * 1e3:.3f} ms; the failure path fires")
+        elif spec["kind"] == "dryrun":
+            print(f"phase 41 {r}")
+        else:
+            report(41, spec["name"], r)
+    print(f"phase 41 NCCL world 1: halo routes {dict(pcomm.halo_routes)}, graphs captured "
+          f"{graphs.captures}, replayed {graphs.replays}; {time.perf_counter() - t41:.1f} s")
+
+    # 42. spawned gloo worlds of 2 and 4 ranks on cuda:0 (NCCL refuses two ranks
+    # on one card): every halo, psum and all_gather on the card, eagerly
+    specs42 = lambda n: [
+        dict(name="build_sp sp_wideband_273prb float64", kind="sp", mesh=(1, n), kw=W273,
+             seed=13),
+        dict(name="build_sp sp_wideband_273prb float32", kind="sp", mesh=(1, n), kw=W273,
+             seed=13, **f32),
+        dict(name=f"build_sp_batched c4_hopped_24prb B=4096 mesh {(n // 2, 2)}",
+             kind="sp_batched", mesh=(n // 2, 2), kw=C4_KW, seed=88, batch=4096, **f32),
+        dict(name="build_sp_batched c4_hopped_24prb float64 B=64", kind="sp_batched",
+             mesh=(1, n), kw=C4_KW, seed=88, batch=64),
+        dict(name="build_dp_batched c2 B=128", kind="dp_batched", mesh=(n, 1), kw=C2, seed=11,
+             batch=128, **f32),
+        dict(name="build_dp_decoder n976 B=512 (K4)", kind="dp_decoder", mesh=(n, 1),
+             code=("array", 6, 16, 61), batch=512, n_iters=25),
+        dict(name="build_dp_decoder BG1 Z=384 bf16 B=24 (K3)", kind="dp_decoder", mesh=(n, 1),
+             code=("nr", 1, 384), batch=24, n_iters=16, dec=dec_k3),
+        dict(name="all_device_barrier / Heartbeat", kind="barrier"),
+        dict(name="entry.dryrun_body", kind="dryrun"),
+    ]
+    for n in (2, 4):
+        t42 = time.perf_counter()
+        r42 = launch.spawn_world(sharded.run_cases, n, "gloo", "cuda", args=(specs42(n), "cuda", True))[0]
+        for spec in specs42(n):
+            r = r42[spec["name"]]
+            if spec["kind"] == "barrier":
+                if not (r["healthy"] and r["rounds"] >= 1):
+                    fail(f"phase 43 barrier / heartbeat over gloo x {n}: {r}")
+                print(f"phase 43 all_device_barrier over gloo x {n} (cuda:0): "
+                      f"{r['barrier_s'] * 1e3:.3f} ms; Heartbeat {r['rounds']} rounds healthy")
+            elif spec["kind"] == "dryrun":
+                print(f"phase 42 {r}")
+            else:
+                report(42, f"gloo x {n}: {spec['name']}", r, f64=spec.get("dtype") != "float32")
+        if r42["_foreign_modules"]:
+            fail(f"phase 42: a rank imported {r42['_foreign_modules']}")
+        print(f"phase 42 gloo x {n} on cuda:0: halo routes {r42['_halo_routes']} (gloo's send/recv "
+              f"take no CUDA tensor), {time.perf_counter() - t42:.1f} s with the spawn")
+
+    # 43. the deep fuzz's sharded sweep on the card (one spawned world per
+    # shard count among the draws)
+    rc, out, wall_sp = run_cli(["selftest", "--deep", "--geometry-n", "1", "--coded-n", "1",
+                                "--header-n", "1", "--sp-n", "6", "--device", "cuda",
+                                "--report", str(Path(tempfile.gettempdir()) / "deep_sp.json")])
+    if rc != 0 or "sp: 6/6 pass" not in out:
+        fail(f"phase 43 selftest --deep --sp-n 6: rc {rc}")
+    print(f"phase 43 selftest --deep --sp-n 6 on the card: 6/6 pass, {wall_sp:.1f} s wall")
 
     sources = {"fused_front": ("srsran_ce_tpu_torch/csrc/front.cu",
                                "srsran_ce_tpu/ops/pallas/kernels.py:639"),

@@ -219,19 +219,26 @@ __device__ float group_sum(float v, int tpp, float* red) {
   return t;
 }
 
-// First maximum of x[0..n) over one warp: ties go to the smallest index.
+// a above b in jnp.argmax's order: a NaN is above every number
+__device__ __forceinline__ bool above(float a, float b) {
+  return a > b || (isnan(a) && !isnan(b));
+}
+
+// First maximum of x[0..n) over one warp: ties go to the smallest index, and
+// the first NaN is the maximum (jnp.argmax; the plain front's mathx.argmax_last).
 __device__ void warp_first_max(const float* x, int n, float* vmax, int* imax) {
   const int lane = threadIdx.x & 31;
   float bv = -INFINITY;
-  int bi = n;
+  int bi = n;  // n: this lane has no candidate yet
   for (int j = lane; j < n; j += 32) {
     const float v = x[j];
-    if (v > bv) { bv = v; bi = j; }
+    if (bi == n || above(v, bv)) { bv = v; bi = j; }
   }
   for (int o = 16; o > 0; o >>= 1) {
     const float ov = __shfl_xor_sync(kFull, bv, o);
     const int oi = __shfl_xor_sync(kFull, bi, o);
-    if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+    const bool tie = ov == bv || (isnan(ov) && isnan(bv));
+    if (oi < n && (bi == n || above(ov, bv) || (tie && oi < bi))) { bv = ov; bi = oi; }
   }
   *vmax = bv;
   *imax = bi;

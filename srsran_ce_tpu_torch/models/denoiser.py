@@ -228,6 +228,49 @@ def _apply(params, h: torch.Tensor, two_d: bool) -> torch.Tensor:
     return torch.complex(y[..., 0], y[..., 1])
 
 
+def _apply_sharded(params, h: torch.Tensor, exchange, two_d: bool) -> torch.Tensor:
+    """The denoiser over this rank's block of the pilot axis (the last of h),
+    a `exchange(x, w)` halo of each convolution's half-width before it and the
+    convolution VALID along that axis (SAME along the DM-RS symbols)."""
+    model = module_for(params, two_d, h.device)
+    lead, n = h.shape[: h.dim() - 1 - two_d], h.shape[-1]
+    x = torch.stack([h.real, h.imag], dim=-2 - two_d).to(torch.float32)
+    x = x.reshape((-1,) + tuple(x.shape[len(lead):]))  # (N, 2, [n_dsym,] R)
+    x0 = x
+    conv = torch.nn.functional.conv2d if two_d else torch.nn.functional.conv1d
+    with _no_tf32_conv(), torch.no_grad():
+        for i, layer in enumerate(model.convs):
+            hw = layer.kernel_size[-1] // 2
+            left, right = exchange(x, hw)
+            pad = (layer.kernel_size[0] // 2, 0) if two_d else 0
+            x = conv(torch.cat([left, x, right], dim=-1), layer.weight, layer.bias, padding=pad)
+            if i < len(model.convs) - 1:
+                x = torch.relu(x)
+    y = (x0 + x).to(h.real.dtype).reshape(lead + tuple(x.shape[1:]))
+    return torch.complex(y.select(-2 - two_d, 0), y.select(-2 - two_d, 1))
+
+
+def apply_sharded(params, h_p: torch.Tensor, exchange) -> torch.Tensor:
+    """The 1-D denoiser over this rank's block of (..., R) complex pilot
+    estimates, sharded over the pilot axis (models/denoiser.py:68 of the JAX
+    package). `exchange(x, w)` returns (left, right), the w-wide neighbour
+    halos of x along its last axis, zeros at the outermost shards
+    (`parallel.comm.Comm.halo_exchange`).
+
+    Layer-wise: each convolution's SAME zero padding acts at the true band
+    edges on each layer's input. Exchanging a kernel_size//2 halo before
+    every convolution and running it VALID reproduces the unsharded stack at
+    every position (zero halos at the extremes are that layer's padding)."""
+    return _apply_sharded(params, h_p, exchange, two_d=False)
+
+
+def apply_sharded_2d(params, h_t: torch.Tensor, exchange) -> torch.Tensor:
+    """The 2-D denoiser over this rank's block of (..., n_dsym, R) complex
+    per-symbol pilot estimates: halos on the pilot axis, SAME zero padding on
+    the (local) symbol axis, as `apply_sharded`."""
+    return _apply_sharded(params, h_t, exchange, two_d=True)
+
+
 def apply_complex(params, h_p: torch.Tensor) -> torch.Tensor:
     """Denoise (..., n_re) complex pilot estimates; same shape and dtype."""
     return _apply(params, h_p, two_d=False)

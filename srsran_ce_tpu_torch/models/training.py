@@ -20,8 +20,13 @@ bias correction), `state_to_optax` carries it back. Checkpoints are one npz
 and "nu/", and the counts; `load_checkpoint*` also read a params-only npz
 (the shipped `artifacts/denoiser{,2d}.npz`) and give it a fresh optimizer.
 
-The data-parallel step (`build_train_step(mesh=)`) belongs to the parallel
-paths, which the port does not carry yet (ROADMAP.md queue 1, item 10).
+With a mesh (`build_train_step(tx, mesh=)`, `train(mesh=)`) the step is
+data parallel over the mesh axis `dp_axis`: each rank takes its slice of the
+global batch, the params stay replicated, and the loss is the JAX package's
+global NMSE, sum(err) / (sum(truth^2) + 1e-12) over the whole batch: each
+rank's error sum over the psum of the truth power, the gradients summed over
+the ranks (`parallel.comm.Comm.psum`, in rank order, so every rank steps its
+AdamW on the same gradient and the params stay equal on every rank).
 """
 from __future__ import annotations
 
@@ -129,11 +134,23 @@ class _Trainer:
             self.opt, tx.lr_factor, last_epoch=opt_state.schedule_count - 1)
         self.names = list(named)
 
-    def step(self, noisy: torch.Tensor, truth: torch.Tensor) -> torch.Tensor:
+    def step(self, noisy: torch.Tensor, truth: torch.Tensor, comm=None) -> torch.Tensor:
+        """One step on this rank's batch; with `comm` (the dp axis) the loss
+        and the gradients are the whole batch's over the axis' ranks."""
         self.opt.zero_grad(set_to_none=True)
         with denoiser._no_tf32_conv():
-            loss = denoiser.nmse_loss(self.model, noisy, truth)
-            loss.backward()
+            if comm is None:
+                loss = denoiser.nmse_loss(self.model, noisy, truth)
+                loss.backward()
+            else:
+                err = torch.sum((self.model(noisy) - truth) ** 2)
+                ref = comm.psum(torch.sum(truth**2).detach()) + 1e-12
+                (err / ref).backward()
+                ps = [p for p in self.model.parameters()]
+                g = comm.psum(torch.cat([p.grad.reshape(-1) for p in ps]))
+                for p, gp in zip(ps, g.split([p.numel() for p in ps])):
+                    p.grad = gp.reshape(p.shape)
+                loss = comm.psum(err.detach()) / ref
         self.opt.step()
         self.sched.step()
         return loss.detach()
@@ -155,8 +172,8 @@ class TrainStep:
     device and dtype. Called again with the state it returned last, it goes
     on with the same optimizer; any other state is loaded afresh."""
 
-    def __init__(self, tx: Optimizer, two_d: bool):
-        self.tx, self.two_d = tx, two_d
+    def __init__(self, tx: Optimizer, two_d: bool, comm=None):
+        self.tx, self.two_d, self.comm = tx, two_d, comm
         self._live = None
 
     def __call__(self, params, opt_state, noisy, truth):
@@ -167,42 +184,52 @@ class TrainStep:
             trainer = _Trainer(params, opt_state, self.tx, self.two_d)
         p0 = next(iter(params.values()))
         as_t = lambda a: torch.as_tensor(a, device=p0.device, dtype=p0.dtype)
-        loss = trainer.step(as_t(noisy), as_t(truth))
+        loss = trainer.step(as_t(noisy), as_t(truth), self.comm)
         params, opt_state = trainer.snapshot()
         self._live = (params, opt_state, trainer)
         return params, opt_state, loss
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_train_step(mesh=...): the data-parallel step belongs to the parallel "
-            "paths, not ported yet (ROADMAP.md queue 1, item 10)")
+def _dp_comm(mesh, dp_axis: str):
+    if mesh is None:
+        return None
+    from ..parallel import mesh as pmesh
+
+    return pmesh.comm(mesh, dp_axis)
 
 
-def build_train_step(tx: Optimizer, mesh=None) -> TrainStep:
-    """The 1-D denoiser's training step (no mesh: one device)."""
-    _no_mesh(mesh)
-    return TrainStep(tx, two_d=False)
+def build_train_step(tx: Optimizer, mesh=None, dp_axis: str = "dp") -> TrainStep:
+    """The 1-D denoiser's training step; with a mesh, data parallel over
+    `dp_axis` (each rank passes its slice of the batch)."""
+    return TrainStep(tx, two_d=False, comm=_dp_comm(mesh, dp_axis))
 
 
-def build_train_step_2d(tx: Optimizer, mesh=None) -> TrainStep:
-    """The 2-D denoiser's training step (no mesh: one device)."""
-    _no_mesh(mesh)
-    return TrainStep(tx, two_d=True)
+def build_train_step_2d(tx: Optimizer, mesh=None, dp_axis: str = "dp") -> TrainStep:
+    """The 2-D denoiser's training step; with a mesh, data parallel over
+    `dp_axis`."""
+    return TrainStep(tx, two_d=True, comm=_dp_comm(mesh, dp_axis))
 
 
 def _run(state: TrainState, tx: Optimizer, two_d: bool, n_steps: int, batch_of, log_every: int,
-         tag) -> Tuple[TrainState, float]:
-    """n_steps of the trainer over `batch_of(i)`; one log line every
-    `log_every` steps and at the last. Returns fresh params."""
+         tag, mesh=None) -> Tuple[TrainState, float]:
+    """n_steps of the trainer over `batch_of(i)` (with a mesh, this rank's
+    slice of it over "dp"); one log line every `log_every` steps and at the
+    last. Returns fresh params."""
+    comm = _dp_comm(mesh, "dp")
     trainer = _Trainer(state.params, state.opt_state, tx, two_d)
     p0 = next(iter(state.params.values()))
     loss = torch.tensor(float("nan"))
-    as_t = lambda a: torch.as_tensor(a).to(device=p0.device, dtype=p0.dtype)
+    def as_t(a):  # the batch on the params' device (with a mesh, this rank's rows)
+        a = torch.as_tensor(a).to(device=p0.device, dtype=p0.dtype)
+        if comm is None:
+            return a
+        from ..parallel import mesh as pmesh
+
+        return pmesh.batch_slice(a, mesh, "dp")
+
     for i in range(n_steps):
         noisy, truth = batch_of(i)
-        loss = trainer.step(as_t(noisy), as_t(truth))
+        loss = trainer.step(as_t(noisy), as_t(truth), comm)
         if log_every and (i % log_every == 0 or i == n_steps - 1):
             print(f"step {state.step + i:5d}  {tag(i)}nmse {float(loss):.4e}", flush=True)
     params, opt_state = trainer.snapshot()
@@ -228,8 +255,9 @@ def train(
     fully convolutional, so the steps cycle over the lengths (step i takes
     n_re[i % len]) with the batch scaled to max(8, batch * min(n_re) //
     n_re[i]), and one checkpoint covers every serving geometry. A resumed
-    `state` trains at a constant lr (the cosine phase is spent)."""
-    _no_mesh(mesh)
+    `state` trains at a constant lr (the cosine phase is spent). With a mesh
+    every rank draws the same batches and trains on its "dp" slice (the
+    batch must divide over the axis)."""
     rng = np.random.default_rng(seed)
     res = (n_re,) if isinstance(n_re, int) else tuple(n_re)
     if state is None:
@@ -242,7 +270,7 @@ def train(
         return denoiser.make_training_batch(rng, max(8, (batch * min(res)) // nr_i), nr_i)
 
     return _run(state, tx, False, n_steps, batch_of, log_every,
-                lambda i: f"n_re {res[i % len(res)]:4d}  ")
+                lambda i: f"n_re {res[i % len(res)]:4d}  ", mesh)
 
 
 def train2d(
@@ -258,8 +286,7 @@ def train2d(
     device="cuda",
 ) -> Tuple[TrainState, float]:
     """Train the 2-D (time x frequency) denoiser on synthetic Doppler batches
-    on `device`; as `train`."""
-    _no_mesh(mesh)
+    on `device`; as `train` (a mesh included)."""
     rng = np.random.default_rng(seed)
     if state is None:
         state, tx = init_state_2d(seed, n_re, n_dsym, lr, decay_steps=n_steps, device=device)
@@ -267,7 +294,7 @@ def train2d(
         tx = make_optimizer(lr)  # resume: constant lr (the cosine phase is spent)
     return _run(state, tx, True, n_steps,
                 lambda i: denoiser.make_training_batch_2d(rng, batch, n_re, n_dsym=n_dsym),
-                log_every, lambda i: "")
+                log_every, lambda i: "", mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -191,15 +191,48 @@ def cnn_inpaint(
     return torch.where(known_t, x0, cnn_lowpass(x, passes=2))
 
 
+def inpaint_probes(known: np.ndarray):
+    """Probe groups of the operator build: (group of each known position,
+    number of groups, support [lo, hi) of each row).
+
+    Row i of the operator is the chain's response to a one at known position
+    j = filled[i]. The passes pin every other known position to zero, so the
+    response stays in the unknown runs on either side of j, and the final
+    two-pass low-pass widens it by two: it lies in [p - 1, q + 1], p and q
+    the known positions before and after j. Rows whose supports, widened by
+    two more on each side, do not meet never touch each other's values, so
+    one probe (their ones together) carries them all, each exactly as it
+    would be alone (every value it adds to is a zero)."""
+    filled = np.nonzero(known)[0]
+    n = known.size
+    prev = np.concatenate([[-1], filled[:-1]])
+    nxt = np.concatenate([filled[1:], [n]])
+    lo, hi = np.maximum(prev - 1, 0), np.minimum(nxt + 2, n)
+    group = np.empty(filled.size, np.int64)
+    ends: list = []  # per group, the end of its last row's keep-out window
+    for i in range(filled.size):
+        start = prev[i] - 3
+        g = next((k for k, e in enumerate(ends) if e < start), len(ends))
+        if g == len(ends):
+            ends.append(0)
+        ends[g] = nxt[i] + 3
+        group[i] = g
+    return group, len(ends), lo, hi
+
+
 @functools.lru_cache(maxsize=64)
 def _inpaint_operator_cached(known_key: bytes, n: int, n_iters: int, dtype, device):
     known = np.frombuffer(known_key, dtype=bool)
     filled = np.nonzero(known)[0]
-    eye = torch.zeros((filled.size, n), dtype=torch.float64, device=device)
-    eye[torch.arange(filled.size, device=device), torch.as_tensor(filled, device=device)] = 1.0
     schedule = make_inpaint_schedule(known, n_iters)
-    w = cnn_inpaint(eye, known, n_iters, schedule=schedule)
-    return w.to(dtype).contiguous()
+    group, n_groups, lo, hi = inpaint_probes(known)
+    probes = torch.zeros((n_groups, n), dtype=torch.float64, device=device)
+    probes[torch.as_tensor(group, device=device), torch.as_tensor(filled, device=device)] = 1.0
+    resp = cnn_inpaint(probes, known, n_iters, schedule=schedule).cpu().numpy()
+    w = np.zeros((filled.size, n))
+    for i in range(filled.size):
+        w[i, lo[i] : hi[i]] = resp[group[i], lo[i] : hi[i]]
+    return torch.as_tensor(w, device=device).to(dtype).contiguous()
 
 
 def inpaint_operator(known_mask: np.ndarray, n_iters: int, dtype, device) -> torch.Tensor:
@@ -209,7 +242,8 @@ def inpaint_operator(known_mask: np.ndarray, n_iters: int, dtype, device) -> tor
     denominators and pinning are static), so its iterations and final
     low-pass collapse into one matrix W with full = pilots @ W. W is built by
     pushing the scatter-identity basis through `cnn_inpaint` itself, once per
-    (mask, iterations, dtype, device), on the device. The port builds it in
+    (mask, iterations, dtype, device), many rows in one probe where their
+    supports cannot meet (`inpaint_probes`: the same values, bit for bit). The port builds it in
     float64 and casts (the JAX package builds it in the target dtype): at c3
     (273 PRB, 409 iterations, 1638 x 3276) a float32 build would carry the
     rounding of 409 chained passes into every problem."""

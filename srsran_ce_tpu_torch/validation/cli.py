@@ -13,8 +13,7 @@ Counterpart of `srsran_ce_tpu/validation/cli.py`. The device is explicit
 (`--device`, default `cuda`); a device that is not there is an error, never a
 quiet move to the CPU. Checkpoints are the port's npz files
 (`models/training.save_checkpoint`). Not ported yet: the sharded sweep of
-`selftest --deep` (ROADMAP.md queue 1, item 10), `bench` and `scaling`
-(item 4).
+`bench` and `scaling` (ROADMAP.md queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -113,8 +112,8 @@ def cmd_selftest(args) -> int:
     """Hermetic conformance: synthesize an srsRAN-format suite from the float64
     oracle, then replay it through the full vector pipeline on the device.
     With --deep, run the fuzzers (geometry vs the oracle in float64, the
-    coded chain, the header parser) at depth on the device and write the
-    JSON report (DEEPFUZZ_REPORT.json by default)."""
+    coded chain, the header parser, the sharded builders' seams) at depth on
+    the device and write the JSON report (DEEPFUZZ_REPORT.json by default)."""
     import tempfile
 
     from . import conformance, synth_vectors
@@ -149,10 +148,10 @@ def _selftest_deep(args, dev) -> int:
         n_geometry=args.geometry_n, n_coded=args.coded_n, n_header=args.header_n,
         n_sp=args.sp_n, progress=progress, device=dev,
     )
-    for k in ("geometry", "coded", "header"):
+    for k in ("geometry", "coded", "header", "sp"):
         r = report[k]
         print(f"{k}: {r['n_pass']}/{r['n_cases']} pass ({r['elapsed_s']:.1f}s)")
-    print("sp: not run (the parallel paths are not ported)")
+    print(f"sp: kinds {report['sp']['kinds']}, worst error {report['sp']['worst']:.2e}")
     g = report["geometry"]
     print(f"geometry NMSE: max {g['nmse_max']:.2e}, median {g['nmse_median']:.2e}, "
           f"histogram(log10) {g['nmse_log10_histogram']}")
@@ -436,13 +435,13 @@ def main(argv=None) -> int:
     s.add_argument("--nmse-bound-db", type=float, default=-40.0)
     s.add_argument("--deep", action="store_true",
                    help="run the fuzzers at depth (geometry vs the oracle in float64, "
-                        "coded chain, header parser) and write a JSON report")
+                        "coded chain, header parser, sharded seams) and write a JSON report")
     s.add_argument("--geometry-n", type=int, default=100)
     s.add_argument("--coded-n", type=int, default=30)
     s.add_argument("--header-n", type=int, default=120)
-    s.add_argument("--sp-n", type=int, default=0,
-                   help="sharded-seam geometries: needs the parallel paths (not ported; "
-                        "anything but 0 raises)")
+    s.add_argument("--sp-n", type=int, default=30,
+                   help="sharded-seam geometries (each group of shard counts 2, 4, 8 runs "
+                        "in one spawned world)")
     s.add_argument("--report", default=None,
                    help="deep-report path (default DEEPFUZZ_REPORT.json)")
     s.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")

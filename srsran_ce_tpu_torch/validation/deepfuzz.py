@@ -15,11 +15,16 @@ auditable JSON report (cases run, NMSE histogram, worst case):
   header    the test-header parser and hop regrouping on fuzzed headers
             generated from intent (`synth_vectors.generate_fuzz_header`).
 
+  sp        random geometries across the subcarrier-sharded builders
+            (`parallel/subcarrier.py`): estimator draws against the float64
+            oracle (learned ones against the unsharded path), receiver and
+            tracked draws against their unsharded builders. Each draw's shard
+            count is 2, 4 or 8; the draws are grouped by it and each group runs
+            in one spawned world of that many ranks (`parallel.launch`: NCCL
+            when the machine has a card a rank, gloo otherwise).
+
 The draws are the JAX package's, so a trial number names the same
-configuration in both packages. The JAX runner's fourth sweep, randomized
-geometries across the subcarrier-sharded builders, needs the parallel paths,
-which the port does not carry yet (ROADMAP.md queue 1, item 10): `run_all`
-reports it as not run and asking for it raises.
+configuration in both packages.
 
 All functions return plain dicts; pass/fail policy lives in the callers
 (pytest asserts, the CLI's exit code).
@@ -339,21 +344,268 @@ def run_header_fuzz(n_cases: int, seed: int = 20260820, tmp_dir: Optional[str] =
     }
 
 
+def draw_sp_case(rng: np.random.Generator) -> dict:
+    """One random geometry for the sharded-seam sweep (the JAX package's
+    draw): the kind (estimator / joint receiver / tracked), the shard count,
+    hopped routes, non-divisible shard counts (pad + mask) and the smoothing
+    and interpolation modes the sharded builders take."""
+    kind = str(rng.choice(["est", "est", "est", "est", "receiver", "tracked"]))
+    n_sp = int(rng.choice([2, 4, 8]))
+    two_hops = bool(rng.random() < 0.25)
+    smoothings = ["filter", "filter", "mean", "none", "wiener"]
+    if kind == "est" and not two_hops:
+        smoothings.append("learned")
+    smoothing = str(rng.choice(smoothings))
+    if two_hops:
+        n_prbs = int(rng.choice([4, 6, 12, 25]))
+    else:
+        n_prbs = int(rng.choice([16, 24, 25, 27, 32, 52, 106, 273]))
+    n_layers = int(rng.choice([1, 2, 2, 4] if kind != "receiver" else [1, 2]))
+    comb = int(rng.choice([2, 2, 4]))
+    if not two_hops:
+        # the shard plan's contracts: even per-shard pilot counts with >= 2
+        # layers, and learned smoothing only on divisible splits whose blocks
+        # cover the denoiser's halo: walk n_prbs up until the split is valid
+        def _split_ok(p):
+            n_re = p * (12 // comb)
+            r = -(-n_re // n_sp)
+            n_rlast = r - (n_sp * r - n_re)
+            if n_layers >= 2 and (r % 2 or n_rlast % 2):
+                return False
+            if smoothing == "learned" and (n_re % n_sp or n_re // n_sp < 24):
+                return False
+            return True
+        while not _split_ok(n_prbs):
+            n_prbs += 1
+    kw = dict(
+        n_prbs=n_prbs,
+        n_layers=n_layers,
+        comb=comb,
+        scs_hz=float(rng.choice([15e3, 30e3])),
+        smoothing=smoothing,
+        cfo_compensate=bool(rng.random() < 0.7),
+        interp=str(rng.choice(["linear", "linear", "cnn"])),
+        cnn_alpha=float(rng.choice([0.0, 0.0, 0.3])),
+        two_hops=two_hops,
+        snr_db=float(rng.uniform(10.0, 35.0)),
+        cfo_hz=float(rng.uniform(-300.0, 300.0)),
+        cfo_estimator=str(rng.choice(["first_pair", "first_pair", "wls"])),
+    )
+    if kind == "est" and rng.random() < 0.25 and smoothing != "learned":
+        kw["time_interp"] = "linear"
+        kw["doppler_hz"] = 300.0
+    draw = dict(kind=kind, n_sp=n_sp, kw=kw)
+    if kind == "est":
+        draw["batched"] = bool(rng.random() < 0.5)
+        draw["factored"] = bool(kw.get("time_interp", "none") == "none" and rng.random() < 0.3)
+    if kind == "receiver":
+        draw["n_rx"] = int(rng.choice([2, 3]))
+        draw["modulation"] = str(rng.choice(["", "", "qpsk", "16qam"])) or None
+    return draw
+
+
+def _max_rel(a, b) -> float:
+    """max |a - b| / max |b| (complex or real)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-300))
+
+
+def check_sp_case(draw_idx: int, seed_base: int = 0xCE_59, device="cpu", mesh=None) -> dict:
+    """One fuzzed geometry across the sharded builders, inside a world whose
+    mesh has |sp| = the draw's shard count (`mesh`, or a (world / n_sp, n_sp)
+    mesh made here; every rank calls this with the same draw), in float64:
+    estimator draws against the float64 oracle (NMSE < GEOMETRY_NMSE_BOUND;
+    learned draws against the unsharded path, relative 1e-6: the denoiser is
+    float32), the factored layout against the grid (relative 1e-9); receiver
+    and tracked draws against their unsharded builders (relative 1e-9, int8
+    LLRs within one step). The row is rank 0's; a draw that raises is a
+    failure, recorded."""
+    import torch.distributed as dist
+
+    from ..models import denoiser, receiver, tracking
+    from ..models import estimator as est
+    from ..parallel import mesh as pmesh
+    from ..parallel import subcarrier as sc
+    from ..utils import oracle, synthetic
+
+    rng = np.random.default_rng(seed_base + draw_idx)
+    draw = draw_sp_case(rng)
+    kind, n_sp, kw = draw["kind"], draw["n_sp"], draw["kw"]
+    if mesh is None:
+        mesh = pmesh.make_mesh((dist.get_world_size() // n_sp, n_sp))
+    if pmesh.axis_size(mesh, "sp") != n_sp:
+        raise ValueError(f"draw {draw_idx} needs |sp| = {n_sp}, the mesh has "
+                         f"{pmesh.axis_size(mesh, 'sp')}")
+    dev = torch.device(device)
+    dp = pmesh.axis_size(mesh, "dp")
+    f64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64, device=dev)
+    ri = lambda x: f64(est.split_ri(np.asarray(x, np.complex128)))
+    lead = dist.get_rank() == 0
+    errs: dict = {}
+    ok = True
+    try:
+        if kind == "est":
+            case = synthetic.make_case(seed=int(rng.integers(0, 2**31)), **kw)
+            nL = case.pilots.shape[2]
+            params = denoiser.load_shipped("1d", dev) if kw["smoothing"] == "learned" else None
+            extra = () if params is None else (params,)
+            rg, pil, beta = ri(case.received_rg), ri(case.pilots), f64(case.beta)
+            if draw["batched"]:
+                B = dp * 2
+                rg, pil = rg.expand((B,) + rg.shape), pil.expand((B,) + pil.shape)
+                beta = beta.expand(B)
+                fn = sc.build_sp_batched(case.hop1, case.hop2, case.config, nL, mesh, device=dev)
+                beta_l = pmesh.batch_slice(beta, mesh, "dp")
+            else:
+                fn = sc.build_sp(case.hop1, case.hop2, case.config, nL, mesh, device=dev)
+                beta_l = beta
+            args = (*fn.shard_inputs(rg, pil), beta_l) + extra
+            out = fn.gather_outputs(fn(*args))
+            pick = (lambda x: x[0]) if draw["batched"] else (lambda x: x)
+            ch = est.merge_ri(pick(out.channel_est_rg).cpu().numpy())
+            if lead and params is None:
+                res_o = oracle.estimate(case.received_rg, case.pilots, case.beta, case.hop1,
+                                        case.hop2, case.config)
+                errs["nmse_vs_oracle"] = float(
+                    np.sum(np.abs(ch - res_o.channel_est_rg) ** 2)
+                    / (np.sum(np.abs(res_o.channel_est_rg) ** 2) + 1e-30))
+                noise = float(pick(out.noise_est))
+                errs["noise_rel"] = float(abs(noise - res_o.noise_est) / (abs(res_o.noise_est) + 1e-300))
+                ok = errs["nmse_vs_oracle"] < GEOMETRY_NMSE_BOUND and errs["noise_rel"] < 1e-7
+            elif lead:
+                fn_1 = est.build_ri(case.hop1, case.hop2, case.config, nL)
+                ch_1 = est.merge_ri(fn_1(ri(case.received_rg), ri(case.pilots), f64(case.beta),
+                                         params).channel_est_rg.cpu().numpy())
+                errs["rel_vs_unsharded"] = _max_rel(ch, ch_1)
+                ok = errs["rel_vs_unsharded"] < 1e-6
+            if draw.get("factored"):
+                fnf = (sc.build_sp_batched if draw["batched"] else sc.build_sp)(
+                    case.hop1, case.hop2, case.config, nL, mesh, out_layout="factored", device=dev)
+                rf = fnf.gather_outputs(fnf(*args))
+                if lead and ok:
+                    grid = est.reconstruct_factored(
+                        est.merge_ri(pick(rf.profiles).cpu().numpy()),
+                        est.merge_ri(pick(rf.sym_rot).cpu().numpy()), case.hop1, case.hop2)
+                    errs["factored_rel"] = _max_rel(grid, ch)
+                    ok = errs["factored_rel"] < 1e-9
+        elif kind == "receiver":
+            kw = {k: v for k, v in kw.items() if k not in ("time_interp", "doppler_hz")}
+            n_rx = max(draw["n_rx"], kw["n_layers"])
+            case = synthetic.make_mimo_case(
+                seed=int(rng.integers(0, 2**31)), n_rx=n_rx, scramble=False,
+                modulation=draw["modulation"] or "qpsk", **kw)
+            nL = case.pilots.shape[2]
+            B = dp
+            rg = ri(case.received_rg).expand((B, 2) + case.received_rg.shape)
+            pil = ri(case.pilots).expand((B, 2) + case.pilots.shape)
+            beta = f64(np.full(B, case.beta))
+            fn = sc.build_sp_receiver(case.hop1, case.hop2, case.config, nL, mesh,
+                                      modulation=draw["modulation"], device=dev)
+            out = fn.gather_outputs(fn(*fn.shard_inputs(rg, pil), pmesh.batch_slice(beta, mesh, "dp")))
+            if lead:
+                fn_1 = receiver.build_receiver_ri(case.hop1, case.hop2, case.config, nL, n_rx,
+                                                  batched=True, modulation=draw["modulation"],
+                                                  device=dev)
+                out_1 = fn_1(rg, pil, beta)
+                if draw["modulation"]:
+                    a = torch.cat(list(out.llr)).double().cpu().numpy()
+                    b = torch.cat(list(out_1.llr)).double().cpu().numpy()
+                    errs["llr_max_abs"] = float(np.abs(a - b).max())
+                    ok = errs["llr_max_abs"] <= 1.0
+                else:
+                    errs["x_rel"] = _max_rel(out.x.cpu().numpy(), out_1.x.cpu().numpy())
+                    ok = errs["x_rel"] < 1e-9
+                na, nb = out.noise_est.cpu().numpy(), out_1.noise_est.cpu().numpy()
+                errs["noise_rel"] = float(np.max(np.abs(na - nb) / (np.abs(nb) + 1e-300)))
+                ok = ok and errs["noise_rel"] < 1e-9
+        else:  # tracked
+            kw = {k: v for k, v in kw.items() if k not in ("time_interp", "doppler_hz")}
+            seed = int(rng.integers(0, 2**31))
+            cases = [synthetic.make_case(seed=seed, noise_seed=900 + s, **kw) for s in range(2)]
+            c0 = cases[0]
+            nL = c0.pilots.shape[2]
+            f_sp = sc.build_sp_tracked(c0.hop1, c0.hop2, c0.config, nL, mesh, device=dev)
+            f_un = tracking.build_tracked_ri(c0.hop1, c0.hop2, c0.config, nL, device=dev)
+            st_un = tracking.init_state(c0.hop1, c0.hop2, c0.config, nL, dtype=torch.float64,
+                                        device=dev)
+            h_sp = f_sp.shard_inputs(ri(c0.received_rg), ri(c0.pilots), st_un[0])[2]
+            w_sp = st_un[1]
+            worst = 0.0
+            for c in cases:
+                a = (ri(c.received_rg), ri(c.pilots), f64(c.beta))
+                r_sp, h_sp, w_sp = f_sp(*f_sp.shard_inputs(a[0], a[1]), a[2], h_sp, w_sp)
+                g_res = f_sp.gather_outputs((r_sp, h_sp, w_sp))[0]
+                if lead:
+                    r_un, *st_un = f_un(*a, st_un[0], st_un[1])
+                    worst = max(worst,
+                                _max_rel(g_res.channel_est_rg.cpu().numpy(),
+                                         r_un.channel_est_rg.cpu().numpy()),
+                                abs(float(w_sp) - float(st_un[1])) / (abs(float(st_un[1])) + 1e-300))
+            if lead:
+                errs["tracked_rel"] = worst
+                ok = worst < 1e-9
+    except Exception as e:  # a crash on a valid draw is a failure, recorded
+        errs["exception"] = f"{type(e).__name__}: {e}"
+        ok = False
+    return {
+        "draw": draw_idx,
+        "kind": kind,
+        "n_sp": n_sp,
+        "config": {k: (list(v) if isinstance(v, tuple) else v) for k, v in kw.items()},
+        "extras": {k: v for k, v in draw.items() if k not in ("kind", "n_sp", "kw")},
+        "errs": errs,
+        "ok": bool(ok),
+    }
+
+
+def run_sp_fuzz(n: int, seed_base: int = 0xCE_59, progress=None, device="cuda") -> dict:
+    """n randomized geometries across the sharded builders: the draws grouped
+    by shard count, each group in one spawned world of that many ranks on
+    `device` (NCCL when the machine has a card for each rank, gloo
+    otherwise)."""
+    from ..parallel import launch
+    from . import sharded
+
+    t0 = time.time()
+    dev = devices.resolve(device)
+    groups: dict = {}
+    for d in range(n):
+        groups.setdefault(draw_sp_case(np.random.default_rng(seed_base + d))["n_sp"], []).append(d)
+    rows = []
+    for n_sp, draws in sorted(groups.items()):
+        nccl = dev.type == "cuda" and torch.cuda.device_count() >= n_sp
+        spec = dict(name="fuzz", kind="fuzz", mesh=(1, n_sp), draws=draws, seed_base=seed_base)
+        res = launch.spawn_world(sharded.run_cases, n_sp, "nccl" if nccl else "gloo", dev.type,
+                                 args=([spec], dev.type))
+        rows += res[0]["fuzz"]
+        if progress:
+            progress(f"sp {len(rows)}/{n} (n_sp={n_sp}, {'nccl' if nccl else 'gloo'})")
+    rows.sort(key=lambda r: r["draw"])
+    kinds: dict = {}
+    for r in rows:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    return {
+        "n_cases": n,
+        "n_pass": int(sum(r["ok"] for r in rows)),
+        "kinds": kinds,
+        "worst": max((max(r["errs"].values()) for r in rows
+                      if r["errs"] and all(isinstance(v, float) for v in r["errs"].values())),
+                     default=0.0),
+        "failures": [r for r in rows if not r["ok"]][:20],
+        "elapsed_s": time.time() - t0,
+    }
+
+
 def run_all(
     n_geometry: int = 100,
     n_coded: int = 30,
     n_header: int = 120,
-    n_sp: int = 0,
+    n_sp: int = 30,
     progress=None,
     device="cuda",
 ) -> dict:
     """The deep-fuzz sweep on `device` (the card by default; raises when
-    there is none); the CLI writes this dict as the JSON report. `n_sp` > 0
-    (the sharded sweep) raises: the parallel paths are not ported."""
-    if n_sp:
-        raise NotImplementedError(
-            f"n_sp={n_sp}: the sharded-seam sweep needs the parallel paths, not ported yet "
-            "(ROADMAP.md queue 1, item 10); pass 0")
+    there is none); the CLI writes this dict as the JSON report."""
     dev = devices.resolve(device)
     report = {
         "device": str(dev),
@@ -362,9 +614,9 @@ def run_all(
         "geometry": run_geometry_fuzz(n_geometry, progress=progress, device=dev),
         "coded": run_coded_fuzz(n_coded, progress=progress, device=dev),
         "header": run_header_fuzz(n_header),
-        "sp": {"ported": False},
+        "sp": run_sp_fuzz(n_sp, progress=progress, device=dev),
     }
     report["all_pass"] = all(
-        report[k]["n_pass"] == report[k]["n_cases"] for k in ("geometry", "coded", "header")
+        report[k]["n_pass"] == report[k]["n_cases"] for k in ("geometry", "coded", "header", "sp")
     )
     return report

@@ -1297,3 +1297,101 @@ def test_process_inflight_three_equals_one_and_eager():
         assert np.array_equal(a.channel_est_rg, b.channel_est_rg)
         assert np.array_equal(a.channel_est_rg, c.channel_est_rg)
         assert a.noise_est == b.noise_est == c.noise_est
+
+
+# ---------------------------------------------------------------------------
+# K1 on NaN input; the sharded paths on the card (NCCL world 1, gloo on cuda:0)
+# ---------------------------------------------------------------------------
+
+from srsran_ce_tpu_torch.parallel import launch  # noqa: E402
+from srsran_ce_tpu_torch.validation import sharded  # noqa: E402
+
+
+@NEEDS_GPU
+def test_fused_front_nan_input_takes_the_first_nan():
+    """A grid of inf gives NaN PDPs: K1's TA argmax must take the first NaN as
+    the maximum (jnp.argmax, the plain front's mathx.argmax_last), so its TA
+    and channels equal the plain front's (NaN where it is NaN)."""
+    c = synthetic.make_case(seed=3, n_prbs=4, n_layers=1, n_dmrs_syms=1)
+    plan = make_plan(c.hop1, c.hop2, c.config, 1)
+    assert est._front_pallas_ok(plan)
+    rg = np.full_like(est.split_ri(c.received_rg.astype(np.complex64)), np.inf)
+    pil = est.split_ri(c.pilots.astype(np.complex64))
+    fn = est.build_ri(c.hop1, c.hop2, c.config, 1, batched=True, kernels="pallas_front",
+                      out_layout="serve")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        n0 = k1.launches
+        out[dev] = fn(torch.as_tensor(rg[None], device=dev), torch.as_tensor(pil[None], device=dev),
+                      torch.ones(1, device=dev))
+        assert k1.launches == n0 + (dev == "cuda")
+    got, want = out["cuda"], out["cpu"]
+    assert float(got.time_alignment) == float(want.time_alignment) < 0
+    for f in ("channel_est_rg", "noise_est", "rsrp", "epre"):
+        torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f), equal_nan=True,
+                                   rtol=1e-5, atol=1e-6)
+
+
+@NEEDS_GPU
+def test_gloo_halo_route_on_the_card():
+    """gloo's send/recv take no CUDA tensor: a halo forced onto them fails on
+    cuda:0 (the rank raises or aborts) and goes through on the CPU. So a gloo
+    world on the card exchanges its halos by all_gather, and its halos, psum
+    and all_gather equal the CPU world's bit for bit."""
+    from torch.multiprocessing.spawn import ProcessException
+
+    probe = [dict(name="probe", kind="p2p_probe")]
+    with pytest.raises(ProcessException):
+        launch.spawn_world(sharded.run_cases, 2, "gloo", "cuda", args=(probe, "cuda"))
+    assert "probe" in launch.spawn_world(sharded.run_cases, 2, "gloo", "cpu", args=(probe, "cpu"))[0]
+    spec = [dict(name="halo", kind="halo")]
+    card = launch.spawn_world(sharded.run_cases, 2, "gloo", "cuda", args=(spec, "cuda"))[0]
+    cpu = launch.spawn_world(sharded.run_cases, 2, "gloo", "cpu", args=(spec, "cpu"))[0]
+    assert card["halo"]["auto_route"] == "all_gather" and cpu["halo"]["auto_route"] == "p2p"
+    assert card["_halo_routes"].get("all_gather", 0) > 0
+    assert card["halo"]["same"] and cpu["halo"]["same"]
+    for k in ("xs", "lefts", "rights", "psum", "x"):
+        assert np.array_equal(card["halo"][k], cpu["halo"][k]), k
+
+
+SHARDED_CARD_SPECS = [
+    dict(name="dp c2", kind="dp_batched", mesh=(1, 1), dtype="float32", seed=11, batch=8,
+         kw=dict(n_prbs=106, n_layers=4)),
+    dict(name="sp hopped", kind="sp_batched", mesh=(1, 1), dtype="float32", seed=12, batch=64,
+         kw=dict(n_prbs=24, n_layers=1, two_hops=True)),
+    dict(name="sp 273", kind="sp", mesh=(1, 1), dtype="float64", seed=13,
+         kw=dict(n_prbs=273, n_layers=1)),
+    dict(name="sp receiver", kind="sp_receiver", mesh=(1, 1), dtype="float32", seed=3, batch=4,
+         n_rx=2, kw=dict(n_prbs=24, n_layers=2), modulation="qpsk"),
+    dict(name="dp decoder", kind="dp_decoder", mesh=(1, 1), code=("array", 6, 16, 61), batch=64,
+         n_iters=25),
+]
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("backend,n", [("nccl", 1), ("gloo", 2)])
+def test_sharded_builders_on_the_card(backend, n):
+    """The sharded builders on the card against the unsharded port on the same
+    card and dtype: over NCCL at world size 1 the DP builders and the hopped
+    route bit for bit and every graphed replay equal to its eager call; over
+    gloo with two ranks on cuda:0 within 1e-4 (float64: 1e-12) and the
+    float64 oracle (NMSE < 1e-12, float64 1e-18)."""
+    specs = [dict(s, mesh=(n, 1) if s["mesh"] == (1, 1) and s["kind"].startswith("dp") else
+                  (1, n)) for s in SHARDED_CARD_SPECS]
+    res = launch.spawn_world(sharded.run_cases, n, backend, "cuda", args=(specs, "cuda", True))[0]
+    for s in specs:
+        r = res[s["name"]]
+        f64 = s.get("dtype") == "float64"
+        if "payload_exact" in r:
+            assert r["payload_exact"] and r["ok"] and r["bit_identical"], s["name"]
+            continue
+        if backend == "nccl":
+            assert r["graph_replayed"] and r["graphed_equal"], s["name"]
+            if s["kind"] in ("dp_batched", "sp_batched"):
+                assert r["bit_identical"], s["name"]
+        worst = max(v for k, v in r["rel"].items() if k != "llr")
+        assert worst <= (1e-12 if f64 else 1e-4), (s["name"], r["rel"])
+        if "llr_max_step" in r:
+            assert r["llr_max_step"] <= 1 and r["llr_diff_share"] <= 1e-3
+        if "nmse_vs_oracle" in r:
+            assert r["nmse_vs_oracle"] < (1e-18 if f64 else 1e-12), s["name"]

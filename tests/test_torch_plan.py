@@ -226,6 +226,10 @@ def test_port_imports_no_jax():
         "assert deepfuzz.run_header_fuzz(5)['n_pass'] == 5\n"
         "assert deepfuzz.coded_trial(2, device='cpu')['ok']\n"
         "debug.checked(fn)(*args, *state)\n"
+        "from srsran_ce_tpu_torch.parallel import comm, data_parallel, launch, mesh, subcarrier\n"
+        "from srsran_ce_tpu_torch.validation import sharded\n"
+        "r = launch.spawn_world(sharded.run_cases, 2, args=([dict(name='h', kind='halo')], 'cpu'))\n"
+        "assert r[0]['h']['same'] and r[0]['_foreign_modules'] == []\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'srsran_ce_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -268,5 +268,3 @@ def test_training_entry_points_default_to_the_card(monkeypatch, tmp_path):
             call()
     with pytest.raises(RuntimeError, match=r"--device cuda: no CUDA device here"):
         cli.main(["train", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        tr.build_train_step(tr.make_optimizer(), mesh=object())
