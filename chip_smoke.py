@@ -196,7 +196,17 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      dry run, with ms a call beside the unsharded builder's;
  43. all_device_barrier and Heartbeat over NCCL and gloo, and
      `selftest --deep --sp-n 6` (the sharded deep-fuzz sweep, a spawned
-     world per shard count) on the card: 6/6 pass.
+     world per shard count) on the card: 6/6 pass;
+ 44. `cli bench --device cuda` whole (`srsran_ce_tpu_torch/bench/
+     throughput.py`, bench.py's rows at their widths): exit 0, every row of
+     bench.py's list present with no error (every gate passed), the headline
+     JSON parsed, K1, K2, K4 and K3 launched during the run (counts set to 0
+     just before it; K5 is on no bench row: bench.py's `_pallas` row takes
+     the deferred route, whose front is the plain tier), each row's numbers
+     printed with the card;
+ 45. `cli scaling --device cuda` (NCCL worlds of up to the card count, a
+     world of 1 on one card): exit 0, the dp, sp and config[4] rows of every
+     world run present, the world sizes not run named in the report.
 Then one JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
@@ -2543,6 +2553,73 @@ def main() -> int:
     if rc != 0 or "sp: 6/6 pass" not in out:
         fail(f"phase 43 selftest --deep --sp-n 6: rc {rc}")
     print(f"phase 43 selftest --deep --sp-n 6 on the card: 6/6 pass, {wall_sp:.1f} s wall")
+
+    # 44. `cli bench --device cuda`, whole: every row of bench.py at its widths,
+    # every gate, the headline; the kernels' launches over the run
+    from srsran_ce_tpu_torch.bench import scaling as bscaling
+    from srsran_ce_tpu_torch.bench import throughput as bthroughput
+
+    graphs.clear()
+    torch.cuda.empty_cache()
+    out44 = Path(tempfile.mkdtemp(prefix="smoke_bench_")) / "details.json"
+    reset_counts()
+    rc, out, wall44 = run_cli(["bench", "--device", "cuda", "--out", str(out44)])
+    torch.cuda.synchronize()
+    cnt44 = read_counts()
+    if rc != 0:
+        fail(f"phase 44 cli bench: rc {rc}")
+    head = json.loads(out.strip().splitlines()[-1])
+    if not (head.get("unit") == "REs/s" and head.get("value", 0) > 0):
+        fail(f"phase 44 cli bench: headline {head}")
+    det = json.loads(out44.read_text())
+    want_rows = ([n for n, _ in bthroughput.row_specs(None)] + ["ldpc_decode_n976_b512"]
+                 + [r[0] for r in bthroughput.NR_ROWS] + [r[0] for r in bthroughput.STREAM_ROWS]
+                 + ["e2e_decoded_273prb_bg1z384"])
+    missing = [n for n in want_rows if n not in det["configs"]]
+    errors = {n: r["error"] for n, r in det["configs"].items() if "error" in r}
+    if missing or errors:
+        fail(f"phase 44 cli bench: rows missing {missing}, rows failed {errors}")
+    # the kernels bench.py's rows run: K1 (_pallas_front), K2 (_pallas, _pallas_front),
+    # K4 (n976, the auto rows), K3 (the streamed rows, e2e)
+    not_run = [k for k in ("fused_front", "fused_fill_rotate_serve", "ldpc_posterior",
+                           "ldpc_stream_posterior") if cnt44[k] == 0]
+    if not_run:
+        fail(f"phase 44 cli bench: kernels not launched {not_run} (launches {cnt44})")
+    for n in want_rows:
+        r = det["configs"][n]
+        keep = {k: r[k] for k in ("latency_ms_per_batch", "latency_ms_per_slot", "batch",
+                                  "slope_spread", "spread_warn", "escalations", "res_per_s",
+                                  "info_bits_per_s", "bound", "x_over_bound", "hbm_floor_ms",
+                                  "compute_floor_ms", "nmse_vs_oracle", "nmse_vs_oracle_serve",
+                                  "tier", "device_decode_ms_per_slot", "xla_tier_ms_per_batch",
+                                  "layered13_ms_per_batch", "layered_half_iters_ms_per_batch",
+                                  "vs_reference_cpu") if k in r}
+        print(f"phase 44 bench {n}: {json.dumps(keep)}")
+    print(f"phase 44 cli bench --device cuda: exit 0, {len(want_rows)} rows of bench.py present, "
+          f"none failed, every gate passed; headline {head['value']:.6e} REs/s (vs the torch-CPU "
+          f"reference {head['vs_baseline']:.1f}x, measured on {head['baseline_hardware']!r}); "
+          f"launches over the run {cnt44}; {wall44:.1f} s wall; {det['device']['nvidia_smi']} "
+          f"{card}")
+
+    # 45. `cli scaling --device cuda`: NCCL worlds of up to the card count
+    out45 = Path(tempfile.mkdtemp(prefix="smoke_scaling_")) / "scaling.json"
+    rc, out, wall45 = run_cli(["scaling", "--device", "cuda", "--out", str(out45)])
+    if rc != 0:
+        fail(f"phase 45 cli scaling: rc {rc}")
+    rep = json.loads(out45.read_text())
+    n_cards = torch.cuda.device_count()
+    run_sizes = [n for n in bscaling.WORLD_SIZES if n <= n_cards]
+    got = {(e["scenario"], e.get("n_devices")) for e in rep["entries"] if "error" not in e}
+    want = ({("dp_weak", n) for n in run_sizes} | {("sp_wideband_273prb", n) for n in run_sizes}
+            | {("config4_hopped_4096", 1), ("dp_baselines", None)})
+    skipped = [n for n in bscaling.WORLD_SIZES if n > n_cards]
+    if not want <= got or rep["meta"]["world_sizes"] != run_sizes or (
+            skipped and (rep["meta"]["not_run"] or {}).get("world_sizes") != skipped):
+        fail(f"phase 45 cli scaling: rows {sorted(got, key=str)}, meta {rep['meta']}")
+    for e in rep["entries"]:
+        print(f"phase 45 scaling {json.dumps(e)}")
+    print(f"phase 45 cli scaling --device cuda: exit 0, worlds {run_sizes} (NCCL), not run "
+          f"{rep['meta']['not_run']}; {wall45:.1f} s wall {card}")
 
     sources = {"fused_front": ("srsran_ce_tpu_torch/csrc/front.cu",
                                "srsran_ce_tpu/ops/pallas/kernels.py:639"),

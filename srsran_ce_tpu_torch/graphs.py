@@ -79,7 +79,8 @@ def _side_stream(dev) -> "torch.cuda.Stream":
     return st
 
 
-def _kernel_modules():
+def kernel_modules():
+    """The seven kernels' wrapper modules, each with its `launches` counter."""
     from .ops.kernels import (fill_rotate, fill_rotate_serve, front, inpaint, ldpc, ldpc_stream,
                               rc_smooth)
 
@@ -112,7 +113,7 @@ class _Entry:
                 buf.copy_(a)
         self.graph.replay()
         replays += 1
-        for m, n in zip(_kernel_modules(), self.launches):
+        for m, n in zip(kernel_modules(), self.launches):
             m.launches += n
         return map_tensors(torch.clone, self.outputs)
 
@@ -160,7 +161,7 @@ class Graphed:
     def _capture(self, key, dev, args) -> _Entry:
         """The capture of `key`, whose first call (eager) was the warm-up."""
         global captures
-        mods = _kernel_modules()
+        mods = kernel_modules()
         inputs = [a.clone() if torch.is_tensor(a) else None for a in args]
         static = [b if b is not None else a for b, a in zip(inputs, args)]
         keep = _seen[key]  # a key whose capture failed stays seen: its next call raises too

@@ -612,6 +612,8 @@ def build_decoder(
     1.0 pure min-sum); `n_iters` sweeps of `schedule` ("flooding", or
     "layered" in groups of `layered_group` rows per posterior snapshot);
     `ok` is the parity check of the final hard decisions.
+    `decode.posterior(llr)` returns the posterior alone (what the JAX
+    package's compiler keeps of `decode(llr).posterior`: the bench's chains).
 
     Tiers (`kernels`, routed by `select_tier` as the JAX package routes them):
     "xla" (plain per-edge unroll), "xla_gather" (plain index gather and
@@ -628,7 +630,7 @@ def build_decoder(
     plan = make_ldpc_plan(code)
     n = code.n
 
-    def decode(llr) -> DecodeResult:
+    def run(llr):
         x = llr if isinstance(llr, torch.Tensor) else torch.as_tensor(np.asarray(llr), device=device)
         if x.dim() < 1 or x.shape[-1] != n:
             raise ValueError(f"llr must be (..., n={n}), got {tuple(x.shape)}")
@@ -645,6 +647,14 @@ def build_decoder(
             post = _k4.flooding_plain(ch, plan, w, n_iters, norm)
         else:
             post = _gather_flooding(ch, w, n_iters, norm)
+        return post, lead, w
+
+    def posterior(llr) -> torch.Tensor:
+        post, lead, _ = run(llr)
+        return post.reshape(lead + (n,))
+
+    def decode(llr) -> DecodeResult:
+        post, lead, w = run(llr)
         bits = (post < 0).to(torch.uint8)
         return DecodeResult(
             bits=bits.reshape(lead + (n,)),
@@ -654,6 +664,7 @@ def build_decoder(
         )
 
     decode.tier = tier
+    decode.posterior = posterior
     return decode
 
 

@@ -1,4 +1,5 @@
-"""CLI of the port: `validate`, `selftest`, `diagnose`, `train` and `quality`.
+"""CLI of the port: `validate`, `selftest`, `diagnose`, `train`, `quality`,
+`bench` and `scaling`.
 
   python -m srsran_ce_tpu_torch.validation.cli selftest --device cuda
   python -m srsran_ce_tpu_torch.validation.cli selftest --deep --device cuda
@@ -8,12 +9,16 @@
   python -m srsran_ce_tpu_torch.validation.cli quality --cases 2
   python -m srsran_ce_tpu_torch.validation.cli diagnose --device cuda
   python -m srsran_ce_tpu_torch.validation.cli diagnose --batched --kernels pallas_front
+  python -m srsran_ce_tpu_torch.validation.cli bench --device cuda --out bench.json
+  python -m srsran_ce_tpu_torch.validation.cli scaling --device cuda --out scaling.json
 
-Counterpart of `srsran_ce_tpu/validation/cli.py`. The device is explicit
+Counterpart of `srsran_ce_tpu/validation/cli.py`, every subcommand ported
+(`selftest --deep` with the sharded sweep, `--sp-n`). The device is explicit
 (`--device`, default `cuda`); a device that is not there is an error, never a
 quiet move to the CPU. Checkpoints are the port's npz files
-(`models/training.save_checkpoint`). Not ported yet: the sharded sweep of
-`bench` and `scaling` (ROADMAP.md queue 1, item 4).
+(`models/training.save_checkpoint`). `bench` and `scaling` run the port's
+measuring programs (`srsran_ce_tpu_torch/bench/`), which write their reports
+to `--out`, never to the JAX package's BENCH_DETAILS.json / BENCH_SCALING.json.
 """
 from __future__ import annotations
 
@@ -162,30 +167,6 @@ def _selftest_deep(args, dev) -> int:
     return 0 if report["all_pass"] else 1
 
 
-def _device_ops(call, sessions: int = 3):
-    """{device operation name: count} of one `call()` on the card
-    (torch.profiler: kernels, copies and fills); a session now and then
-    records nothing, so up to `sessions` are taken."""
-    import collections
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(sessions):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        ops = collections.Counter({
-            e.key: e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-        })
-        if ops:
-            return ops
-    raise RuntimeError("the profiler recorded no device operation in 3 sessions")
-
-
 def _diagnose_call(label, fn, args, dev) -> bool:
     """The proof for one builder call: on the card one CUDA graph captured and
     replayed, bit-identical to the eager call, with the device operations of
@@ -196,6 +177,7 @@ def _diagnose_call(label, fn, args, dev) -> bool:
     import torch
 
     from .. import graphs
+    from ..utils.profiling import op_stats
 
     print(f"== {label}")
     if dev.type == "cpu":
@@ -215,7 +197,7 @@ def _diagnose_call(label, fn, args, dev) -> bool:
     graphs.clear()  # a graph of this key kept from an earlier call would hide the capture
     with graphs.eager():
         want = fn(*args)
-        eager_ops = _device_ops(lambda: fn(*args))
+        eager_ops = op_stats(lambda: fn(*args), dev)
     before = graphs.captures
     fn(*args)  # the key's first call: eager, the warm-up
     fn(*args)  # its second: the capture and a replay
@@ -224,7 +206,7 @@ def _diagnose_call(label, fn, args, dev) -> bool:
     got = fn(*args)  # a replay
     if graphs.replays != replays + 1:
         raise RuntimeError(f"{label}: the third call of the key did not replay its graph")
-    replay_ops = _device_ops(lambda: fn(*args))
+    replay_ops = op_stats(lambda: fn(*args), dev)
     fields = lambda r: [getattr(r, f.name) for f in dataclasses.fields(r)]
     same = all(torch.equal(a, b) for a, b in zip(fields(got), fields(want)))
     print(f"graph_count: {n_graphs} (the whole call captures into a single CUDA graph)")
@@ -413,6 +395,25 @@ def cmd_quality(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """The throughput benchmark (the JAX CLI's `bench`, which runs bench.py):
+    every row of bench.py on the device, the details to --out, the one-line
+    JSON headline last; 1 when any row or gate failed."""
+    from ..bench import throughput
+
+    return throughput.main(_device(args.device), args.out)
+
+
+def cmd_scaling(args) -> int:
+    """The scaling benchmark (the JAX CLI's `scaling`, which runs
+    bench_scaling.py): dp / sp / config[4] worlds of ranks, gloo worlds of CPU
+    processes with --device cpu, NCCL worlds of up to the card count with
+    --device cuda; the report to --out, the JSON summary last."""
+    from ..bench import scaling
+
+    return scaling.main(_device(args.device), args.out)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="srsran-ce-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -479,6 +480,20 @@ def main(argv=None) -> int:
     q.add_argument("--report", default=None, help="write JSON table here")
     q.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
     q.set_defaults(fn=cmd_quality)
+
+    b = sub.add_parser("bench", help="single-card throughput benchmark (bench.py's rows)")
+    b.add_argument("--out", default="chiprun_out/torch_bench_details.json",
+                   help="the per-row details (JSON)")
+    b.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
+    b.set_defaults(fn=cmd_bench)
+
+    sc = sub.add_parser("scaling", help="multi-rank scaling-efficiency benchmark")
+    sc.add_argument("--out", default="chiprun_out/torch_bench_scaling.json",
+                    help="the scaling report (JSON)")
+    sc.add_argument("--device", default="cuda",
+                    help="cuda (default: NCCL worlds, one card a rank) or cpu (gloo worlds of "
+                         "processes)")
+    sc.set_defaults(fn=cmd_scaling)
 
     args = p.parse_args(argv)
     return args.fn(args)

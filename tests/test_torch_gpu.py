@@ -1395,3 +1395,38 @@ def test_sharded_builders_on_the_card(backend, n):
             assert r["llr_max_step"] <= 1 and r["llr_diff_share"] <= 1e-3
         if "nmse_vs_oracle" in r:
             assert r["nmse_vs_oracle"] < (1e-18 if f64 else 1e-12), s["name"]
+
+
+# ---------------------------------------------------------------------------
+# The bench's chain (utils/profiling.Chain): a CUDA graph of a unit of calls
+# ---------------------------------------------------------------------------
+
+from srsran_ce_tpu_torch.bench import throughput as bench_tp  # noqa: E402
+from srsran_ce_tpu_torch.utils import profiling  # noqa: E402
+
+
+@NEEDS_GPU
+def test_graphed_chain_equals_the_eager_loop():
+    """The bench's c2 pallas_front row at B=128: 8 chained calls replayed from
+    the chain's CUDA graph (one unit of 8) leave the carry the eager loop
+    leaves, bit for bit; K1 counts the warm-up call and the 8 of the replay,
+    then the 8 of the eager loop."""
+    dev = torch.device("cuda")
+    case = synthetic.make_case(seed=1234, snr_db=30.0,
+                               **bench_tp.BENCH_CONFIGS[bench_tp.HEADLINE][0])
+    body, carry = bench_tp.row_chain(case, 128, dev, kernels="pallas_front")
+    chain = profiling.Chain(body, carry, 8)
+    n0 = k1.launches
+    got = chain.run(8).clone()
+    torch.cuda.synchronize()
+    assert k1.launches - n0 == 1 + 8
+    with graphs.eager():
+        want = carry
+        for _ in range(8):
+            want = body(want)
+    torch.cuda.synchronize()
+    assert k1.launches - n0 == 1 + 8 + 8
+    assert torch.equal(got, want)
+    assert not torch.equal(got, carry)  # the chain moved the carry
+    assert torch.equal(chain.run(8), got)  # each run starts from the carry
+    chain.release()

@@ -178,6 +178,8 @@ def test_port_imports_no_jax():
         "import srsran_ce_tpu_torch.ops.equalize, srsran_ce_tpu_torch.ops.demap\n"
         "import srsran_ce_tpu_torch.models.receiver, srsran_ce_tpu_torch.ops.kernels.inpaint\n"
         "import srsran_ce_tpu_torch.native.loader, srsran_ce_tpu_torch.graphs\n"
+        "import srsran_ce_tpu_torch.utils.profiling, srsran_ce_tpu_torch.bench.throughput\n"
+        "import srsran_ce_tpu_torch.bench.scaling\n"
         "from srsran_ce_tpu_torch.validation import cli\n"
         "assert cli.main(['selftest', '--device', 'cpu']) == 0\n"
         "assert cli.main(['diagnose', '--device', 'cpu', '--n-prbs', '4', '--batched']) == 0\n"
