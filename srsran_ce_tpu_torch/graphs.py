@@ -20,6 +20,9 @@ Each graph holds a private memory pool, so at most `MAX_GRAPHS` are kept
 capture launches nothing, so its counts are taken back, and each replay adds
 them again, once per kernel the graph launches, so the counters go on
 counting launches on the card (one call, one launch of each of its kernels).
+A replay is the span `graphs.replay` (its input copies, the replay and the
+output clones), and its work on the card the event-timed `graphs.replay_ms`
+(`utils/spans.py`, while the spans are on).
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ import dataclasses
 import threading
 
 import torch
+
+from .utils import spans
 
 #: graphs kept at once over every builder (each holds a private memory pool)
 MAX_GRAPHS = 32
@@ -108,14 +113,16 @@ class _Entry:
 
     def replay(self, args):
         global replays
-        for buf, a in zip(self.inputs, args):
-            if buf is not None:
-                buf.copy_(a)
-        self.graph.replay()
-        replays += 1
-        for m, n in zip(kernel_modules(), self.launches):
-            m.launches += n
-        return map_tensors(torch.clone, self.outputs)
+        with spans.span("graphs.replay"):
+            for buf, a in zip(self.inputs, args):
+                if buf is not None:
+                    buf.copy_(a)
+            with spans.device_span("graphs.replay_ms"):
+                self.graph.replay()
+            replays += 1
+            for m, n in zip(kernel_modules(), self.launches):
+                m.launches += n
+            return map_tensors(torch.clone, self.outputs)
 
 
 class Graphed:

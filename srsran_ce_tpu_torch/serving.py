@@ -23,6 +23,13 @@ call replays one CUDA graph (`graphs.py`), the device decode chunk (the
 receiver and the decode tail) one graph a chunk. On the CPU (`device="cpu"`)
 the same code runs in order, eagerly.
 
+Spans (`utils/spans.py`; off unless `spans.enabled()`): each `process`
+call is `serving.process`, and inside it each staged array's packing into a
+pinned buffer `serving.pack` and its copy `serving.h2d` (the bytes the
+counter `serving.h2d_bytes`), each chunk's graph replay `graphs.replay`, the
+wait for its results `serving.fetch_wait` and their scatter, unpacking and
+CRC `serving.unpack`.
+
 `out="decoded"` continues through descrambling, deinterleaving, rate recovery,
 LDPC decoding (ops/ldpc) and the CRC, either on the host (`_decode_soft`) or
 on the device (`decode_on_device=True`, `_process_decoded_device`).
@@ -48,6 +55,7 @@ from .models import estimator, receiver, tracking
 from .models.plan import make_plan
 from .native import loader as _native
 from .ops import demap, ldpc
+from .utils import spans
 
 
 def _assemble(arrays, out: Optional[np.ndarray] = None) -> np.ndarray:
@@ -62,31 +70,45 @@ def _assemble(arrays, out: Optional[np.ndarray] = None) -> np.ndarray:
 
 def _stage(fill, shape, dtype, device: torch.device) -> torch.Tensor:
     """A host batch on `device`: `fill(out)` writes it into a numpy array of
-    `shape`. On the card `out` is a pinned buffer, sent with a non_blocking
-    copy that does not wait for the work already queued. PyTorch's caching
-    host allocator records the copy's event and hands the buffer out again
-    only once that copy has completed, so a chunk in flight keeps its own."""
-    if device.type != "cuda":
-        return torch.from_numpy(fill(None))
-    buf = torch.empty(shape, dtype=dtype, pin_memory=True)
-    fill(buf.numpy())
-    return buf.to(device, non_blocking=True)
+    `shape` (the span `serving.pack`). On the card `out` is a pinned buffer,
+    sent by `_send`."""
+    with spans.span("serving.pack"):
+        if device.type != "cuda":
+            buf = torch.from_numpy(fill(None))
+        else:
+            buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+            fill(buf.numpy())
+    return _send(buf, device)
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host batch on `device`: on the card from a pinned copy, without
-    waiting for the work already queued on the stream."""
-    t = torch.from_numpy(a)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
+    """A host array on `device`: on the card a pinned copy (the span
+    `serving.pack`), sent by `_send`."""
+    with spans.span("serving.pack"):
+        t = torch.from_numpy(a)
+        if device.type == "cuda":
+            t = t.pin_memory()
+    return _send(t, device)
+
+
+def _send(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on `device`, in the span `serving.h2d`, its bytes added
+    to `serving.h2d_bytes`: on the card a non_blocking copy of a pinned
+    buffer that does not wait for the work already queued. PyTorch's caching
+    host allocator records the copy's event and hands the buffer out again
+    only once that copy has completed, so a chunk in flight keeps its own."""
+    with spans.span("serving.h2d"):
+        if spans.on():
+            spans.add("serving.h2d_bytes", t.nbytes)
+        return t.to(device, non_blocking=True) if device.type == "cuda" else t
 
 
 class _HostCopy:
     """A dispatched result on its way to the host: each CUDA tensor is copied
     with non_blocking=True into a pinned buffer, one event recorded after the
-    copies; `get()` waits on that event and returns the result with numpy
-    fields. CPU tensors are taken as they are."""
+    copies; `get()` waits on that event (the span `serving.fetch_wait`: the
+    host blocked on the card) and returns the result with numpy fields. CPU
+    tensors are taken as they are."""
 
     def __init__(self, value):
         self._event = None
@@ -105,9 +127,18 @@ class _HostCopy:
         return h
 
     def get(self):
-        if self._event is not None:
-            self._event.synchronize()
+        with spans.span("serving.fetch_wait"):
+            if self._event is not None:
+                self._event.synchronize()
+        spans.poll()
         return graphs.map_tensors(lambda t: t.numpy(), self._value)
+
+
+def _unpack(scatter, copy: _HostCopy, chunk, results) -> None:
+    """A fetched chunk scattered into `results`, in the span `serving.unpack`."""
+    out = copy.get()
+    with spans.span("serving.unpack"):
+        scatter(out, chunk, results=results)
 
 
 @dataclass
@@ -580,8 +611,8 @@ def _process_decoded_device(problems, coding, batch_size, matmul_precision, data
     results: List[Optional[DecodedServeResult]] = [None] * len(problems)
     pending: deque = deque()
 
-    def fetch(copy, chunk):
-        blob, scal = copy.get()  # (B, c_words, k8/8 + 1) uint8, (5, B) f32
+    def unpack(fetched, chunk, results):
+        blob, scal = fetched  # (B, c_words, k8/8 + 1) uint8, (5, B) f32
         ok_h = blob[..., -1].astype(bool)
         info_h = np.unpackbits(blob[..., :-1], axis=-1)[..., :k_full]
         if coding.crc is not None:
@@ -617,9 +648,9 @@ def _process_decoded_device(problems, coding, batch_size, matmul_precision, data
             pending.append((_HostCopy(step(*_batch_inputs(problems, take, device, multi_rx=True),
                                            params)), chunk))
             if len(pending) >= max(1, inflight):
-                fetch(*pending.popleft())
+                _unpack(unpack, *pending.popleft(), results)
     while pending:
-        fetch(*pending.popleft())
+        _unpack(unpack, *pending.popleft(), results)
     return results
 
 
@@ -703,6 +734,7 @@ def _decode_soft(problems: List[Problem], soft: List[LlrServeResult], coding,
 # ---------------------------------------------------------------------------
 
 
+@spans.traced("serving.process")
 def process(
     problems: List[Problem],
     batch_size: int = 128,
@@ -837,11 +869,9 @@ def process(
             res = fn(*_batch_inputs(problems, take, device, multi_rx=equalized), params)
             pending.append((scatter, _HostCopy(res), chunk))
             if len(pending) >= max(1, inflight):
-                sc, copy, c = pending.popleft()
-                sc(copy.get(), c, results=results)
+                _unpack(*pending.popleft(), results)
     while pending:
-        sc, copy, c = pending.popleft()
-        sc(copy.get(), c, results=results)
+        _unpack(*pending.popleft(), results)
     return results
 
 

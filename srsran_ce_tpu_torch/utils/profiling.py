@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import graphs
+from . import spans
 
 
 def robust_slope_stats(slopes, floor: float = 1e-9):
@@ -64,7 +65,9 @@ def trace(log_dir: str = None):
     """Profile the block with torch.profiler (CPU activities, and CUDA ones
     when a card is present) and write its Chrome / Perfetto trace
     (`*.pt.trace.json`, TensorBoard's layout) into `log_dir` (default
-    `srsce_trace` in the temporary directory); yields `log_dir`."""
+    `srsce_trace` in the temporary directory); yields `log_dir`. The
+    program's spans (`utils/spans.py`) are on inside the block, so the trace
+    carries them beside the device's records."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "srsce_trace")
@@ -72,7 +75,8 @@ def trace(log_dir: str = None):
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(log_dir)):
+    with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(log_dir)), \
+            spans.enabled():
         yield log_dir
 
 

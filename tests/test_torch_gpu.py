@@ -1430,3 +1430,48 @@ def test_graphed_chain_equals_the_eager_loop():
     assert not torch.equal(got, carry)  # the chain moved the carry
     assert torch.equal(chain.run(8), got)  # each run starts from the carry
     chain.release()
+
+
+from srsran_ce_tpu_torch.utils import spans  # noqa: E402
+
+
+@NEEDS_GPU
+def test_spans_time_the_replays_on_the_card():
+    """A decoded call of three chunks, every chunk's graph replayed, with the
+    spans on: one `graphs.replay` span a chunk inside the call, their CUDA
+    event pairs all resolved by the snapshot with a positive device time, the
+    staged bytes those of the three chunks, and the results those of the same
+    call with the spans off; off, nothing is recorded."""
+    code = tl.array_code(8, 16, 61)
+    coding = transport.TransportCoding(code=code, n_iters=12, interleave_seed=77, crc="crc16",
+                                       early_iters=None, kernels="pallas", schedule="layered")
+    case = synthetic.make_mimo_case(seed=5100, n_rx=2, modulation="16qam", scramble=False,
+                                    n_prbs=12, n_layers=2, snr_db=25.0)
+    probs = [serving.Problem(case.received_rg.astype(np.complex64),
+                             case.pilots.astype(np.complex64), case.beta, case.hop1, case.hop2,
+                             case.config)] * 6
+    kw = dict(batch_size=2, out="decoded", modulation="16qam", coding=coding,
+              decode_on_device=True)
+    for _ in range(2):  # eager, then captured: every later chunk replays
+        serving.process(probs, **kw)
+    s0 = spans.snapshot()
+    off = serving.process(probs, **kw)
+    assert spans.snapshot() == s0
+    r0 = graphs.replays
+    with spans.enabled():
+        on = serving.process(probs, **kw)
+    s1 = spans.snapshot()
+    assert graphs.replays - r0 == 3
+    d = {n: s1["spans"][n]["count"] - s0["spans"].get(n, {}).get("count", 0)
+         for n in ("serving.process", "graphs.replay", "serving.pack", "serving.unpack")}
+    # a pack and a copy each of the grids, the pilots and the betas, a chunk
+    assert d == {"serving.process": 1, "graphs.replay": 3, "serving.pack": 9,
+                 "serving.unpack": 3}
+    assert s1["counters"]["graphs.replay_ms"] - s0["counters"].get("graphs.replay_ms", 0) > 0
+    assert not spans._pending
+    rg, pil = probs[0].received_rg, probs[0].pilots
+    staged = 3 * 2 * (2 * rg.size * 4 + 2 * pil.size * 4 + 4)
+    assert (s1["counters"]["serving.h2d_bytes"]
+            - s0["counters"].get("serving.h2d_bytes", 0)) == staged
+    for a, b in zip(off, on):
+        assert np.array_equal(a.info, b.info) and np.array_equal(a.ok, b.ok)
