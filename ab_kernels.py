@@ -37,7 +37,9 @@ over n) in turns other / this / this / other:
       symbol 7 of the (624, 14) grid);
   k5  c2 rows (128, 8, 650) and time-interpolation rows (128, 32, 650), K=15;
   k3  NR BG1 Z=384, B=128, 8 layered sweeps, bfloat16 and float32 messages;
-      the e2e decode shape, B=24, 16 sweeps, bfloat16;
+      the e2e decode shape, B=24, 16 sweeps, bfloat16; the served call's
+      shape (8 slots of 12 blocks), B=96, 16 sweeps, bfloat16; the host
+      decode path's word chunk, B=512, 16 sweeps, bfloat16;
   k4  chip_smoke phase 16's six configurations: n976 B=512 flooding-25 and
       layered-13, BG2 Z=208 B=128 flooding-16 and layered-8 G=8, BG1 Z=52
       B=128 flooding-16 and layered-8 G=2.
@@ -344,7 +346,8 @@ def main(argv) -> int:
     if "k3" in picked:
         fns = dict(zip(("other", "this"), entry("k3", "srs_ldpc_stream_posterior", k3._ARGTYPES)))
         code = nr_ldpc.nr_base_graph(1, 384)
-        for B, sweeps, c2v in ((128, 8, "bfloat16"), (128, 8, None), (24, 16, "bfloat16")):
+        for B, sweeps, c2v in ((128, 8, "bfloat16"), (128, 8, None), (24, 16, "bfloat16"),
+                               (96, 16, "bfloat16"), (512, 16, "bfloat16")):
             plan, ch = words(code, B, 3.5)
             want = k3.ldpc_stream_posterior_plain(ch, plan, sweeps, 0.75, 1, c2v)
             bf16 = int(c2v == "bfloat16")

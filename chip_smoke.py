@@ -49,9 +49,10 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      (the plain flooding is the "xla" tier), payload-exact, with each launch
      plan (route, codewords a block, dynamic shared memory);
  17. K3 (ldpc_stream_posterior) against its plain version at NR BG1 Z=384
-     (n = 26112), B=128, 8 layered sweeps, float32 and bfloat16 messages, and
-     at the e2e decode shape (B=24, 16 sweeps, bfloat16): bit-identical
-     (int32 views), payload-exact;
+     (n = 26112), B=128, 8 layered sweeps, float32 and bfloat16 messages, at
+     the e2e decode shape (B=24, 16 sweeps, bfloat16) and at the served
+     call's (B=96: 8 slots of 12 blocks, 16 sweeps, bfloat16): bit-identical
+     (int32 views), payload-exact, each launch counted on its route;
  18. `ops.ldpc.build_decoder(kernels="auto")` on the card for the bench's
      five decode rows: the tier taken, K3/K4 launches of one call (counts set
      to 0 just before it), payload-exactness, ms per batch;
@@ -59,7 +60,7 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      rate 1/2 onto a 273-PRB single-hop QPSK grid, Gaussian LLRs at 3.5 dB,
      extract_streams, the auto decoder (K3, bfloat16 messages), every CRC ok;
  20. times with CUDA events: K3 and K4 against their plain versions at the
-     rows above (K3 also at the e2e shape), with their device-only times
+     rows above (K3 also at the e2e and served shapes), with their device-only times
      from the profiler, K1's and K2's device-only times beside their cold-L2
      events, K5's one-call PyTorch counterpart (F.conv1d), K5 and
      F.conv1d three ways (cold-L2 events, device-only kernel time from the
@@ -338,6 +339,7 @@ def main() -> int:
     def reset_counts():
         for m in kmods.values():
             m.launches = 0
+        k3.route_launches.update(dict.fromkeys(k3.route_launches, 0))
 
     def read_counts():
         return {k: m.launches for k, m in kmods.items()}
@@ -926,9 +928,12 @@ def main() -> int:
     plan384, u384, ch384 = words(code384, 128, 3.5)
     _, u24w, ch24 = words(code384, 24, 3.5, seed=1)
     k3_err = 0.0
+    _, u96w, ch96 = words(code384, 96, 3.5, seed=2)
     for ch_, u_, sweeps, c2v in ((ch384, u384, 8, None), (ch384, u384, 8, "bfloat16"),
-                                 (ch24, u24w, 16, "bfloat16")):
+                                 (ch24, u24w, 16, "bfloat16"), (ch96, u96w, 16, "bfloat16")):
+        routes0 = dict(k3.route_launches)
         got = k3.ldpc_stream_posterior(ch_, plan384, sweeps, 0.75, 1, c2v)
+        routed = {r: n - routes0[r] for r, n in k3.route_launches.items() if n != routes0[r]}
         want = k3.ldpc_stream_posterior_plain(ch_, plan384, sweeps, 0.75, 1, c2v)
         torch.cuda.synchronize()
         if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
@@ -939,7 +944,8 @@ def main() -> int:
         k3_err = max(k3_err, float((got - want).abs().max()))
         print(f"phase 17 K3 vs plain (NR BG1 Z=384 n={code384.n}, B={ch_.shape[0]}, layered-{sweeps} "
               f"G=1, c2v {c2v or 'float32'}): posterior bit-identical (int32 views), payload-exact; "
-              f"{plan_text(plan384, ch_.shape[0], 4 if c2v is None else 2, True, 1)}")
+              f"{plan_text(plan384, ch_.shape[0], 4 if c2v is None else 2, True, 1)}; "
+              f"launches by route {routed}")
     results["ldpc_posterior"] = 0.0
     results["ldpc_stream_posterior"] = k3_err
 
@@ -1020,7 +1026,8 @@ def main() -> int:
         print(f"phase 20 K4 {label}: kernel {t[0]:.4f} ms, device-only {device_ms(fn, 20):.4f} ms, "
               f"plain {t[1]:.4f} ms, bound {b_ms:.4f} ms ({b_by}; bytes {tb:.4f}, operations "
               f"{to:.4f}), cold L2 {card}")
-    for ch_, sweeps, c2v in ((ch384, 8, "bfloat16"), (ch384, 8, None), (ch24, 16, "bfloat16")):
+    for ch_, sweeps, c2v in ((ch384, 8, "bfloat16"), (ch384, 8, None), (ch24, 16, "bfloat16"),
+                             (ch96, 16, "bfloat16")):
         B_ = ch_.shape[0]
         fn = lambda: k3.ldpc_stream_posterior(ch_, plan384, sweeps, 0.75, 1, c2v)
         t = ab(fn, lambda: k3.ldpc_stream_posterior_plain(ch_, plan384, sweeps, 0.75, 1, c2v),
@@ -1426,7 +1433,8 @@ def main() -> int:
                      f"{cnt['ldpc_stream_posterior']} < {n_calls} decode calls")
             e2e_out[(on_device, n)] = res
             print(f"phase 24 e2e decoded 273 PRB BG1 Z=384 {'device' if on_device else 'host'} path, "
-                  f"{n} slots x {lay.c_words} words: every CRC24B ok, payload-exact, launches {cnt}")
+                  f"{n} slots x {lay.c_words} words: every CRC24B ok, payload-exact, launches {cnt}, "
+                  f"K3 by route {k3.route_launches}")
     for n in (8, 24):
         for rh, rd in zip(e2e_out[(False, n)], e2e_out[(True, n)]):
             if not (np.array_equal(rh.info, rd.info) and np.array_equal(rh.ok, rd.ok)):

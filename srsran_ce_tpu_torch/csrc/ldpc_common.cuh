@@ -8,8 +8,9 @@
 // (edges row-major, as LdpcPlan.edges): check lane a of edge e reads variable
 // bit j*z + (a + s) mod z, and its message goes back to that bit. Each block
 // copies the int32 table [edge_var | edge_shift | row_ptr | col_ptr |
-// col_edge] into shared memory once, packed: per edge (j*z) << 16 | s, per
-// column edge (flooding) i << 21 | t << 16 | s.
+// col_edge] into shared memory once, packed: per edge (j*z) << 16 | s (kPair:
+// the byte offset of block j in L << 11 | 4 s, load_wiring_pair), per column
+// edge (flooding) i << 21 | t << 16 | s.
 //
 // Messages as records. Every message that row i stores at lane a is +-r1 or
 // +-r2, with r1 = stored(norm * min1) and r2 = stored(norm * min2) ("stored":
@@ -34,6 +35,19 @@
 //            into a double buffer with cp.async one row step ahead (the new
 //            records of a group go to the scratch and, for its apply, to a
 //            shared copy N).
+//   kPair    kStream's records and buffers with two threads a check lane
+//            (layered_kernel_pair, check_pair): taken for groups of one row
+//            at one codeword a block where 2z <= kPairThreads, at any batch,
+//            so kStream's kernel runs groups of several rows (or several
+//            codewords a block). A row step is a serial chain (a barrier,
+//            the lane's L reads, the two-min fold through every slot, the
+//            apply) that one SM's 12 warps at z = 384 do not hide: two
+//            threads a lane halve each chain and double the warps, and each
+//            thread's slots are unrolled for the row's own count (no branch
+//            a slot), so the reads of a row step are in flight together.
+//            Over one wave it still wins: kStream's thread takes 100
+//            registers at DMAX 27, so its 384-thread blocks do not share an
+//            SM either (512 words at 16 sweeps: PERF.md §7 #19).
 // A block takes cpb codewords where z is small, so that its lanes fill warps
 // while the blocks still cover the SMs where the batch allows; the ragged last
 // block is masked. Codes whose state fits neither route are refused.
@@ -54,12 +68,16 @@
 namespace ldpc {
 
 constexpr int kMaxThreads = 512;
+// kPair's largest block: two threads a check lane up to z = 384, NR's largest
+// lifting size; its launch bound leaves a thread 80 registers (1024 threads
+// would leave 64, below what pair_row's 14 slots take)
+constexpr int kPairThreads = 768;
 constexpr float kBig = 1e30f;          // the JAX package's mask value (never wins a min)
 constexpr int kMaxDegree = 27;         // a record word: i1 in 5 bits, one sign bit per slot
 constexpr int kMaxRows = 2048;         // a packed column edge holds its row in 11 bits
 constexpr long long kSmemLimit = 232448;  // dynamic shared memory of one block (227 KB)
 
-enum Route { kChip = 0, kStream = 1 };
+enum Route { kChip = 0, kStream = 1, kPair = 2 };
 
 __host__ __device__ constexpr long long pad16(long long x) { return (x + 15) & ~15LL; }
 
@@ -125,14 +143,19 @@ inline int make_plan(Plan* p, int batch, int n_edges, int mb, int nb, int z, int
   while (wiring + (c + 1) * per <= kSmemLimit && (c + 1) * lanes <= kMaxThreads &&
          (batch + c) / (c + 1) >= n_sm)
     ++c;
-  const long long t = (c * lanes + 31) / 32 * 32;
+  // kPair: the stream route's row step on two threads a check lane, where a
+  // block holds one codeword
+  const bool pair = layered && G == 1 && p->route == kStream && c == 1 &&
+                    2LL * z <= kPairThreads;
+  if (pair) p->route = kPair;
+  const long long t = ((pair ? 2 : c) * lanes + 31) / 32 * 32;
   p->cpb = c;
-  p->threads = static_cast<int>(t < kMaxThreads ? t : kMaxThreads);
+  p->threads = static_cast<int>(pair || t < kMaxThreads ? t : kMaxThreads);
   p->blocks = (batch + c - 1) / c;
   p->wiring_bytes = static_cast<int>(wiring);
   p->per_cw = static_cast<int>(per);
   p->smem = wiring + c * per;
-  p->scratch = p->route == kStream ? mb * S : 0;
+  p->scratch = p->route == kChip ? 0 : mb * S;
   return 0;
 }
 
@@ -333,6 +356,137 @@ __device__ __forceinline__ void apply_lane(float* L, const unsigned* ew, int deg
   }
 }
 
+// kPair's wiring: row_ptr as load_wiring writes it, and per edge the byte
+// offset from `smem` of its variable block in L (L at `l_off`) << 11 | 4 s
+// (offsets below 2^18 and 4 s below 2^11: z <= kPairThreads / 2).
+__device__ __forceinline__ void load_wiring_pair(unsigned char* smem, const int* tbl, int n_edges,
+                                                 int mb, int z, int l_off) {
+  const int* ev = tbl;
+  const int* es = tbl + n_edges;
+  const int* rp = tbl + 2 * n_edges;
+  int* row_ptr = reinterpret_cast<int*>(smem);
+  unsigned* ew = reinterpret_cast<unsigned*>(smem + pad16(4LL * (mb + 1)));
+  for (int k = threadIdx.x; k <= mb; k += blockDim.x) row_ptr[k] = rp[k];
+  for (int e = threadIdx.x; e < n_edges; e += blockDim.x)
+    ew[e] = (static_cast<unsigned>(l_off + 4 * ev[e] * z) << 11) | static_cast<unsigned>(4 * es[e]);
+}
+
+// kPair: the byte offset from `smem` of the L element that lane a (a4 = 4 a)
+// of an edge (load_wiring_pair's word) reads: its block's + 4 ((a + s) mod z),
+// the wrap an unsigned min (a4 + 4 s < 8 z, z4 = 4 z)
+__device__ __forceinline__ int pair_addr(unsigned e, int a4, int z4) {
+  const unsigned q = static_cast<unsigned>(a4) + (e & 0x7ffu);
+  return static_cast<int>((e >> 11) + min(q, q - static_cast<unsigned>(z4)));
+}
+
+// kPair: slot u of a record seen from slot t0 on: r2 at ri = i1 - t0, r1
+// elsewhere, its sign bit u of rs = signs >> t0 moved onto the float's (as
+// msg(r, t0 + u), with u known at compile time)
+__device__ __forceinline__ float msg_from(float r1, float r2, int ri, unsigned rs, int u) {
+  const float m = u == ri ? r2 : r1;
+  return __int_as_float(__float_as_int(m) ^ static_cast<int>((rs << (31 - u)) & 0x80000000u));
+}
+
+// kPair: check lane a of one row of degree deg (a group of one row) on two
+// threads, `half` 0 and 1, partners by lane ^ 1 in one warp (`mask`: the
+// warp's threads with a lane), each taking N = (deg + 1) / 2 slots: half 0
+// [0, N), half 1 [deg - N, deg). With deg odd the two share slot N - 1,
+// which half 1 masks (a magnitude of +inf, no sign, no apply), so that both
+// threads of a warp run the same N slots, unrolled with no branch. Each
+// thread reads and folds its slots, and the two folds merge by three
+// shuffles into the sequential fold's record: m1 is the lower half's unless
+// the upper half's is strictly less (the sequential fold keeps the first
+// minimum), i1 goes with it, and m2 is the least of the other three values;
+// the sign bits are the union of the halves'. Each thread then applies its
+// own slots to L. The fold is taken as m1 = min(m1, m), m2 = min(m2,
+// max(m1, m)), i1 = m < m1 ? u : i1 (fminf / fmaxf are exact, and a
+// magnitude is never -0.0), from m2 = kBig in each half: m2 is then
+// min(kBig, every magnitude but the first minimum's), the plain version's
+// (check_update) for every magnitude short of NaN, +inf included. The
+// sequential fold (check_lane) is the same below kBig (1e30); above it,
+// with the first minimum past slot 0, it leaves kBig out. The shared
+// slot's read in half 1 goes to smem's first word (row_ptr[0], read-only
+// in the sweeps), not to the L element half 0 writes.
+template <typename M, int N>
+__device__ __forceinline__ Rec pair_row(unsigned char* smem, const unsigned* ew, int deg, int z4,
+                                        int a4, int half, unsigned mask, float norm,
+                                        const Rec& old) {
+  const int t0 = half ? deg - N : 0;
+  const bool dup = half && 2 * N != deg;  // half 1's slot 0 is half 0's last
+  const unsigned* e = ew + t0;
+  const int oi = static_cast<int>(old.w & 31u) - t0;
+  const unsigned os = old.w >> (5 + t0);
+  int at[N];
+  float lv[N], om[N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) at[u] = pair_addr(e[u], a4, z4);
+  if (dup) at[0] = 0;  // masked below: no race with half 0's store
+#pragma unroll
+  for (int u = 0; u < N; ++u) lv[u] = *reinterpret_cast<const float*>(smem + at[u]);
+  float m1 = __int_as_float(0x7f800000), m2 = kBig;
+  int i1 = 0;
+  unsigned negs = 0u;
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    om[u] = msg_from(old.r1, old.r2, oi, os, u);
+    const float v = __fsub_rn(lv[u], om[u]);
+    float m = fabsf(v);
+    if (u == 0 && dup) {
+      m = __int_as_float(0x7f800000);
+    } else if (v < 0.f) {
+      negs |= 1u << u;
+    }
+    i1 = m < m1 ? u : i1;
+    m2 = fminf(m2, fmaxf(m1, m));
+    m1 = fminf(m1, m);
+  }
+  // the partner's fold; its first-minimum slot rides above the sign bits (slots < 27)
+  negs <<= t0;
+  i1 += t0;
+  const float p1 = __shfl_xor_sync(mask, m1, 1);
+  const float p2 = __shfl_xor_sync(mask, m2, 1);
+  const unsigned pw = __shfl_xor_sync(mask, negs | (static_cast<unsigned>(i1) << 27), 1);
+  const float lo1 = half ? p1 : m1, lo2 = half ? p2 : m2;
+  const float hi1 = half ? m1 : p1, hi2 = half ? m2 : p2;
+  const int lo_i = half ? static_cast<int>(pw >> 27) : i1;
+  const int hi_i = half ? i1 : static_cast<int>(pw >> 27);
+  const bool less = hi1 < lo1;
+  negs |= pw & 0x07ffffffu;
+  const unsigned par = static_cast<unsigned>(__popc(negs)) & 1u;
+  Rec nw;
+  nw.r1 = Store<M>::round(__fmul_rn(norm, less ? hi1 : lo1));
+  nw.r2 = Store<M>::round(__fmul_rn(norm, less ? fminf(lo1, hi2) : fminf(lo2, hi1)));
+  nw.w = static_cast<unsigned>(less ? hi_i : lo_i) |
+         ((par ? negs ^ ((1u << deg) - 1u) : negs) << 5);
+  const int ni = static_cast<int>(nw.w & 31u) - t0;
+  const unsigned ns = nw.w >> (5 + t0);
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const float l = __fadd_rn(lv[u], __fsub_rn(msg_from(nw.r1, nw.r2, ni, ns, u), om[u]));
+    if (u != 0 || !dup) *reinterpret_cast<float*>(smem + at[u]) = l;
+  }
+  return nw;
+}
+
+// kPair's row: pair_row at N = (deg + 1) / 2 slots a thread, N <= DH, the
+// half bucket (DMAX + 1) / 2.
+template <typename M, int DH>
+__device__ __forceinline__ Rec check_pair(unsigned char* smem, const unsigned* ew, int deg, int z4,
+                                          int a4, int half, unsigned mask, float norm,
+                                          const Rec& old) {
+  switch ((deg + 1) >> 1) {
+#define LDPC_PAIR_ROW(N)                                                                 \
+  case N:                                                                                \
+    if constexpr (N <= DH) return pair_row<M, N>(smem, ew, deg, z4, a4, half, mask, norm, old); \
+    break;
+    LDPC_PAIR_ROW(1) LDPC_PAIR_ROW(2) LDPC_PAIR_ROW(3) LDPC_PAIR_ROW(4) LDPC_PAIR_ROW(5)
+    LDPC_PAIR_ROW(6) LDPC_PAIR_ROW(7) LDPC_PAIR_ROW(8) LDPC_PAIR_ROW(9) LDPC_PAIR_ROW(10)
+    LDPC_PAIR_ROW(11) LDPC_PAIR_ROW(12) LDPC_PAIR_ROW(13) LDPC_PAIR_ROW(14)
+#undef LDPC_PAIR_ROW
+  }
+  return old;  // not reached: deg <= DMAX <= 2 DH
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
@@ -483,6 +637,84 @@ __global__ void __launch_bounds__(kMaxThreads, 1) layered_kernel(const Args a) {
   }
 }
 
+// kPair: all n_iters layered sweeps of one codeword a block, rows one at a
+// time, on two threads a check lane (check_pair); the records stream through
+// the double buffer as on kStream, one row ahead, each of the first S / 16
+// threads bringing one 16-byte chunk of the next row's block. ptxas (sm_90a,
+// -O3) gives the instantiations of DMAX 27 (pair_row up to 14 slots a
+// thread) 75 (bf16) and 78 (f32) registers a thread, DMAX 16 60, DMAX 8 45,
+// no spills.
+template <typename M, int DMAX>
+__global__ void __launch_bounds__(kPairThreads, 1) layered_kernel_pair(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int z = a.z;
+  const int n = a.nb * z;
+  const int mb = a.mb;
+  const int S = a.p.stride;
+  using Pair = typename Store<M>::Pair;
+  const SmemWiring wr(smem, a.n_edges, mb);
+  load_wiring_pair(smem, a.tbl, a.n_edges, mb, z, a.p.wiring_bytes);
+  unsigned char* reg = region(smem, a, 0);
+  float* L = reinterpret_cast<float*>(reg);
+  unsigned char* buf = reg + pad16(4LL * n);  // the two row buffers
+  unsigned char* rec = a.rec + static_cast<size_t>(blockIdx.x) * a.p.scratch;  // this codeword's
+  for (int k = threadIdx.x; k < n; k += blockDim.x) L[k] = a.ch[static_cast<size_t>(blockIdx.x) * n + k];
+  const int lane = threadIdx.x >> 1;
+  const int half = threadIdx.x & 1;
+  const bool active = lane < z;
+  const unsigned mask = __ballot_sync(0xffffffffu, active);
+  const int chunk = 16 * threadIdx.x;  // this thread's chunk of a row block, if < S
+  // this lane's record in a row block: its {r1, r2} and its word
+  const int rec_pair = static_cast<int>(sizeof(Pair)) * lane;
+  const int rec_word = a.p.mag_bytes + 4 * lane;
+  unsigned char* my_rec = rec + (half ? rec_word : rec_pair);  // the plane this thread stores
+  __syncthreads();
+  int step = 0;
+  for (int it = 0; it < a.n_iters; ++it) {
+    for (int i = 0; i < mb; ++i, ++step) {
+      const int cur = step & 1;
+      if (mb > 1) {
+        cp_async_wait_group<0>();
+        __syncthreads();
+        const int ni = i + 1 == mb ? 0 : i + 1;  // the next step's row and sweep
+        const int nit = i + 1 == mb ? it + 1 : it;
+        if (nit > 0 && nit < a.n_iters && chunk < S)
+          cp_async16(buf + (cur ^ 1) * S + chunk, rec + static_cast<size_t>(ni) * S + chunk);
+        cp_async_commit();
+      } else {  // one row: its records are the ones the last step wrote
+        __syncthreads();
+        if (it > 0) {
+          if (chunk < S) cp_async16(buf + cur * S + chunk, rec + chunk);
+          cp_async_commit();
+          cp_async_wait_group<0>();
+        }
+        __syncthreads();
+      }
+      if (active) {
+        int deg;
+        const unsigned* ew = wr.row(i, deg);
+        Rec old{0.f, 0.f, 0u};
+        if (it > 0) {
+          const unsigned char* row = buf + cur * S;
+          const Pair pr = *reinterpret_cast<const Pair*>(row + rec_pair);
+          old = Rec{Store<M>::first(pr), Store<M>::second(pr),
+                    *reinterpret_cast<const unsigned*>(row + rec_word)};
+        }
+        const Rec nw = check_pair<M, (DMAX + 1) / 2>(smem, ew, deg, 4 * z, 4 * lane, half, mask,
+                                                     a.norm, old);
+        // the record's two planes, one a thread (store_rec's two stores)
+        unsigned char* dst = my_rec + static_cast<size_t>(i) * S;
+        if (half == 0)
+          *reinterpret_cast<Pair*>(dst) = Store<M>::pack(nw.r1, nw.r2);
+        else
+          *reinterpret_cast<unsigned*>(dst) = nw.w;
+      }
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < n; k += blockDim.x) a.out[static_cast<size_t>(blockIdx.x) * n + k] = L[k];
+}
+
 template <typename K>
 int launch_kernel(K kernel, const Args& a, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
@@ -494,6 +726,7 @@ int launch_kernel(K kernel, const Args& a, cudaStream_t stream) {
 
 template <typename M, int DMAX>
 int launch_layered_bucket(const Args& a, cudaStream_t stream) {
+  if (a.p.route == kPair) return launch_kernel(layered_kernel_pair<M, DMAX>, a, stream);
   if (a.p.route == kStream) return launch_kernel(layered_kernel<M, DMAX, true>, a, stream);
   return launch_kernel(layered_kernel<M, DMAX, false>, a, stream);
 }
@@ -517,7 +750,7 @@ inline int make_args(Args* a, const float* ch, float* out, void* rec, const int*
   if (bad != 0) return bad;
   bad = make_plan(&a->p, batch, n_edges, mb, nb, z, msg_bytes, layered, group, n_sm);
   if (bad != 0) return bad;
-  if (a->p.route == kStream && rec == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (a->p.route != kChip && rec == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   a->ch = ch;
   a->out = out;
   a->rec = static_cast<unsigned char*>(rec);

@@ -20,6 +20,7 @@ Each graph holds a private memory pool, so at most `MAX_GRAPHS` are kept
 capture launches nothing, so its counts are taken back, and each replay adds
 them again, once per kernel the graph launches, so the counters go on
 counting launches on the card (one call, one launch of each of its kernels).
+The same holds for a wrapper's launches by route (`route_launches`, K3's).
 A replay is the span `graphs.replay` (its input copies, the replay and the
 output clones), and its work on the card the event-timed `graphs.replay_ms`
 (`utils/spans.py`, while the spans are on).
@@ -92,6 +93,21 @@ def kernel_modules():
     return (front, fill_rotate_serve, rc_smooth, fill_rotate, ldpc, ldpc_stream, inpaint)
 
 
+def launch_counts(mods) -> tuple:
+    """Per kernel module of `mods`: (launches, {route: launches}), the
+    second empty for a wrapper that does not count its routes."""
+    return tuple((m.launches, dict(getattr(m, "route_launches", {}))) for m in mods)
+
+
+def add_launch_counts(mods, counts, sign: int = 1) -> None:
+    """Add `sign` x `counts` (as `launch_counts` gives them) to the modules'
+    counters."""
+    for m, (n, by_route) in zip(mods, counts):
+        m.launches += sign * n
+        for r, k in by_route.items():
+            m.route_launches[r] += sign * k
+
+
 def map_tensors(fn, value):
     """`fn` over every tensor of a result (dataclass, tuple), the structure
     and everything else kept."""
@@ -108,7 +124,7 @@ class _Entry:
     graph: torch.cuda.CUDAGraph
     inputs: list  # the static input buffers, in argument order (None for non-tensors)
     outputs: object  # the forward's result, in the graph's pool
-    launches: tuple  # per kernel module, the launches of one replay
+    launches: tuple  # per kernel module, the launches of one replay (`launch_counts`)
     keep: list  # the non-tensor arguments and what `hold` registered
 
     def replay(self, args):
@@ -120,8 +136,7 @@ class _Entry:
             with spans.device_span("graphs.replay_ms"):
                 self.graph.replay()
             replays += 1
-            for m, n in zip(kernel_modules(), self.launches):
-                m.launches += n
+            add_launch_counts(kernel_modules(), self.launches)
             return map_tensors(torch.clone, self.outputs)
 
 
@@ -175,7 +190,7 @@ class Graphed:
         prev_eager, prev_keep = getattr(_local, "eager", False), getattr(_local, "keep", None)
         _local.eager, _local.keep = True, keep  # nested builders run inside this graph
         try:
-            before = tuple(m.launches for m in mods)
+            before = launch_counts(mods)
             graph = torch.cuda.CUDAGraph()
             try:
                 # capture_begin / capture_end on a side stream, not
@@ -194,9 +209,10 @@ class Graphed:
                     f"CUDA graph capture of {self.signature(key)} failed: {e}"
                 ) from e
             finally:
-                counted = tuple(m.launches - b for m, b in zip(mods, before))
-                for m, b in zip(mods, before):
-                    m.launches = b
+                after = launch_counts(mods)
+                counted = tuple((n - n0, {r: k - r0.get(r, 0) for r, k in by_route.items()})
+                                for (n, by_route), (n0, r0) in zip(after, before))
+                add_launch_counts(mods, counted, -1)
         finally:
             _local.eager, _local.keep = prev_eager, prev_keep
         captures += 1

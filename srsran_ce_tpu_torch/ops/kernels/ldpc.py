@@ -17,7 +17,7 @@ messages. The wiring (packed per edge and per column edge, about 4 KB) is
 copied into shared memory once per block; the slot loops are unrolled over
 a degree bucket (8, 16 or 27) and leave at the row's degree, so a row's L
 reads are in flight together.
-`launch_plan` (mirroring `ldpc::make_plan`) picks one of two routes:
+`launch_plan` (mirroring `ldpc::make_plan`) picks one of three routes:
 - chip: L, the records and (flooding) the LLRs all in shared memory, the
   TPU kernel's all-in-VMEM layout (BG2 Z=208 flooding: 191 KB; BG1 Z=52:
   57 KB; n976: 12 KB), several codewords a block where z is small (lanes
@@ -25,19 +25,31 @@ reads are in flight together.
 - stream: L in shared memory, the records in a global scratch that L2 holds,
   for codes whose state does not fit one block (227 KB); the layered sweep
   brings each row group's records in a step ahead with `cp.async`, into a
-  double buffer.
+  double buffer;
+- pair: the stream route's records and buffers, with two threads a check
+  lane in the layered row step (`layered_kernel_pair`), where the stream
+  route would run groups of one row at one codeword a block and 2z <=
+  PAIR_THREADS, at any batch. A row step is a serial chain, the lane's L
+  reads, the two-min fold through every slot and the apply, that 12 warps
+  an SM (z = 384) do not hide: each thread takes a contiguous half of the
+  row's slots, N = ceil(deg / 2) each (with deg odd the upper thread masks
+  the slot they share), unrolled for N with no branch a slot; the two folds
+  merge by warp shuffles into the plain fold's minima, first-minimum slot
+  and signs (the lower half's minimum wins a tie), and each thread applies
+  its half. The stream route's kernel keeps groups of several rows.
 A code whose posterior and row buffers exceed the limit is refused. No route
 is chosen by catching an error, and no call falls back.
 - Flooding: one thread per variable bit sums ch + the column's messages in
   edge order, each rebuilt from its row's record at lane (a - s) mod z (no
   atomics: their order is not fixed), then one thread per check lane folds
   its row's two minima and rewrites its record in place.
-- Layered: one thread per check lane of the group's rows computes its new
-  record from the L snapshot. With group == 1 each lane applies new - old
-  to L at once (within one row each variable block appears once: a QC base
-  matrix has one shift per (row, column)); with group > 1 the old records are
-  kept and the rows are applied in order, one `__syncthreads()` apart, each
-  delta rebuilt from the old and the new record (no delta scratch).
+- Layered: one thread per check lane (two on the pair route) of the
+  group's rows computes its new record from the L snapshot. With group == 1
+  each lane applies new - old to L at once (within one row each variable
+  block appears once: a QC base matrix has one shift per (row, column));
+  with group > 1 the old records are kept and the rows are applied in
+  order, one `__syncthreads()` apart, each delta rebuilt from the old and
+  the new record (no delta scratch).
 Every add, subtract and product is a `__fadd_rn`/`__fsub_rn`/`__fmul_rn`, so
 no FMA contraction moves a bit against the plain version.
 
@@ -76,7 +88,11 @@ SMEM_LIMIT = 232448
 MAX_DEGREE = 27
 MAX_ROWS = 2048  # a packed column edge holds its row in 11 bits
 MAX_THREADS = 512
-ROUTES = ("chip", "stream")  # route 0: every record in shared memory; 1: records in L2
+#: the pair route's largest block: two threads a check lane up to z = 384
+PAIR_THREADS = 768
+#: route 0: every record in shared memory; 1: records in L2; 2: records in L2
+#: and two threads a check lane
+ROUTES = ("chip", "stream", "pair")
 
 _PTR = ctypes.c_void_p
 _I = ctypes.c_int
@@ -297,7 +313,9 @@ def launch_plan(w: Wiring, batch: int, msg_bytes: int, layered: bool, group: int
     route. A block takes the most codewords, c, such that its shared memory
     fits, c times the threads of one row step (one a check lane layered, one
     a bit or check lane flooding) fill at most MAX_THREADS, and
-    ceil(batch / c) blocks still cover the `n_sm` SMs."""
+    ceil(batch / c) blocks still cover the `n_sm` SMs. The stream route with
+    groups of one row, one codeword a block and 2z <= PAIR_THREADS becomes
+    the pair route: 2z threads a block."""
     mb, nb, z, E = w.mb, w.nb, w.z, w.n_edges
     n = nb * z
     G = group if layered else 1
@@ -321,9 +339,12 @@ def launch_plan(w: Wiring, batch: int, msg_bytes: int, layered: bool, group: int
     while (wiring_b + (c + 1) * per <= SMEM_LIMIT and (c + 1) * lanes <= MAX_THREADS
            and (batch + c) // (c + 1) >= n_sm):
         c += 1
-    return LaunchPlan(route=route, cpb=c, threads=min(MAX_THREADS, -(-c * lanes // 32) * 32),
-                      blocks=-(-batch // c), smem=wiring_b + c * per,
-                      scratch=mb * stride if route == "stream" else 0, per_cw=per)
+    threads = min(MAX_THREADS, -(-c * lanes // 32) * 32)
+    if layered and G == 1 and route == "stream" and c == 1 and 2 * z <= PAIR_THREADS:
+        route, threads = "pair", -(-2 * z // 32) * 32
+    return LaunchPlan(route=route, cpb=c, threads=threads, blocks=-(-batch // c),
+                      smem=wiring_b + c * per, scratch=0 if route == "chip" else mb * stride,
+                      per_cw=per)
 
 
 def check_args(ch: torch.Tensor, plan, group: int):

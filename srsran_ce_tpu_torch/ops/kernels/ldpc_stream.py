@@ -34,7 +34,11 @@ What bounds it on the H100: 128 codewords are 128 blocks, one wave on 132
 SMs, and each sweep is mb row steps in series; the bytes (the LLRs in, the
 posterior out, 27 MB at B=128) need 8 us at 3.35 TB/s, so it is bound by the
 latency of the row steps: a barrier, one lane's slot loop (up to 22 slots)
-and its two-min fold (see PERF.md).
+and its two-min fold (see PERF.md). So with groups of one row (the served
+call's 96 words, the bench's 128, the host decode path's 512) a block runs
+each row step on two threads a check lane, the pair route
+(`ops/kernels/ldpc.py`), each thread half the slots; `route_launches`
+counts the launches by route.
 """
 from __future__ import annotations
 
@@ -43,11 +47,13 @@ import ctypes
 import torch
 
 from . import bind, launch
-from .ldpc import check_args, layered_plain, prepare, wiring
+from .ldpc import ROUTES, check_args, layered_plain, prepare, wiring
 
 #: kernel launches since the count was last set to 0 (incremented only where
 #: the CUDA kernel is launched, never by the plain version)
 launches = 0
+#: the same launches by launch-plan route (`ldpc.ROUTES`)
+route_launches = dict.fromkeys(ROUTES, 0)
 
 _PTR = ctypes.c_void_p
 _I = ctypes.c_int
@@ -88,7 +94,7 @@ def ldpc_stream_posterior(ch: torch.Tensor, plan, n_iters: int, norm: float,
     B = ch.shape[0]
     g = max(1, min(int(group), w.mb))
     bf16 = cdt == torch.bfloat16
-    _, rec = prepare(w, device, B, 2 if bf16 else 4, True, g)
+    lp, rec = prepare(w, device, B, 2 if bf16 else 4, True, g)
     out = torch.empty_like(ch)
     launch("ldpc_stream_posterior", bind("ldpc_stream", "srs_ldpc_stream_posterior", _ARGTYPES),
            device, ch.data_ptr(), out.data_ptr(), None if rec is None else rec.data_ptr(), None,
@@ -96,4 +102,5 @@ def ldpc_stream_posterior(ch: torch.Tensor, plan, n_iters: int, norm: float,
            int(bf16))
     global launches
     launches += 1
+    route_launches[lp.route] += 1
     return out

@@ -256,6 +256,11 @@ def cmd_diagnose(args) -> int:
         argsb = tuple(a.expand((b,) + a.shape).contiguous() for a in args1)
         ok = _diagnose_call(f"build_ri(batched=True, kernels={args.kernels!r}, out_layout='serve')"
                             f", B={b} (device {dev})", fn, argsb, dev) and ok
+    from .. import graphs
+    from ..ops.kernels import ldpc_stream
+
+    launched = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in graphs.kernel_modules()}
+    print(f"kernel launches over the run: {launched}; K3 by route: {ldpc_stream.route_launches}")
     if ok and dev.type == "cpu":
         print("offload verdict: no host fallbacks in the call on the CPU; the single-graph "
               "proof is the card's (--device cuda)")

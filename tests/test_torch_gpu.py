@@ -626,18 +626,103 @@ def sm_count():
 @NEEDS_GPU
 @pytest.mark.parametrize("name,batch,sweeps,c2v", [
     ("bg1_z384", 24, 16, "bfloat16"), ("bg1_z384", 1, 4, "bfloat16"), ("bg1_z384", 1, 4, None),
-    ("bg1_z384", 200, 2, "bfloat16"), ("bg1_z384", 200, 2, None),
+    ("bg1_z384", 200, 2, "bfloat16"), ("bg1_z384", 200, 2, None), ("bg1_z384", 24, 4, None),
+    ("bg1_z384", 96, 16, "bfloat16"), ("bg1_z384", 96, 16, None), ("bg1_z384", 132, 2, "bfloat16"),
+    ("bg1_z384", 132, 2, None), ("bg1_z384", 133, 2, "bfloat16"), ("bg1_z384", 133, 2, None),
+    ("bg1_z384", 512, 2, "bfloat16"),
 ])
 def test_ldpc_stream_kernel_at_the_e2e_and_edge_batches(name, batch, sweeps, c2v):
-    """K3 at the e2e decode shape (24 words, 16 sweeps), one word, and more
-    words than SMs (a second wave of blocks): the stream route, bit for bit."""
+    """K3 at the e2e decode shape (24 words, 16 sweeps), the served call's
+    (96 words: 8 slots of 12 blocks), one word, the last one-wave batch (an
+    SM a word), more words than SMs (a second wave of blocks) and the host
+    decode path's 512 words: the pair route at every batch, bit for bit,
+    one launch counted on its route."""
     code = LDPC_CODES[name]()
     plan = tl.make_ldpc_plan(code)
     _, ch = awgn_llrs(code, batch, seed=batch)
     w = k4.wiring(plan, ch.device)
-    assert k4.launch_plan(w, batch, 2 if c2v else 4, True, 1, sm_count()).route == "stream"
+    route = "pair"
+    assert k4.launch_plan(w, batch, 2 if c2v else 4, True, 1, sm_count()).route == route
+    r0 = dict(k3.route_launches)
     got = k3.ldpc_stream_posterior(ch, plan, sweeps, 0.75, c2v_dtype=c2v)
+    assert {r: n - r0[r] for r, n in k3.route_launches.items()} == {
+        r: int(r == route) for r in k4.ROUTES}
     want = k3.ldpc_stream_posterior_plain(ch, plan, sweeps, 0.75, c2v_dtype=c2v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and bits_equal(got, want), float((got - want).abs().max())
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("c2v", [None, "bfloat16"])
+@pytest.mark.parametrize("kind", ["straddle", "upper_first", "few_values"])
+def test_ldpc_stream_pair_route_ties(kind, c2v):
+    """The pair route's merge of its two half folds on ties, at NR BG1 Z=384
+    (row 0: 21 slots, halves [0, 11) and [11, 21)): the first sweep sees equal
+    least magnitudes on slots 10 and 11, straddling the halves' boundary
+    (the lower half's slot must win), or the least magnitude on the upper
+    half's first slot; or LLRs drawn from a few values with zeros of both
+    signs, so that ties fall everywhere. Bit for bit to the plain version."""
+    code = LDPC_CODES["bg1_z384"]()
+    plan = tl.make_ldpc_plan(code)
+    z, B = code.z, 8
+    rng = np.random.default_rng(11)
+    if kind == "few_values":
+        vals = np.array([-2.0, -1.0, -0.5, -0.0, 0.0, 0.5, 1.0, 2.0], np.float32)
+        llr = vals[rng.integers(0, vals.size, (B, code.n))]
+    else:
+        llr = np.where(rng.random((B, code.n)) < 0.3, -2.0, 2.0).astype(np.float32)
+        blocks = [j for i, t, j, s in plan.edges if i == 0]
+        h = (len(blocks) + 1) // 2
+        for t, mag in ((h - 1, 0.5), (h, 0.5)) if kind == "straddle" else ((h, 0.25),):
+            j = blocks[t]
+            llr[:, j * z:(j + 1) * z] = np.copysign(mag, llr[:, j * z:(j + 1) * z])
+    ch = torch.as_tensor(llr, device="cuda")
+    w = k4.wiring(plan, ch.device)
+    assert k4.launch_plan(w, B, 2 if c2v else 4, True, 1, sm_count()).route == "pair"
+    got = k3.ldpc_stream_posterior(ch, plan, 4, 0.75, c2v_dtype=c2v)
+    want = k3.ldpc_stream_posterior_plain(ch, plan, 4, 0.75, c2v_dtype=c2v)
+    torch.cuda.synchronize()
+    assert bits_equal(got, want), float((got - want).abs().max())
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("c2v", [None, "bfloat16"])
+def test_ldpc_stream_pair_route_on_saturated_llrs(c2v):
+    """K3's pair route at NR BG1 Z=384 on LLRs of which 30 % sit at and
+    above the mask value (1e30 .. 3e33, finite through the sweeps), where
+    the pair fold's second minimum is min(BIG, ...) as the plain version's:
+    bit for bit."""
+    code = LDPC_CODES["bg1_z384"]()
+    plan = tl.make_ldpc_plan(code)
+    rng = np.random.default_rng(5)
+    llr = rng.normal(0.0, 2.0, (8, code.n)).astype(np.float32)
+    hit = rng.random(llr.shape) < 0.3
+    big = np.array([1e30, 2e30, 1e31, 3e33], np.float32)
+    llr[hit] = np.copysign(big[rng.integers(0, big.size, int(hit.sum()))], llr[hit])
+    ch = torch.as_tensor(llr, device="cuda")
+    assert k4.launch_plan(k4.wiring(plan, ch.device), 8, 2 if c2v else 4, True, 1,
+                          sm_count()).route == "pair"
+    got = k3.ldpc_stream_posterior(ch, plan, 4, 0.75, c2v_dtype=c2v)
+    want = k3.ldpc_stream_posterior_plain(ch, plan, 4, 0.75, c2v_dtype=c2v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(want).all() and bits_equal(got, want), float((got - want).abs().max())
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("batch", [133, 512])
+def test_ldpc_posterior_pair_route_over_one_wave(batch):
+    """K4 (float32 records) at NR BG1 Z=384, layered, groups of one row,
+    over one wave of blocks (133 words) and at 512: the pair route, as the
+    launch plan is shared with K3, bit for bit, one launch."""
+    code = LDPC_CODES["bg1_z384"]()
+    plan = tl.make_ldpc_plan(code)
+    _, ch = awgn_llrs(code, batch, seed=batch)
+    lp = k4.launch_plan(k4.wiring(plan, ch.device), batch, 4, True, 1, sm_count())
+    assert lp.route == "pair" and lp.blocks == batch > sm_count()
+    n0 = k4.launches
+    got = k4.ldpc_posterior(ch, plan, 2, 0.75, schedule="layered", group=1)
+    assert k4.launches == n0 + 1
+    want = k4.ldpc_posterior_plain(ch, plan, 2, 0.75, schedule="layered", group=1)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all() and bits_equal(got, want), float((got - want).abs().max())
 
@@ -660,10 +745,10 @@ def test_ldpc_posterior_kernel_several_codewords_a_block_ragged(schedule, group)
 # every route of the table: (kernel, code, schedule, group, message type, route)
 ROUTE_CASES = [
     ("k4", "bg2_z208", "flooding", 1, None, "chip"), ("k4", "bg2_z208", "layered", 8, None, "chip"),
-    ("k4", "bg1_z384", "flooding", 1, None, "stream"), ("k4", "bg1_z384", "layered", 1, None, "stream"),
+    ("k4", "bg1_z384", "flooding", 1, None, "stream"), ("k4", "bg1_z384", "layered", 1, None, "pair"),
     ("k4", "bg1_z384", "layered", 3, None, "stream"), ("k3", "bg1_z52", "layered", 2, "bfloat16", "chip"),
     ("k3", "bg2_z144", "layered", 3, None, "chip"), ("k3", "bg1_z384", "layered", 3, "bfloat16", "stream"),
-    ("k3", "bg1_z384", "layered", 2, None, "stream"),
+    ("k3", "bg1_z384", "layered", 2, None, "stream"), ("k3", "bg1_z384", "layered", 1, "bfloat16", "pair"),
 ]
 
 
@@ -676,6 +761,7 @@ def test_ldpc_kernels_on_each_route(kern, name, schedule, group, c2v, route):
     w = k4.wiring(plan, ch.device)
     lp = k4.launch_plan(w, 6, 2 if c2v else 4, schedule == "layered", group, sm_count())
     assert lp.route == route and lp.smem <= k4.SMEM_LIMIT
+    assert lp.threads <= (k4.PAIR_THREADS if route == "pair" else k4.MAX_THREADS)
     if kern == "k4":
         got = k4.ldpc_posterior(ch, plan, 3, 0.75, schedule=schedule, group=group)
         want = k4.ldpc_posterior_plain(ch, plan, 3, 0.75, schedule=schedule, group=group)
@@ -690,7 +776,7 @@ def test_ldpc_kernels_on_each_route(kern, name, schedule, group, c2v, route):
 def test_ldpc_launch_plan_mirrors_the_kernels_plan():
     """`launch_plan` against `ldpc::make_plan` through `srs_ldpc_plan` of both
     libraries, at every code of these tests, both schedules, groups and
-    message types, and batches around the SM count."""
+    message types, and batches around the SM count (every route taken)."""
     import ctypes
 
     from srsran_ce_tpu_torch.ops.kernels import bind
@@ -699,11 +785,12 @@ def test_ldpc_launch_plan_mirrors_the_kernels_plan():
     fns = [bind(src, "srs_ldpc_plan", k4.PLAN_ARGTYPES) for src in ("ldpc", "ldpc_stream")]
     out = (ctypes.c_longlong * 7)()
     n_cases = 0
+    routes = set()
     for name, make in LDPC_CODES.items():
         w = k4.wiring(tl.make_ldpc_plan(make()), "cuda")
         for layered, group in ((False, 1), (True, 1), (True, 2), (True, 8), (True, 16)):
             for msg_bytes in (2, 4):
-                for batch in (1, 24, n_sm - 1, n_sm, 3 * n_sm + 1, 513):
+                for batch in (1, 24, 96, n_sm - 1, n_sm, n_sm + 1, 3 * n_sm + 1, 513):
                     rcs = [fn(out, batch, w.n_edges, w.mb, w.nb, w.z, msg_bytes, int(layered),
                               group, n_sm) for fn in fns]
                     try:
@@ -715,7 +802,8 @@ def test_ldpc_launch_plan_mirrors_the_kernels_plan():
                     assert list(out) == [k4.ROUTES.index(lp.route), lp.cpb, lp.threads, lp.blocks,
                                          lp.smem, lp.scratch, lp.per_cw], (name, layered, group)
                     n_cases += 1
-    assert n_cases > 100
+                    routes.add(lp.route)
+    assert n_cases > 100 and routes == set(k4.ROUTES)
 
 
 @NEEDS_GPU
@@ -1242,6 +1330,42 @@ def test_graphed_device_decode_equals_eager():
     for g, w in zip(got, want):
         assert np.array_equal(g.info, w.info) and np.array_equal(g.ok, w.ok)
         assert all(getattr(g, f) == getattr(w, f) for f in serving._SCALARS)
+
+
+@NEEDS_GPU
+def test_served_chunk_replay_launches_k3_once_on_the_pair_route():
+    """The served decode chunk (`serving._device_decode_chunk`) at NR BG1
+    Z=384, layered 16 sweeps, bfloat16 messages (8 slots a chunk, at most one
+    wave of words): one replay of its graph adds exactly one K3 launch, on the
+    pair route, to both counters, and the payloads come back exact."""
+    code = tnr.nr_base_graph(1, 384)
+    coding = transport.TransportCoding(
+        code=code, rate_match="nr", tx_bits=2 * 8448, schedule="layered", n_iters=16,
+        crc="crc24b", interleave_seed=7, layered_group=tl.default_layered_group(code),
+        stream_c2v_dtype="bfloat16")
+    geo = synthetic.make_case(seed=4242, snr_db=15.0, n_prbs=273, n_layers=1)
+    lay = transport.layout(coding, geo.hop1, geo.hop2, *geo.received_rg.shape, 1, 2)
+    assert 8 * lay.c_words <= sm_count()
+    rng = np.random.default_rng(4242)
+    u = rng.integers(0, 2, (lay.c_words, transport.payload_bits(coding, tl.make_ldpc_plan(code).k)),
+                     dtype=np.uint8)
+    bits = transport.place_codewords(lay, tl.encode(code, transport.crc_attach(u, "crc24b")), 1, 2,
+                                     fill_rng=rng)
+    case = synthetic.make_mimo_case(seed=4242, n_rx=1, modulation="qpsk", scramble=False, bits=bits,
+                                    n_prbs=273, n_layers=1, snr_db=15.0)
+    prob = serving.Problem(case.received_rg.astype(np.complex64), case.pilots.astype(np.complex64),
+                           case.beta, case.hop1, case.hop2, case.config)
+    kw = dict(batch_size=8, out="decoded", modulation="qpsk", coding=coding,
+              matmul_precision="high", decode_on_device=True)
+    for _ in range(2):  # the chunk's key: eager, then the capture and its replay
+        serving.process([prob] * 8, **kw)
+    n0, routes0, r0 = k3.launches, dict(k3.route_launches), graphs.replays
+    res = serving.process([prob] * 8, **kw)
+    torch.cuda.synchronize()
+    assert graphs.replays - r0 == 1 and k3.launches - n0 == 1
+    assert {r: n - routes0[r] for r, n in k3.route_launches.items()} == {
+        "chip": 0, "stream": 0, "pair": 1}
+    assert all(bool(np.all(r.ok)) and np.array_equal(r.info, u) for r in res)
 
 
 @NEEDS_GPU

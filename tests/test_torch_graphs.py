@@ -172,6 +172,24 @@ def test_graphed_runs_eagerly_on_the_cpu():
     assert graphs.map_tensors(lambda t: t * 2, (a, None, "s"))[0].sum() == 6
 
 
+def test_launch_counts_are_taken_back_and_added_by_route():
+    """What a capture takes back and each replay adds: every kernel module's
+    launches and, for K3, its launches by route (`route_launches`)."""
+    from srsran_ce_tpu_torch.ops.kernels import ldpc_stream as k3
+
+    mods = graphs.kernel_modules()
+    before = graphs.launch_counts(mods)
+    assert dict(before[mods.index(k3)][1]) == k3.route_launches
+    assert all(by_route == {} for m, (_, by_route) in zip(mods, before) if m is not k3)
+    one = tuple((int(m is k3), {"pair": 1} if m is k3 else {}) for m in mods)
+    graphs.add_launch_counts(mods, one)  # a replay of a graph holding one pair launch
+    after = graphs.launch_counts(mods)
+    assert after[mods.index(k3)][0] == before[mods.index(k3)][0] + 1
+    assert after[mods.index(k3)][1]["pair"] == before[mods.index(k3)][1]["pair"] + 1
+    graphs.add_launch_counts(mods, one, -1)  # a capture's counts taken back
+    assert graphs.launch_counts(mods) == before
+
+
 def test_diagnose_on_the_cpu(capsys):
     rc = cli.main(["diagnose", "--device", "cpu", "--n-prbs", "8", "--batched"])
     out = capsys.readouterr().out

@@ -510,22 +510,62 @@ def rec_msgs(rec, deg):
     return torch.where(((word[:, None] >> (t + 5)) & 1) == 1, -mag, mag)
 
 
-def rec_fold(v, norm, mdt):
-    """A check lane's fold over the slots (axis 1) of v = L - old: the two
-    minima (strict <, so the first minimum wins a tie), the parity, and the
-    new record (r1, r2 rounded to the message type, the word)."""
-    deg = v.shape[1]
-    m = v.abs()
-    m1, m2 = m[:, 0], torch.full_like(m[:, 0], k4.BIG)
-    i1 = torch.zeros(m1.shape, dtype=torch.int64)
-    negs = torch.zeros(m1.shape, dtype=torch.int64)
-    for t in range(deg):
-        negs |= (v[:, t] < 0).long() << t
-        if t:
+def min_fold(m, t0, t1):
+    """(m1, m2, i1) of the sequential two-min fold over slots t0 .. t1 - 1 of
+    the magnitudes m (axis 1): strict <, so the first minimum wins a tie; an
+    empty range gives (inf, BIG, t0), which never wins a merge."""
+    m1, m2 = torch.full_like(m[:, 0], float("inf")), torch.full_like(m[:, 0], k4.BIG)
+    i1 = torch.full(m1.shape, t0, dtype=torch.int64)
+    for t in range(t0, t1):
+        if t == t0:
+            m1 = m[:, t]
+        else:
             less = m[:, t] < m1
             m2 = torch.where(less, m1, torch.minimum(m2, m[:, t]))
             i1 = torch.where(less, t, i1)
             m1 = torch.where(less, m[:, t], m1)
+    return m1, m2, i1
+
+
+def halves_fold(m):
+    """The pair route's fold (pair_row): each of two threads takes N = (deg +
+    1) // 2 slots, [0, N) and [deg - N, deg); with deg odd the upper one
+    masks the shared slot N - 1 (+inf). Each folds as min / max, m1 =
+    min(m1, m), m2 = min(m2, max(m1, m)), i1 moving on a strictly less
+    magnitude, and the two merge: the upper half's minimum only where
+    strictly less, and m2 the least of the other three values."""
+    deg = m.shape[1]
+    n = (deg + 1) // 2
+    inf = torch.full_like(m[:, 0], float("inf"))
+
+    def fold(t0, dup):
+        m1, m2 = inf, torch.full_like(inf, k4.BIG)
+        i1 = torch.full(m1.shape, t0, dtype=torch.int64)
+        for u in range(n):
+            mu = inf if (u == 0 and dup) else m[:, t0 + u]
+            i1 = torch.where(mu < m1, t0 + u, i1)
+            m2 = torch.minimum(m2, torch.maximum(m1, mu))
+            m1 = torch.minimum(m1, mu)
+        return m1, m2, i1
+
+    (a1, a2, ai), (b1, b2, bi) = fold(0, False), fold(deg - n, 2 * n != deg)
+    less = b1 < a1
+    return (torch.where(less, b1, a1),
+            torch.where(less, torch.minimum(a1, b2), torch.minimum(a2, b1)),
+            torch.where(less, bi, ai))
+
+
+def rec_fold(v, norm, mdt, halves=False):
+    """A check lane's fold over the slots (axis 1) of v = L - old: the two
+    minima (strict <, so the first minimum wins a tie), the parity, and the
+    new record (r1, r2 rounded to the message type, the word); with `halves`
+    the pair route's fold of the two halves."""
+    deg = v.shape[1]
+    m = v.abs()
+    m1, m2, i1 = halves_fold(m) if halves else min_fold(m, 0, deg)
+    negs = torch.zeros(m1.shape, dtype=torch.int64)
+    for t in range(deg):
+        negs |= (v[:, t] < 0).long() << t
     par = (v < 0).sum(1) % 2
     signs = torch.where(par == 1, negs ^ ((1 << deg) - 1), negs)
     stored = lambda x: (x * norm).to(mdt).float()
@@ -537,9 +577,10 @@ def zero_records(w, batch):
              torch.zeros(batch, w.z, dtype=torch.int64)) for _ in range(w.mb)]
 
 
-def layered_records(ch, w, n_iters, norm, group, mdt):
+def layered_records(ch, w, n_iters, norm, group, mdt, halves=False):
     """The layered sweep on records: a group's new records from one L
-    snapshot, then each row's delta (new message - old message) applied."""
+    snapshot, then each row's delta (new message - old message) applied;
+    with `halves` each record from the pair route's fold."""
     L = ch.clone()
     recs = zero_records(w, ch.shape[0])
     rows = [(w.row_ptr[i], w.row_ptr[i + 1]) for i in range(w.mb)]
@@ -549,7 +590,8 @@ def layered_records(ch, w, n_iters, norm, group, mdt):
             old = {i: recs[i] for i in grp}
             for i in grp:
                 r0, r1 = rows[i]
-                recs[i] = rec_fold(L[:, w.gidx[r0:r1]] - rec_msgs(recs[i], r1 - r0), norm, mdt)
+                recs[i] = rec_fold(L[:, w.gidx[r0:r1]] - rec_msgs(recs[i], r1 - r0), norm, mdt,
+                                   halves)
             for i in grp:
                 r0, r1 = rows[i]
                 idx = w.gidx[r0:r1]
@@ -599,7 +641,8 @@ def record_llrs(code, kind):
 @pytest.mark.parametrize("kind", ["gauss", "ties"])
 @pytest.mark.parametrize("schedule,group,c2v", [
     ("layered", 1, None), ("layered", 1, "bfloat16"), ("layered", 3, None),
-    ("layered", 3, "bfloat16"), ("flooding", 1, None),
+    ("layered", 3, "bfloat16"), ("flooding", 1, None), ("layered_pair", 1, None),
+    ("layered_pair", 1, "bfloat16"),
 ])
 @pytest.mark.parametrize("name", list(RECORD_CODES))
 def test_record_arithmetic_matches_plain(name, schedule, group, c2v, kind):
@@ -613,9 +656,85 @@ def test_record_arithmetic_matches_plain(name, schedule, group, c2v, kind):
         want = k4.flooding_plain(ch, plan, w, 4, 0.75)
     else:
         mdt = torch.bfloat16 if c2v else torch.float32
-        got = layered_records(ch, w, 4, 0.75, group, mdt)
+        got = layered_records(ch, w, 4, 0.75, group, mdt, halves=schedule == "layered_pair")
         want = k3.ldpc_stream_posterior_plain(ch, plan, 4, 0.75, group, c2v)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (got - want).abs().max()
+
+
+@pytest.mark.parametrize("deg", [1, 2, 3, 4, 7, 8, 11, 14, 19, 21, 22, 27])
+def test_halves_fold_is_the_sequential_fold(deg):
+    """The pair route's merge of two half folds gives the sequential fold's
+    (m1, m2, i1) bit for bit at every degree of the three buckets, on
+    magnitudes drawn from a few values (ties everywhere, within a half and
+    across the boundary) and below the mask value BIG: the first minimum
+    wins a tie, in the lower half too."""
+    rng = np.random.default_rng(deg)
+    vals = np.array([0.0, 0.5, 1.0, 2.0, 1e29], np.float32)
+    m = torch.as_tensor(vals[rng.integers(0, vals.size, (4096, deg))])
+    h = (deg + 1) // 2
+    if deg > 1:  # equal minima straddling the boundary; the least at the upper half's first slot
+        m[0], m[1] = 2.0, 2.0
+        m[0, h - 1] = m[0, h] = 0.5
+        m[1, h] = 0.25
+    got, want = halves_fold(m), min_fold(m, 0, deg)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    if deg > 1:
+        assert int(got[2][0]) == h - 1 and int(got[2][1]) == h
+
+
+def plain_fold(m):
+    """(m1, m2, i1) as the plain version's check_update takes them: the first
+    minimum (argmin), and the least of the other magnitudes and BIG."""
+    i1 = m.argmin(1)
+    onehot = torch.arange(m.shape[1])[None] == i1[:, None]
+    return m.gather(1, i1[:, None])[:, 0], torch.where(onehot, k4.BIG, m).amin(1), i1
+
+
+@pytest.mark.parametrize("deg", [1, 2, 3, 4, 7, 8, 11, 14, 19, 21, 22, 27])
+def test_halves_fold_is_the_plain_fold_at_any_magnitude(deg):
+    """At and above the mask value BIG, +inf included, the pair route's fold
+    is the plain version's (m2 never above BIG), ties across the halves'
+    boundary too; the sequential fold leaves BIG out where the first minimum
+    is past slot 0."""
+    rng = np.random.default_rng(100 + deg)
+    vals = np.array([0.0, 0.5, 1e29, 1e30, 2e30, 1e31, 3e33, np.inf], np.float32)
+    m = torch.as_tensor(vals[rng.integers(0, vals.size, (4096, deg))])
+    m[0] = float("inf")
+    if deg > 1:
+        m[1] = 3e33
+        m[1, deg - 1] = 2e30
+    for g, w_ in zip(halves_fold(m), plain_fold(m)):
+        assert torch.equal(g, w_)
+    if deg > 1:
+        f32 = lambda x: float(np.float32(x))
+        assert float(halves_fold(m)[1][1]) == f32(k4.BIG) and float(min_fold(m, 0, deg)[1][1]) == f32(3e33)
+
+
+def saturated_llrs(n, batch, seed):
+    """(batch, n) float32 LLRs: Gaussian, with 30 % of them saturated to
+    +-1e30 .. 3e33 (at and above BIG, finite through the sweeps)."""
+    rng = np.random.default_rng(seed)
+    llr = rng.normal(0.0, 2.0, (batch, n)).astype(np.float32)
+    big = np.array([1e30, 2e30, 1e31, 3e33], np.float32)
+    hit = rng.random((batch, n)) < 0.3
+    llr[hit] = np.copysign(big[rng.integers(0, big.size, int(hit.sum()))], llr[hit])
+    return torch.as_tensor(llr)
+
+
+@pytest.mark.parametrize("c2v", [None, "bfloat16"])
+@pytest.mark.parametrize("name", list(RECORD_CODES))
+def test_pair_records_match_plain_on_saturated_llrs(name, c2v):
+    """The layered sweep on records with the pair route's fold, on LLRs at
+    and above BIG: bit for bit the plain version's."""
+    code = RECORD_CODES[name]()
+    plan = tl.make_ldpc_plan(code)
+    w = k4.wiring(plan, "cpu")
+    ch = saturated_llrs(code.n, 4, code.n)
+    mdt = torch.bfloat16 if c2v else torch.float32
+    got = layered_records(ch, w, 4, 0.75, 1, mdt, halves=True)
+    want = k3.ldpc_stream_posterior_plain(ch, plan, 4, 0.75, 1, c2v)
+    assert torch.isfinite(want).all() and torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -630,8 +749,10 @@ def test_record_arithmetic_matches_plain(name, schedule, group, c2v, kind):
     ("bg1_z52", 128, 4, False, 1, "chip", 56992 + 3744, 0, 1),
     ("n976", 512, 4, False, 1, "chip", 12320 + 880, 0, 1),
     ("n976", 512, 4, True, 1, "chip", 3 * 8416 + 416, 0, 3),  # 3 codewords a block: 171 blocks
-    ("bg1_z384", 128, 2, True, 1, "stream", 104448 + 2 * 3072 + 1824, 46 * 3072, 1),
-    ("bg1_z384", 128, 4, True, 1, "stream", 104448 + 2 * 4608 + 1824, 46 * 4608, 1),
+    ("bg1_z384", 128, 2, True, 1, "pair", 104448 + 2 * 3072 + 1824, 46 * 3072, 1),  # one wave
+    ("bg1_z384", 128, 4, True, 1, "pair", 104448 + 2 * 4608 + 1824, 46 * 4608, 1),
+    ("bg1_z384", 512, 2, True, 1, "pair", 104448 + 2 * 3072 + 1824, 46 * 3072, 1),  # four waves
+    ("bg1_z384", 512, 4, True, 1, "pair", 104448 + 2 * 4608 + 1824, 46 * 4608, 1),
     ("bg1_z384", 24, 4, False, 1, "stream", 104448 + 3744, 46 * 4608, 1),
 ])
 def test_launch_plan_routes_and_budgets(name, batch, msg_bytes, layered, group, route, smem,
@@ -639,8 +760,47 @@ def test_launch_plan_routes_and_budgets(name, batch, msg_bytes, layered, group, 
     w = k4.wiring(tl.make_ldpc_plan(CODES[name](tl)), "cpu")
     lp = k4.launch_plan(w, batch, msg_bytes, layered, group, 132)
     assert (lp.route, lp.smem, lp.scratch, lp.cpb) == (route, smem, scratch, cpb)
-    assert lp.smem <= k4.SMEM_LIMIT and lp.threads % 32 == 0 and lp.threads <= k4.MAX_THREADS
+    limit = k4.PAIR_THREADS if route == "pair" else k4.MAX_THREADS
+    assert lp.smem <= k4.SMEM_LIMIT and lp.threads % 32 == 0 and lp.threads <= limit
     assert lp.blocks == -(-batch // lp.cpb) and lp.blocks >= min(132, batch)
+
+
+@pytest.mark.parametrize("name", list(CODES))
+def test_launch_plan_takes_the_pair_route_where_the_rule_says(name, monkeypatch):
+    """The pair route exactly where the stream route would run groups of one
+    row at one codeword a block and 2z <= PAIR_THREADS, at any batch, with
+    2z threads (padded to a warp) a block; every other plan, and every other
+    number of a pair plan, as without the pair route (PAIR_THREADS 0)."""
+    w = k4.wiring(tl.make_ldpc_plan(CODES[name](tl)), "cpu")
+    n_sm = 132
+    n_pair = 0
+    for batch in (1, 24, 96, 128, 131, 132, 133, 200, 512):
+        for msg_bytes in (2, 4):
+            for layered, group in ((False, 1), (True, 1), (True, 2), (True, 3), (True, 8)):
+                try:
+                    lp = k4.launch_plan(w, batch, msg_bytes, layered, group, n_sm)
+                except ValueError:
+                    continue
+                with monkeypatch.context() as mp:
+                    mp.setattr(k4, "PAIR_THREADS", 0)
+                    base = k4.launch_plan(w, batch, msg_bytes, layered, group, n_sm)
+                rule = (layered and group == 1 and base.route == "stream" and base.cpb == 1
+                        and 2 * w.z <= k4.PAIR_THREADS)
+                assert (lp.route == "pair") == rule, (batch, msg_bytes, layered, group)
+                assert dataclasses.replace(lp, route=base.route, threads=base.threads) == base
+                if rule:
+                    assert lp.threads == -(-2 * w.z // 32) * 32 <= k4.PAIR_THREADS
+                    n_pair += 1
+                else:
+                    assert lp == base
+    # NR BG1 Z=384: the served call (96 words), the bench row (128), the host
+    # decode path's 512 words and every other batch take the pair route;
+    # groups of several rows keep the stream route
+    assert n_pair == (2 * 9 if name == "bg1_z384" else 0)
+    if name == "bg1_z384":
+        route = lambda b, g=1, mb=2: k4.launch_plan(w, b, mb, True, g, n_sm).route
+        assert [route(b) for b in (1, 24, 96, 132, 133, 200, 512)] == ["pair"] * 7
+        assert route(96, mb=4) == "pair" and route(96, g=2) == route(96, g=3) == "stream"
 
 
 def test_launch_plan_refuses_what_no_route_takes():
