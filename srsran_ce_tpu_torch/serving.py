@@ -27,8 +27,9 @@ Spans (`utils/spans.py`; off unless `spans.enabled()`): each `process`
 call is `serving.process`, and inside it each staged array's packing into a
 pinned buffer `serving.pack` and its copy `serving.h2d` (the bytes the
 counter `serving.h2d_bytes`), each chunk's graph replay `graphs.replay`, the
-wait for its results `serving.fetch_wait` and their scatter, unpacking and
-CRC `serving.unpack`.
+wait for its results `serving.fetch_wait` (the bytes fetched from the card
+the counter `serving.d2h_bytes`) and their scatter, unpacking and CRC
+`serving.unpack`.
 
 `out="decoded"` continues through descrambling, deinterleaving, rate recovery,
 LDPC decoding (ops/ldpc) and the CRC, either on the host (`_decode_soft`) or
@@ -105,10 +106,11 @@ def _send(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 class _HostCopy:
     """A dispatched result on its way to the host: each CUDA tensor is copied
-    with non_blocking=True into a pinned buffer, one event recorded after the
-    copies; `get()` waits on that event (the span `serving.fetch_wait`: the
-    host blocked on the card) and returns the result with numpy fields. CPU
-    tensors are taken as they are."""
+    with non_blocking=True into a pinned buffer, its bytes added to
+    `serving.d2h_bytes`, one event recorded after the copies; `get()` waits
+    on that event (the span `serving.fetch_wait`: the host blocked on the
+    card) and returns the result with numpy fields. CPU tensors are taken as
+    they are."""
 
     def __init__(self, value):
         self._event = None
@@ -120,6 +122,8 @@ class _HostCopy:
     def _start(self, t: torch.Tensor) -> torch.Tensor:
         if t.device.type != "cuda":
             return t
+        if spans.on():
+            spans.add("serving.d2h_bytes", t.nbytes)
         h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         h.copy_(t, non_blocking=True)
         if self._event is None:

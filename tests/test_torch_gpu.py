@@ -1599,3 +1599,34 @@ def test_spans_time_the_replays_on_the_card():
             - s0["counters"].get("serving.h2d_bytes", 0)) == staged
     for a, b in zip(off, on):
         assert np.array_equal(a.info, b.info) and np.array_equal(a.ok, b.ok)
+
+
+@NEEDS_GPU
+def test_factored_serving_at_published_widths_within_the_cells_limits():
+    """One UE-slot of the 40 MHz massive-MIMO deployment (`cebench`'s
+    `ce_n78_40mhz_4port_32ant`: 106 PRB, 4 DM-RS ports, 32 antennas, so 32
+    problems) served by `process(out="factored")` on the card through the
+    graphed path (the third call replays the captured graph), judged by the
+    benchmark's float64 reference within the configuration's limits; with the
+    spans on, `serving.d2h_bytes` counts the fetched profiles, rotations and
+    five float32 scalars of the 32 problems."""
+    from cebench import spec
+    from cebench.gen import slots
+    from cebench.reference import ce
+
+    cfg = spec.read_json("configs", "ce_n78_40mhz_4port_32ant.json")
+    slot = slots.ce_slot(cfg, 2**31 + 19_019, 0)
+    serve = spec.load_module("chains", cfg["chain"]).server(cfg, [slot], "cuda")
+    for _ in range(2):  # eager, then captured
+        serve([0])
+    r0 = graphs.replays
+    s0 = spans.snapshot()
+    with spans.enabled():
+        res = serve([0])[0]
+    s1 = spans.snapshot()
+    assert graphs.replays - r0 == 1 and len(res) == 32
+    nums = ce.judge_slot(slot, res, ce.reference(slot))
+    for k, limit in cfg["limits"].items():
+        assert nums[k] <= limit, (k, nums[k], limit)
+    fetched = s1["counters"]["serving.d2h_bytes"] - s0["counters"].get("serving.d2h_bytes", 0)
+    assert fetched == 32 * (res[0].profiles.nbytes + res[0].sym_rot.nbytes + 5 * 4)

@@ -8,7 +8,9 @@ on the profiler's timeline, with no profiler no `record_function` is
 entered, and a profiler alone does not turn them on; a decoded call of two
 chunks records one `serving.process`, a pack and an H2D copy a staged array
 (the grids, the pilots, the betas) and a fetch wait and an unpack a chunk,
-and counts the staged tensors' bytes; the CUDA event pairs of `device_span`
+and counts the staged tensors' bytes; a factored call of two chunks whose
+results stand on a (simulated) card counts the fetched tensors' bytes, and
+with the spans off nothing, the results bit-identical; the CUDA event pairs of `device_span`
 resolve without a wait of their own; `utils/profiling.trace()` turns the
 spans on.
 """
@@ -19,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from srsran_ce_tpu_torch import serving, transport
+from srsran_ce_tpu_torch import graphs, serving, transport
 from srsran_ce_tpu_torch.ops import ldpc
 from srsran_ce_tpu_torch.utils import profiling, spans, synthetic
 
@@ -147,6 +149,71 @@ def test_h2d_bytes_are_the_staged_tensors_nbytes(monkeypatch):
     d = spans.delta(spans.snapshot(), before)
     assert len(sent) == 6
     assert d["counters"]["serving.h2d_bytes"] == sum(t.nbytes for t in sent)
+
+
+class OnCard(torch.Tensor):
+    """A host tensor that `serving._HostCopy` takes for one on the card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+class CopyEvent:
+    """The host side of the event `_HostCopy` records after its copies."""
+
+    def record(self, stream=None):
+        pass
+
+    def synchronize(self):
+        pass
+
+
+def factored_call_on_a_card(monkeypatch, fetched):
+    """A factored call of two chunks (3 problems, batch 2) whose chunk results
+    reach `_HostCopy` as tensors on a card: the real fetch runs with the CUDA
+    runtime's host calls (pinned allocation, event, stream) stood in for;
+    `fetched` collects each tensor fetched."""
+    cases = [synthetic.make_case(seed=700 + i, n_prbs=12, n_layers=2) for i in range(3)]
+    probs = [serving.Problem(c.received_rg.astype(np.complex64), c.pilots.astype(np.complex64),
+                             c.beta, c.hop1, c.hop2, c.config) for c in cases]
+    real_init, real_empty = serving._HostCopy.__init__, torch.empty
+
+    def on_card(t):
+        t = t.as_subclass(OnCard)
+        fetched.append(t)
+        return t
+
+    def init(self, value):
+        real_init(self, graphs.map_tensors(on_card, value))
+
+    monkeypatch.setattr(serving._HostCopy, "__init__", init)
+    monkeypatch.setattr(torch, "empty", lambda *a, pin_memory=False, **k: real_empty(*a, **k))
+    monkeypatch.setattr(torch.cuda, "Event", CopyEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    return lambda: serving.process(probs, batch_size=2, out="factored", device="cpu")
+
+
+def test_d2h_bytes_are_the_fetched_tensors_nbytes(monkeypatch):
+    fetched = []
+    call = factored_call_on_a_card(monkeypatch, fetched)
+    before = spans.snapshot()
+    off = call()
+    assert spans.snapshot() == before and len(fetched) > 0
+    fetched.clear()
+    with spans.enabled():
+        on = call()
+    d = spans.delta(spans.snapshot(), before)
+    assert d["spans"]["serving.fetch_wait"]["count"] == 2  # two chunks, each fetched once
+    assert d["counters"]["serving.d2h_bytes"] == sum(t.nbytes for t in fetched)
+    # the profiles, rotations and scalars of both chunks (two problems each)
+    prof = off[0].profiles
+    assert d["counters"]["serving.d2h_bytes"] >= 2 * 2 * (prof.size + off[0].sym_rot.size) * 8
+    assert len(off) == len(on) == 3
+    for a, b in zip(off, on):
+        assert np.array_equal(a.profiles, b.profiles) and np.array_equal(a.sym_rot, b.sym_rot)
+        for n in ("noise_est", "rsrp", "epre", "time_alignment", "cfo_hz"):
+            assert getattr(a, n) == getattr(b, n)
 
 
 class FakeEvent:
