@@ -88,7 +88,10 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      (4 RX x 2 layers) hard-decision BER on the scored REs: 0;
  23. `serving.process` over heterogeneous lists on the card, every output
      ("grid", "factored", "equalized", "llrs") against single calls of the
-     port's build functions; tail padding through one receiver per signature;
+     port's build functions, the estimator's at the tier the serving rule
+     takes for the bucket (`estimator.served_kernels`: K1 where the plan
+     allows it), printed per bucket; tail padding through one receiver per
+     signature;
  24. the e2e decoded row (bench.py:1075-1120): 273 PRB QPSK slots carrying
      CRC24B, NR-rate-matched BG1 Z=384 words at 15 dB through
      `process(out="decoded", batch_size=8)` on the host path and with
@@ -1326,8 +1329,10 @@ def main() -> int:
         res = serving.process([prob_of(c) for c in cs], batch_size=4, out=out, device=dev)
         for c, r in zip(cs, res):
             nL = c.pilots.shape[2]
-            one = estimator.build_ri(c.hop1, c.hop2, dataclasses.replace(c.config, matmul_precision="high"),
-                                     nL, out_layout="serve" if out == "grid" else "factored")(
+            cfg = dataclasses.replace(c.config, matmul_precision="high")
+            layout = "serve" if out == "grid" else "factored"
+            tier = estimator.served_kernels(c.hop1, c.hop2, cfg, nL, layout, dev)
+            one = estimator.build_ri(c.hop1, c.hop2, cfg, nL, kernels=tier, out_layout=layout)(
                 torch.as_tensor(estimator.split_ri(c.received_rg.astype(np.complex64)), device=dev),
                 torch.as_tensor(estimator.split_ri(c.pilots.astype(np.complex64)), device=dev),
                 torch.tensor(float(c.beta), device=dev))
@@ -1340,7 +1345,7 @@ def main() -> int:
             e = np.abs(got - want).max() / np.abs(want).max()
             t_rel = max(t_rel, e)
             if not e <= 1e-5:
-                fail(f"process({out}) vs a single build_ri call: rel err {e:.3e}")
+                fail(f"process({out}) vs a single build_ri({tier!r}) call: rel err {e:.3e}")
             check_rtol(f"process({out}) noise", r.noise_est, float(one.noise_est), 1e-5)
     rx_specs = [dict(n_rx=1, kw=dict(n_prbs=24, n_layers=1)),
                 dict(n_rx=2, kw=dict(n_prbs=24, n_layers=2)),
@@ -1384,7 +1389,14 @@ def main() -> int:
         n_all += dl.size
     if eq_nmse > 1e-7 or n_off > 1e-3 * n_all:
         fail(f"process(equalized) NMSE {eq_nmse:.3e} (<= 1e-7) or llrs off on {n_off}/{n_all}")
-    print(f"phase 23 serving.process on {dev}: grid/factored vs single build_ri calls rel err "
+    for sp, c in zip(specs, g_cases[::3]):
+        cfg = dataclasses.replace(c.config, matmul_precision="high")
+        tiers = {out: estimator.served_kernels(c.hop1, c.hop2, cfg, c.pilots.shape[2], layout, dev)
+                 for out, layout in (("grid", "serve"), ("factored", "factored"))
+                 if out == "grid" or c.config.time_interp == "none"}
+        print(f"phase 23 serving.process bucket {sp}: tier by output {tiers}")
+    print(f"phase 23 serving.process on {dev}: grid/factored vs single build_ri calls of the "
+          f"bucket's tier rel err "
           f"{t_rel:.3e} (<= 1e-5); equalized ({len(probs)} problems, 4 signatures, 1 and 2 RX, "
           f"batch 2 with tail padding, {misses} receiver builds) vs single build_receiver_ri "
           f"calls NMSE {eq_nmse:.3e} (<= 1e-7); llrs 16QAM {n_off}/{n_all} entries off by one")

@@ -767,7 +767,9 @@ def process(
     uses a learned smoothing (one shared params: mixed 1-D / 2-D learned
     problems need separate calls); it reaches every output. Up to
     `inflight` dispatched chunks stay unfetched while the host packs the
-    next one.
+    next one. For out "grid" and "factored" each bucket's estimator takes
+    the tier `estimator.served_kernels` gives: on a CUDA device the fused
+    front K1 wherever the plan allows it, else (and on the CPU) "xla".
 
     `wiener_auto_delay`: candidate delay spreads (seconds); each wiener
     problem's prior is snapped to the nearest one to its measured delay
@@ -863,9 +865,10 @@ def process(
                 scatter = functools.partial(_scatter_out_equalized, sig=(hop1, hop2),
                                             factored=fac)
         else:
+            layout = "factored" if factored else "serve"
             fn = estimator.build_ri(
-                hop1, hop2, config, n_layers, batched=True,
-                out_layout="factored" if factored else "serve",
+                hop1, hop2, config, n_layers, batched=True, out_layout=layout,
+                kernels=estimator.served_kernels(hop1, hop2, config, n_layers, layout, device),
             )
             scatter = (functools.partial(_scatter_out_factored, sig=(hop1, hop2))
                        if factored else _scatter_out)

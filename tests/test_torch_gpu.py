@@ -1630,3 +1630,108 @@ def test_factored_serving_at_published_widths_within_the_cells_limits():
         assert nums[k] <= limit, (k, nums[k], limit)
     fetched = s1["counters"]["serving.d2h_bytes"] - s0["counters"].get("serving.d2h_bytes", 0)
     assert fetched == 32 * (res[0].profiles.nbytes + res[0].sym_rot.nbytes + 5 * 4)
+
+
+# ---------------------------------------------------------------------------
+# The served estimate on K1 (`estimator.served_kernels`)
+# ---------------------------------------------------------------------------
+
+
+def _cell_call(n_slots, seed):
+    """`n_slots` UE-slots of the benchmark's 32-antenna deployment
+    (`ce_n78_40mhz_4port_32ant`: 106 PRB, 4 ports, 4 DM-RS symbols, CFO
+    compensated) as one `serving.process` call's problems, the served
+    precision, and the float64 CPU run of the same problems on the "xla" tier
+    in both served layouts."""
+    import dataclasses
+
+    from cebench import spec
+    from cebench.gen import slots
+    from srsran_ce_tpu_torch import config as pconfig
+
+    cfg = spec.read_json("configs", "ce_n78_40mhz_4port_32ant.json")
+    pool = [slots.ce_slot(cfg, seed, i) for i in range(n_slots)]
+    s = pool[0]  # the chain's problem form (cebench/chains/ce_factored.py)
+    hop1 = pconfig.HopConfig(**dataclasses.asdict(s.hop1))
+    hop2 = None if s.hop2 is None else pconfig.HopConfig(**dataclasses.asdict(s.hop2))
+    conf = pconfig.EstimatorConfig(**dataclasses.asdict(s.config))
+    problems = [serving.Problem(np.ascontiguousarray(p.rg[r]), p.pilots, p.beta, hop1, hop2, conf)
+                for p in pool for r in range(p.rg.shape[0])]
+    high = dataclasses.replace(conf, matmul_precision=cfg["matmul_precision"])
+    nL = int(cfg["n_layers"])
+    rg = torch.as_tensor(np.stack([est.split_ri(p.received_rg.astype(np.complex128))
+                                   for p in problems]))
+    pil = torch.as_tensor(np.stack([est.split_ri(p.pilots.astype(np.complex128))
+                                    for p in problems]))
+    beta = torch.tensor([p.beta for p in problems], dtype=torch.float64)
+    want = {layout: est.build_ri(hop1, hop2, high, nL, batched=True, out_layout=layout)(
+        rg, pil, beta) for layout in ("serve", "factored")}
+    return problems, (hop1, hop2, high, nL), want
+
+
+def _served_numbers(out, got, want):
+    """(worst NMSE, worst scalar relative error) of served results against
+    the float64 batch `want`, by the benchmark's `numbers` (floors 1e-9 s for
+    the TA, 1 Hz for the CFO)."""
+    from cebench.reference import numbers
+
+    worst_n = worst_s = 0.0
+    for b, r in enumerate(got):
+        if out == "grid":
+            ref = est.merge_ri(want.channel_est_rg[b].numpy()).transpose(2, 1, 0)
+            est_ = r.channel_est_rg
+        else:
+            ref = est.merge_ri(want.profiles[b].numpy())
+            est_ = r.profiles
+            rot = est.merge_ri(want.sym_rot[b].numpy())
+            worst_n = max(worst_n, numbers.nmse(r.sym_rot, rot))
+        worst_n = max(worst_n, numbers.nmse(est_, ref))
+        worst_s = max(worst_s, numbers.scalar_err(
+            numbers.scalars_of(r), {n: float(getattr(want, n)[b]) for n in numbers.SCALARS}))
+    return worst_n, worst_s
+
+
+@NEEDS_GPU
+def test_served_estimate_takes_k1_at_the_cells_shape_within_its_limits():
+    """128 problems of the 32-antenna cell (4 UE-slots, one chunk) through
+    `process(out="factored")` and `process(out="grid")` on the card: the rule
+    takes K1, which launches once a call, eager (the key's first call), at
+    the capture's call and at each replay; the replay is bit-identical to the
+    eager route (`graphs.eager()`), and both are within the cell's limits of
+    the float64 CPU run (NMSE 1e-10, scalars relative 1e-5)."""
+    problems, key, want = _cell_call(4, 2**31 + 20_001)
+    assert len(problems) == 128
+    report = {}
+    for out, layout in (("factored", "factored"), ("grid", "serve")):
+        assert est.served_kernels(*key, layout, "cuda") == "pallas_front"
+        graphs.clear()
+        ks, r0 = [], graphs.replays
+        for _ in range(3):  # eager, captured (and replayed), replayed
+            n0 = k1.launches
+            got = serving.process(problems, out=out)
+            ks.append(k1.launches - n0)
+        assert ks == [1, 1, 1] and graphs.replays - r0 == 2, (out, ks)
+        with graphs.eager():
+            n0 = k1.launches
+            eager = serving.process(problems, out=out)
+            assert k1.launches - n0 == 1
+        for a, b in zip(got, eager):
+            for f in serving._SCALARS + (("profiles", "sym_rot") if out == "factored"
+                                         else ("channel_est_rg",)):
+                assert np.array_equal(getattr(a, f), getattr(b, f)), (out, f)
+        nmse, s_err = _served_numbers(out, got, want[layout])
+        report[out] = (nmse, s_err)
+        assert nmse <= 1e-10 and s_err <= 1e-5, (out, nmse, s_err)
+    print(f"served K1 at the cell's shape vs float64 CPU (NMSE, scalar rel err): {report}")
+
+
+@NEEDS_GPU
+def test_equalized_serving_launches_no_k1():
+    cases = [synthetic.make_mimo_case(seed=s, n_rx=2, modulation="qpsk", n_prbs=12, n_layers=2,
+                                      snr_db=20.0) for s in (7, 8, 9)]
+    probs = [serving.Problem(c.received_rg.astype(np.complex64), c.pilots.astype(np.complex64),
+                             c.beta, c.hop1, c.hop2, c.config) for c in cases]
+    n0, r0 = k1.launches, graphs.replays
+    for _ in range(3):
+        serving.process(probs, batch_size=2, out="equalized")
+    assert k1.launches == n0 and graphs.replays > r0
