@@ -33,7 +33,11 @@ the counter `serving.d2h_bytes`) and their scatter, unpacking and CRC
 
 `out="decoded"` continues through descrambling, deinterleaving, rate recovery,
 LDPC decoding (ops/ldpc) and the CRC, either on the host (`_decode_soft`) or
-on the device (`decode_on_device=True`, `_process_decoded_device`).
+on the device (`decode_on_device=True`, one device decode chunk a chunk).
+
+Every path runs one serve loop (`_serve`: bucket, chunk, keep `inflight`
+chunks pending, fetch, scatter), and one function (`_bucket_step`) decides
+what serves a bucket: its builder and tier, its staging and its scatter.
 
 `TrackedServer` is the stateful counterpart: multi-slot tracking
 (models/tracking.py) per caller-chosen stream, the states threaded across
@@ -82,14 +86,15 @@ def _stage(fill, shape, dtype, device: torch.device) -> torch.Tensor:
     return _send(buf, device)
 
 
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on `device`: on the card a pinned copy (the span
-    `serving.pack`), sent by `_send`."""
-    with spans.span("serving.pack"):
-        t = torch.from_numpy(a)
-        if device.type == "cuda":
-            t = t.pin_memory()
-    return _send(t, device)
+def _stage_stacked(values, device: torch.device) -> torch.Tensor:
+    """Host values (floats, or arrays of one shape) as one float32 batch on
+    `device`, staged by `_stage`."""
+    def fill(out):
+        if out is None:
+            return np.asarray(values, np.float32)
+        out[...] = values
+
+    return _stage(fill, (len(values),) + np.shape(values[0]), torch.float32, device)
 
 
 def _send(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -403,9 +408,11 @@ def _merge_batch(ch_ri: np.ndarray) -> np.ndarray:
     return out
 
 
+_SCALARS = ("noise_est", "rsrp", "epre", "time_alignment", "cfo_hz")
+
+
 def _scalars(out, k: int) -> dict:
-    return {n: float(getattr(out, n)[k])
-            for n in ("noise_est", "rsrp", "epre", "time_alignment", "cfo_hz")}
+    return {n: float(getattr(out, n)[k]) for n in _SCALARS}
 
 
 def _scatter_out(out, chunk, results) -> None:
@@ -485,9 +492,8 @@ def _batch_inputs(problems, take, device, multi_rx: bool):
         shape = (len(arrays), 2) + np.shape(arrays[0])
         return _stage(functools.partial(_assemble, arrays), shape, torch.float32, device)
 
-    beta = np.asarray([problems[i].beta for i in take], np.float32)
     return (packed([rg(problems[i]) for i in take]), packed([problems[i].pilots for i in take]),
-            _to_device(beta, device))
+            _stage_stacked([problems[i].beta for i in take], device))
 
 
 # ---------------------------------------------------------------------------
@@ -565,9 +571,6 @@ def _device_decode_builder(coding, hop1, hop2, n_sc: int, n_sym: int, n_layers: 
     return run
 
 
-_SCALARS = ("noise_est", "rsrp", "epre", "time_alignment", "cfo_hz")
-
-
 @functools.lru_cache(maxsize=64)
 def _device_decode_chunk(fn, run) -> graphs.Graphed:
     """`step(rg_ri, pil_ri, beta, params) -> (packed, scalars)`: one chunk of
@@ -590,80 +593,41 @@ def _check_params(config: EstimatorConfig, params) -> None:
         raise ValueError(f"smoothing={config.smoothing!r} needs params")
 
 
-def _process_decoded_device(problems, coding, batch_size, matmul_precision, data_beta,
-                            modulation, llr_scale, inflight, wiener_auto_delay,
-                            auto_time_interp_hz, device, params=None):
-    """process(out="decoded", decode_on_device=True): the whole chain per
-    chunk on the device; the host fetches the packed payloads, the parity
-    bytes and one (5, B) row of measurement scalars (soft=None on the
-    results). `coding.early_iters` is ignored, as in the JAX package's device
-    path (its two-phase retry is host-driven); one shared coding only."""
-    if isinstance(coding, (list, tuple)):
-        raise ValueError("decode_on_device supports a single shared coding")
-    if wiener_auto_delay is not None:
-        problems = _snap_wiener_delay(problems, wiener_auto_delay)
-    if auto_time_interp_hz is not None:
-        problems = _auto_time_interp(problems, float(auto_time_interp_hz))
-    nbits = demap.bits_per_symbol(modulation)
-    k_full = ldpc.make_ldpc_plan(coding.code).k
-    k_pay = transport.payload_bits(coding, k_full)
+def _scatter_out_decoded(fetched, chunk, results, coding, k_full: int) -> None:
+    """One device decode chunk: the packed payloads and parity bytes (B,
+    c_words, k8/8 + 1) uint8 and the (5, B) float32 row of the receiver's
+    measurement scalars, CRC-checked (soft=None on the results)."""
+    blob, scal = fetched
+    ok_h = blob[..., -1].astype(bool)
+    info_h = np.unpackbits(blob[..., :-1], axis=-1)[..., :k_full]
     k_eff = k_full - coding.n_filler
-
-    buckets: Dict[Tuple, List[int]] = {}
-    for i, p in enumerate(problems):
-        buckets.setdefault(p.signature(), []).append(i)
-    results: List[Optional[DecodedServeResult]] = [None] * len(problems)
-    pending: deque = deque()
-
-    def unpack(fetched, chunk, results):
-        blob, scal = fetched  # (B, c_words, k8/8 + 1) uint8, (5, B) f32
-        ok_h = blob[..., -1].astype(bool)
-        info_h = np.unpackbits(blob[..., :-1], axis=-1)[..., :k_full]
-        if coding.crc is not None:
-            # one batched CRC pass per chunk: one table entry per message
-            # byte, the table cached per (kind, length)
-            B = info_h.shape[0]
-            ok_h = ok_h & transport.crc_check(
-                info_h[:, :, :k_eff].reshape(B * info_h.shape[1], k_eff), coding.crc
-            ).reshape(B, info_h.shape[1])
-        for k, i in enumerate(chunk):
-            info = info_h[k]
-            if coding.crc is not None or coding.n_filler:
-                info = info[:, :k_pay]
-            results[i] = DecodedServeResult(
-                info=info, ok=ok_h[k], soft=None,
-                **{n: float(scal[j, k]) for j, n in enumerate(_SCALARS)},
-            )
-
-    for sig, idxs in buckets.items():
-        hop1, hop2, config, n_layers, n_rx = sig
-        if matmul_precision is not None:
-            config = dataclasses.replace(config, matmul_precision=matmul_precision)
-        _check_params(config, params)
-        fn = receiver.build_receiver_ri(
-            hop1, hop2, config, n_layers, n_rx, batched=True, data_beta=data_beta,
-            modulation=modulation, llr_scale=llr_scale, device=device,
+    if coding.crc is not None:
+        # one batched CRC pass per chunk: one table entry per message
+        # byte, the table cached per (kind, length)
+        B = info_h.shape[0]
+        ok_h = ok_h & transport.crc_check(
+            info_h[:, :, :k_eff].reshape(B * info_h.shape[1], k_eff), coding.crc
+        ).reshape(B, info_h.shape[1])
+    k_pay = transport.payload_bits(coding, k_full)
+    for k, i in enumerate(chunk):
+        info = info_h[k]
+        if coding.crc is not None or coding.n_filler:
+            info = info[:, :k_pay]
+        results[i] = DecodedServeResult(
+            info=info, ok=ok_h[k], soft=None,
+            **{n: float(scal[j, k]) for j, n in enumerate(_SCALARS)},
         )
-        n_sc, n_sym = problems[idxs[0]].received_rg.shape[-2:]
-        run = _device_decode_builder(coding, hop1, hop2, int(n_sc), int(n_sym), n_layers,
-                                     nbits, device)
-        step = _device_decode_chunk(fn, run)
-        for chunk, take in _chunks(idxs, batch_size):
-            pending.append((_HostCopy(step(*_batch_inputs(problems, take, device, multi_rx=True),
-                                           params)), chunk))
-            if len(pending) >= max(1, inflight):
-                _unpack(unpack, *pending.popleft(), results)
-    while pending:
-        _unpack(unpack, *pending.popleft(), results)
-    return results
+
+
+_WORD_BATCH = 512  # the host decode's largest word chunk
 
 
 def _decode_soft(problems: List[Problem], soft: List[LlrServeResult], coding,
-                 device: torch.device, word_batch: int = 512) -> List[DecodedServeResult]:
+                 device: torch.device) -> List[DecodedServeResult]:
     """Decode served LLR grids into payloads (the host `out="decoded"` tail):
     per-problem descramble and deinterleave (transport), then one batched
     decode per word chunk, each chunk repeat-padded to a power-of-two bucket
-    in [32, word_batch] so the data-dependent retry sizes see a bounded set
+    in [32, _WORD_BATCH] so the data-dependent retry sizes see a bounded set
     of batch shapes. With `coding.early_iters` every word first runs that
     many sweeps and only the parity failures rerun at n_iters."""
     dec_args = dict(norm=coding.norm, kernels=coding.kernels, schedule=coding.schedule,
@@ -697,13 +661,13 @@ def _decode_soft(problems: List[Problem], soft: List[LlrServeResult], coding,
 
     def run_chunks(decoder, w):
         infos, oks = [], []
-        for start in range(0, w.shape[0], word_batch):
-            chunk = w[start : start + word_batch]
+        for start in range(0, w.shape[0], _WORD_BATCH):
+            chunk = w[start : start + _WORD_BATCH]
             n = chunk.shape[0]
             bucket = 32
             while bucket < n:
                 bucket *= 2
-            bucket = min(bucket, word_batch)
+            bucket = min(bucket, _WORD_BATCH)
             if n < bucket:
                 chunk = np.concatenate([chunk, np.repeat(chunk[-1:], bucket - n, axis=0)])
             r = decoder(chunk)
@@ -731,6 +695,119 @@ def _decode_soft(problems: List[Problem], soft: List[LlrServeResult], coding,
         out.append(DecodedServeResult(info=info[pos : pos + c], ok=ok[pos : pos + c], soft=s))
         pos += c
     return out
+
+
+# ---------------------------------------------------------------------------
+# The serve loop and its bucket builder
+# ---------------------------------------------------------------------------
+
+
+def _bucket_step(problems, sig, idxs, out: str, matmul_precision, device, params=None,
+                 data_beta: float = 1.0, modulation=None, llr_scale: float = 8.0,
+                 coding=None, tracked=None):
+    """`(step, scatter)` of the bucket `idxs` of plan signature `sig`: for
+    `process(out=...)` ("decoded" is the device decode here) or, with
+    `tracked=(states, stream_ids)`, for `TrackedServer.process`.
+    `step(take)` stages one chunk and dispatches it, returning its result on
+    the device; `scatter(fetched, chunk, results)` writes the chunk's host
+    results (and, tracked, its streams' states). The one place a bucket's
+    builder, its tier and its scatter are chosen."""
+    hop1, hop2, config, n_layers, n_rx = sig
+    if matmul_precision is not None:
+        config = dataclasses.replace(config, matmul_precision=matmul_precision)
+    multi_rx = out not in ("grid", "factored")
+    demod = None if out == "equalized" else modulation
+    fac = config.time_interp == "none"
+    if out == "grid":
+        scatter = _scatter_out
+    elif out == "factored":
+        scatter = functools.partial(_scatter_out_factored, sig=(hop1, hop2))
+    elif out == "equalized":
+        scatter = functools.partial(_scatter_out_equalized, sig=(hop1, hop2), factored=fac)
+    elif out == "llrs":
+        scatter = functools.partial(_scatter_out_llrs, sig=(hop1, hop2), factored=fac,
+                                    llr_scale=llr_scale)
+    else:
+        scatter = functools.partial(_scatter_out_decoded, coding=coding,
+                                    k_full=ldpc.make_ldpc_plan(coding.code).k)
+
+    if tracked is not None:
+        states, stream_ids = tracked
+        if out == "grid":
+            if n_rx != 1:
+                raise ValueError("out='grid' tracks one RX port per problem")
+            fn = tracking.build_tracked_ri(hop1, hop2, config, n_layers, batched=True,
+                                           out_layout="serve", device=device)
+            zero_h, zero_w = tracking.init_state(hop1, hop2, config, n_layers, device="cpu")
+            zero_w = float(zero_w)
+        else:
+            fn = receiver.build_tracked_receiver_ri(
+                hop1, hop2, config, n_layers, n_rx, data_beta=data_beta, modulation=demod,
+                llr_scale=llr_scale, batched=True, device=device,
+            )
+            zero_h, zero_w = tracking.init_state(hop1, hop2, config, n_layers, batch=n_rx,
+                                                 device="cpu")
+            zero_w = zero_w.numpy()
+        zero = (tuple(h.numpy() for h in zero_h), zero_w)
+        key = (hop1, hop2, config, n_layers, n_rx, multi_rx)
+
+        def tracked_step(take):
+            prior = [states.get((key, stream_ids[i]), zero) for i in take]
+            return fn(*_batch_inputs(problems, take, device, multi_rx),
+                      tuple(_stage_stacked([s[0][j] for s in prior], device)
+                            for j in range(len(zero[0]))),
+                      _stage_stacked([s[1] for s in prior], device))
+
+        def tracked_scatter(fetched, chunk, results):
+            res, h_new, w_new = fetched
+            scatter(res, chunk, results)
+            for k, i in enumerate(chunk):
+                states[(key, stream_ids[i])] = (tuple(h[k] for h in h_new),
+                                                w_new[k] if multi_rx else float(w_new[k]))
+
+        return tracked_step, tracked_scatter
+
+    _check_params(config, params)
+    if multi_rx:
+        fn = receiver.build_receiver_ri(
+            hop1, hop2, config, n_layers, n_rx, batched=True, data_beta=data_beta,
+            modulation=demod, llr_scale=llr_scale, device=device,
+        )
+        if out == "decoded":
+            n_sc, n_sym = problems[idxs[0]].received_rg.shape[-2:]
+            fn = _device_decode_chunk(fn, _device_decode_builder(
+                coding, hop1, hop2, int(n_sc), int(n_sym), n_layers,
+                demap.bits_per_symbol(modulation), device))
+    else:
+        layout = "factored" if out == "factored" else "serve"
+        fn = estimator.build_ri(
+            hop1, hop2, config, n_layers, batched=True, out_layout=layout,
+            kernels=estimator.served_kernels(hop1, hop2, config, n_layers, layout, device),
+        )
+    return (lambda take: fn(*_batch_inputs(problems, take, device, multi_rx), params)), scatter
+
+
+def _serve(problems: List[Problem], batch_size: int, inflight: int, **bucket) -> list:
+    """Results of `problems` in submission order. The problems are bucketed
+    by plan signature; each bucket's `(step, scatter)` is built by
+    `_bucket_step(problems, sig, idxs, **bucket)` when the loop reaches it
+    and runs in `batch_size` chunks (`_chunks`), each chunk's result fetched
+    through `_HostCopy`. Up to `inflight` (at least one) chunks stay pending,
+    across buckets, and are scattered in dispatch order (`_unpack`)."""
+    buckets: Dict[Tuple, List[int]] = {}
+    for i, p in enumerate(problems):
+        buckets.setdefault(p.signature(), []).append(i)
+    results: list = [None] * len(problems)
+    pending: deque = deque()  # (scatter, host copy, chunk) not yet fetched
+    for sig, idxs in buckets.items():
+        step, scatter = _bucket_step(problems, sig, idxs, **bucket)
+        for chunk, take in _chunks(idxs, batch_size):
+            pending.append((scatter, _HostCopy(step(take)), chunk))
+            if len(pending) >= max(1, inflight):
+                _unpack(*pending.popleft(), results)
+    while pending:
+        _unpack(*pending.popleft(), results)
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -795,11 +872,9 @@ def process(
     if out == "decoded":
         if coding is None:
             raise ValueError("out='decoded' requires coding=transport.TransportCoding(...)")
-        if decode_on_device:
-            return _process_decoded_device(
-                problems, coding, batch_size, matmul_precision, data_beta, modulation,
-                llr_scale, inflight, wiener_auto_delay, auto_time_interp_hz, device, params,
-            )
+        if decode_on_device and isinstance(coding, (list, tuple)):
+            raise ValueError("decode_on_device supports a single shared coding")
+    if out == "decoded" and not decode_on_device:
         soft = process(
             problems, batch_size=batch_size, matmul_precision=matmul_precision,
             params=params, inflight=inflight, wiener_auto_delay=wiener_auto_delay,
@@ -820,13 +895,11 @@ def process(
                     results_d[i] = r
             return results_d
         return _decode_soft(problems, soft, coding, device)
-    equalized = out in ("equalized", "llrs")
-    factored = out == "factored"
-    if not equalized:
+    if out in ("grid", "factored"):
         bad_rx = [i for i, p in enumerate(problems) if p.n_rx != 1]
         if bad_rx:
             raise ValueError(f"multi-RX problems need out='equalized'; problems {bad_rx[:5]}")
-    if factored:
+    if out == "factored":
         if auto_time_interp_hz is not None:
             raise ValueError("out='factored' is incompatible with auto_time_interp_hz")
         bad = [i for i, p in enumerate(problems) if p.config.time_interp != "none"]
@@ -839,47 +912,9 @@ def process(
         problems = _snap_wiener_delay(problems, wiener_auto_delay)
     if auto_time_interp_hz is not None:
         problems = _auto_time_interp(problems, float(auto_time_interp_hz))
-
-    buckets: Dict[Tuple, List[int]] = {}
-    for i, p in enumerate(problems):
-        buckets.setdefault(p.signature(), []).append(i)
-
-    results: list = [None] * len(problems)
-    pending: deque = deque()  # (scatter, host copy, chunk) not yet fetched
-    for sig, idxs in buckets.items():
-        hop1, hop2, config, n_layers, n_rx = sig
-        if matmul_precision is not None:
-            config = dataclasses.replace(config, matmul_precision=matmul_precision)
-        _check_params(config, params)
-        if equalized:
-            fn = receiver.build_receiver_ri(
-                hop1, hop2, config, n_layers, n_rx, batched=True, data_beta=data_beta,
-                modulation=modulation if out == "llrs" else None, llr_scale=llr_scale,
-                device=device,
-            )
-            fac = config.time_interp == "none"
-            if out == "llrs":
-                scatter = functools.partial(_scatter_out_llrs, sig=(hop1, hop2), factored=fac,
-                                            llr_scale=llr_scale)
-            else:
-                scatter = functools.partial(_scatter_out_equalized, sig=(hop1, hop2),
-                                            factored=fac)
-        else:
-            layout = "factored" if factored else "serve"
-            fn = estimator.build_ri(
-                hop1, hop2, config, n_layers, batched=True, out_layout=layout,
-                kernels=estimator.served_kernels(hop1, hop2, config, n_layers, layout, device),
-            )
-            scatter = (functools.partial(_scatter_out_factored, sig=(hop1, hop2))
-                       if factored else _scatter_out)
-        for chunk, take in _chunks(idxs, batch_size):
-            res = fn(*_batch_inputs(problems, take, device, multi_rx=equalized), params)
-            pending.append((scatter, _HostCopy(res), chunk))
-            if len(pending) >= max(1, inflight):
-                _unpack(*pending.popleft(), results)
-    while pending:
-        _unpack(*pending.popleft(), results)
-    return results
+    return _serve(problems, batch_size, inflight, out=out, matmul_precision=matmul_precision,
+                  device=device, params=params, data_beta=data_beta, modulation=modulation,
+                  llr_scale=llr_scale, coding=coding)
 
 
 class TrackedServer:
@@ -934,59 +969,14 @@ class TrackedServer:
             raise ValueError("out='llrs' requires modulation=")
         if len(problems) != len(stream_ids):
             raise ValueError(f"{len(problems)} problems, {len(stream_ids)} stream ids")
-        device = self.device
         mode = out != "grid"
         for sid in stream_ids:
             if self._mode.get(sid, mode) != mode:
                 self.reset(sid)
             self._mode[sid] = mode
-        buckets: Dict[Tuple, List[int]] = {}
-        for i, p in enumerate(problems):
-            buckets.setdefault(p.signature(), []).append(i)
-
-        results: list = [None] * len(problems)
-        for sig, idxs in buckets.items():
-            hop1, hop2, config, n_layers, n_rx = sig
-            if out == "grid" and n_rx != 1:
-                raise ValueError("out='grid' tracks one RX port per problem")
-            if self.matmul_precision is not None:
-                config = dataclasses.replace(config, matmul_precision=self.matmul_precision)
-            eff_sig = (hop1, hop2, config, n_layers, n_rx, mode)
-            if out == "grid":
-                fn = tracking.build_tracked_ri(hop1, hop2, config, n_layers, batched=True,
-                                               out_layout="serve", device=device)
-                zero_h, zero_w = tracking.init_state(hop1, hop2, config, n_layers, device="cpu")
-                zero_w = float(zero_w)
-            else:
-                fn = receiver.build_tracked_receiver_ri(
-                    hop1, hop2, config, n_layers, n_rx, data_beta=data_beta,
-                    modulation=modulation if out == "llrs" else None, llr_scale=llr_scale,
-                    batched=True, device=device,
-                )
-                zero_h, zero_w = tracking.init_state(hop1, hop2, config, n_layers, batch=n_rx,
-                                                     device="cpu")
-                zero_w = zero_w.numpy()
-            zero_h = tuple(h.numpy() for h in zero_h)
-            for chunk, take in _chunks(idxs, self.batch_size):
-                states = [self._state.get((eff_sig, stream_ids[i]), (zero_h, zero_w))
-                          for i in take]
-                h_b = tuple(np.stack([s[0][j] for s in states]) for j in range(len(zero_h)))
-                w_b = np.asarray([s[1] for s in states], np.float32)
-                res, h_new, w_new = fn(
-                    *_batch_inputs(problems, take, device, multi_rx=mode),
-                    tuple(_to_device(h, device) for h in h_b), _to_device(w_b, device),
-                )
-                o, h_new, w_new = _HostCopy((res, h_new, w_new)).get()
-                if out == "llrs":
-                    _scatter_out_llrs(o, chunk, results, sig=(hop1, hop2), factored=True,
-                                      llr_scale=llr_scale)
-                elif out == "equalized":
-                    _scatter_out_equalized(o, chunk, results, sig=(hop1, hop2), factored=True)
-                else:
-                    _scatter_out(o, chunk, results)
-                for k, i in enumerate(chunk):
-                    self._state[(eff_sig, stream_ids[i])] = (
-                        tuple(h[k] for h in h_new),
-                        w_new[k] if mode else float(w_new[k]),
-                    )
-        return results
+        # one chunk at a time: a chunk reads its streams' states only after
+        # the previous chunk's states are written
+        return _serve(problems, self.batch_size, 1, out=out,
+                      matmul_precision=self.matmul_precision, device=self.device,
+                      data_beta=data_beta, modulation=modulation, llr_scale=llr_scale,
+                      tracked=(self._state, stream_ids))

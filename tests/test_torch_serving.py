@@ -263,13 +263,53 @@ def test_decoded_early_termination_and_per_problem_codings_match_jax():
         assert np.array_equal(g.info, lk[3]) and bool(np.all(g.ok))
 
 
-def test_inflight_and_batch_size_do_not_change_results():
-    cases = [jsyn.make_case(seed=500 + i, snr_db=25.0, n_prbs=12, n_layers=(1, 2)[i % 2])
-             for i in range(5)]
-    base = ts.process(problems(ts, cases), batch_size=2, inflight=1, device="cpu")
-    for kw in (dict(batch_size=2, inflight=4), dict(batch_size=8, inflight=2)):
-        for a, b in zip(base, ts.process(problems(ts, cases), device="cpu", **kw)):
-            assert rel(b.channel_est_rg, a.channel_est_rg) <= 1e-6  # batch sums may associate apart
+def _same_up_to_chunking(a, b):
+    """One result against the same problem's at another chunking: float
+    arrays and scalars within relative 1e-6 (batch sums may associate
+    apart), int8 LLRs within one step, decoded bits and flags exactly."""
+    assert type(a) is type(b)
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name in ("info", "ok"):
+            assert np.array_equal(x, y), f.name
+        elif f.name == "llr":
+            assert np.abs(x.astype(np.int16) - y.astype(np.int16)).max() <= 1
+        elif f.name == "soft":
+            assert (x is None) == (y is None)
+            if x is not None:
+                _same_up_to_chunking(x, y)
+        elif isinstance(x, (np.ndarray, float)):
+            assert rel(y, x) <= 1e-6, f.name
+        else:
+            assert x == y, f.name
+
+
+@pytest.mark.parametrize("out", ["grid", "factored", "equalized", "llrs", "decoded",
+                                 "decoded_on_device"])
+def test_inflight_and_batch_size_do_not_change_results(out):
+    """Every out runs one serve loop: (batch_size, inflight) in {(2, 1), (2, 4),
+    (8, 2)} change the chunks, the tail padding and the chunks kept pending
+    across two buckets, not the results."""
+    if out in ("grid", "factored"):
+        cases = [jsyn.make_case(seed=500 + i, snr_db=25.0, n_prbs=12, n_layers=(1, 2)[i % 2])
+                 for i in range(5)]
+        kw = dict(out=out)
+    else:
+        coding_kw = dict(n_iters=8, interleave_seed=7, crc="crc16", early_iters=None)
+        links = [_coded_case(jl.array_code(8, 16, 61), tl.array_code(8, 16, 61), coding_kw,
+                             520 + i, dict(n_rx=(2, 1)[i % 2], modulation="qpsk", scramble=False,
+                                           n_prbs=12, n_layers=1), 20.0) for i in range(5)]
+        cases = [lk[2] for lk in links]
+        kw = dict(out=out.split("_")[0], modulation="qpsk", coding=links[0][1],
+                  decode_on_device=out == "decoded_on_device")
+    base = ts.process(problems(ts, cases), batch_size=2, inflight=1, device="cpu", **kw)
+    if out.startswith("decoded"):
+        assert all(np.array_equal(r.info, lk[3]) and r.ok.all() for r, lk in zip(base, links))
+    for chunking in (dict(batch_size=2, inflight=4), dict(batch_size=8, inflight=2)):
+        got = ts.process(problems(ts, cases), device="cpu", **chunking, **kw)
+        assert len(got) == len(base)
+        for a, b in zip(base, got):
+            _same_up_to_chunking(a, b)
 
 
 def test_tail_padding_shares_one_receiver_per_signature():

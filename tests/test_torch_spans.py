@@ -8,7 +8,8 @@ on the profiler's timeline, with no profiler no `record_function` is
 entered, and a profiler alone does not turn them on; a decoded call of two
 chunks records one `serving.process`, a pack and an H2D copy a staged array
 (the grids, the pilots, the betas) and a fetch wait and an unpack a chunk,
-and counts the staged tensors' bytes; a factored call of two chunks whose
+and counts the staged tensors' bytes; a `TrackedServer` call unpacks each
+chunk in its `serving.unpack` span; a factored call of two chunks whose
 results stand on a (simulated) card counts the fetched tensors' bytes, and
 with the spans off nothing, the results bit-identical; the CUDA event pairs of `device_span`
 resolve without a wait of their own; `utils/profiling.trace()` turns the
@@ -131,6 +132,21 @@ def test_a_decoded_call_of_two_chunks(decoded):
     rg, pil = probs[0].received_rg, probs[0].pilots
     per_chunk = 2 * (2 * rg.size * 4 + 2 * pil.size * 4 + 4)
     assert d["counters"]["serving.h2d_bytes"] == 2 * per_chunk
+
+
+def test_a_tracked_call_unpacks_each_chunk_in_its_span():
+    """TrackedServer runs the serve loop: three chunks (five streams at batch
+    2), each fetched and scattered once, its states staged beside its grids."""
+    cases = [synthetic.make_case(seed=600 + k, n_prbs=8, n_layers=1) for k in range(5)]
+    probs = [serving.Problem(c.received_rg.astype(np.complex64), c.pilots.astype(np.complex64),
+                             c.beta, c.hop1, c.hop2, c.config) for c in cases]
+    srv = serving.TrackedServer(batch_size=2, device="cpu")
+    before = spans.snapshot()
+    with spans.enabled():
+        srv.process(probs, [f"s{k}" for k in range(5)])
+    s = spans.delta(spans.snapshot(), before)["spans"]
+    assert (s["serving.unpack"]["count"], s["serving.fetch_wait"]["count"]) == (3, 3)
+    assert s["serving.pack"]["count"] == s["serving.h2d"]["count"] == 3 * 5  # + h, w
 
 
 def test_h2d_bytes_are_the_staged_tensors_nbytes(monkeypatch):

@@ -245,6 +245,27 @@ def test_tracked_server_grid_matches_jax():
     assert not srv_t._state
 
 
+def test_tracked_server_batch_size_does_not_change_results_or_states():
+    """Five streams of one signature over two slots: at batch 2 three chunks
+    a slot (the tail padded), at batch 8 one; the grids, the scalars and the
+    stored states within relative 1e-6 (batch sums may associate apart), w
+    equal."""
+    srv = {b: ts.TrackedServer(batch_size=b, matmul_precision=None, device="cpu")
+           for b in (2, 8)}
+    ids = [f"s{k}" for k in range(5)]
+    for s in range(2):
+        cases = [synthetic.make_case(seed=80 + k, snr_db=10.0, noise_seed=400 + s, n_prbs=8,
+                                     n_layers=2) for k in range(5)]
+        got = {b: v.process([_prob(ts, c) for c in cases], ids) for b, v in srv.items()}
+        for a, b in zip(got[2], got[8]):
+            assert rel(b.channel_est_rg, a.channel_est_rg) <= 1e-6
+            assert all(rel(getattr(b, f), getattr(a, f)) <= 1e-6 for f in SCALARS)
+        assert set(srv[2]._state) == set(srv[8]._state)
+        for key, (h2, w2) in srv[2]._state.items():
+            h8, w8 = srv[8]._state[key]
+            assert all(rel(b, a) <= 1e-6 for a, b in zip(h2, h8)) and w2 == w8 == s + 1
+
+
 @pytest.mark.parametrize("out", ["equalized", "llrs"])
 def test_tracked_server_receiver_matches_jax(out):
     """The receiver family: 2-port and 1-port streams, 3 streams of one
