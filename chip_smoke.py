@@ -15,12 +15,16 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
   4. K2 (serve fill) against its plain version, equal and unequal CDM groups;
   5. `build_ri(..., batched=True, out_layout="serve", kernels="pallas_front")`
      at c2 (106 PRB x 4 layers, batch 128, matmul_precision="high") against
-     the float64 oracle, with each kernel's launch count of that run; then the
-     factored layout against the serve grid;
+     the float64 oracle, with each kernel's launch count of that run (the
+     front's finish, `front_finish`, on its scalar route); then the factored
+     layout against the serve grid, the finish on its profiles route;
   6. the two-hop c4 geometry (24 PRB, 1 layer) at batch 256, same checks;
-  7. times with CUDA events: K1 and K2 against their plain versions, and the
-     whole pallas_front call, at c2 batch 128, with the call's device busy
-     time, idle share and heaviest device operations (torch.profiler);
+  7. `front_finish` against its plain version on K1's c2 outputs, both
+     routes (profiles relative 1e-6, rotation 2e-7 absolute, scalars relative
+     1e-6); times with CUDA events: K1, K2 and `front_finish` against their
+     plain versions, and the whole pallas_front call, at c2 batch 128, with
+     the call's device busy time, idle share and heaviest device operations
+     (torch.profiler);
   8. K5 (rc_smooth) against its plain version at the c2 rows (B=128, C=8,
      n_ext=650) and at the time-interpolation row count (C=2*nL*n_dsym);
   9. K6 (fused_fill_rotate) against its plain version: c2 equal CDM groups,
@@ -324,6 +328,7 @@ def main() -> int:
     from srsran_ce_tpu_torch.ops.kernels import fill_rotate as k6
     from srsran_ce_tpu_torch.ops.kernels import fill_rotate_serve as k2
     from srsran_ce_tpu_torch.ops.kernels import front as k1
+    from srsran_ce_tpu_torch.ops.kernels import front_finish as kf
     from srsran_ce_tpu_torch.ops import ldpc, nr_ldpc
     from srsran_ce_tpu_torch.ops.kernels import ldpc as k4
     from srsran_ce_tpu_torch.ops.kernels import ldpc_stream as k3
@@ -337,12 +342,13 @@ def main() -> int:
 
     kmods = {"fused_front": k1, "fused_fill_rotate_serve": k2, "rc_smooth": k5,
              "fused_fill_rotate": k6, "ldpc_posterior": k4, "ldpc_stream_posterior": k3,
-             "inpaint_stack": k7}
+             "inpaint_stack": k7, "front_finish": kf}
 
     def reset_counts():
         for m in kmods.values():
             m.launches = 0
-        k3.route_launches.update(dict.fromkeys(k3.route_launches, 0))
+        for m in (k3, kf):
+            m.route_launches.update(dict.fromkeys(m.route_launches, 0))
 
     def read_counts():
         return {k: m.launches for k, m in kmods.items()}
@@ -384,8 +390,8 @@ def main() -> int:
         if spills:
             fail(f"ptxas spills in {src}: {spills}")
     print("phase 2 ptxas: no spills in any front (K1), fill_rotate_serve (K2), fill_rotate (K6), "
-          "rc_smooth (K5), inpaint (K7), ldpc (K4) or ldpc_stream (K3) instantiation (this run's "
-          "ptxas reports read)")
+          "rc_smooth (K5), inpaint (K7), ldpc (K4), ldpc_stream (K3) or front_finish "
+          "instantiation (this run's ptxas reports read)")
     # K1's, K2's and K6's launch plans at the shapes the main path gives them,
     # each held to the kernel's own (srs_front_plan, srs_fill_rotate_serve_plan,
     # srs_fill_rotate_plan)
@@ -561,17 +567,28 @@ def main() -> int:
     # 5 / 6. the pallas_front path against the float64 oracle
     def drive(label, kw, batch):
         cases, res, counts, fn, args = run_path(kw, batch, "pallas_front", "serve")
-        need(label, counts, launched=("fused_front", "fused_fill_rotate_serve"),
+        need(label, counts, launched=("fused_front", "fused_fill_rotate_serve", "front_finish"),
              idle=("rc_smooth", "fused_fill_rotate"))
+        if kf.route_launches != {"profiles": 0, "scalars": counts["front_finish"]}:
+            fail(f"{label}: front_finish by route {kf.route_launches}, expected the scalar "
+                 "route alone on the serve layout")
         worst = oracle_check(label, cases, res, "serve", batch, SERVE_NMSE_BOUND)
         print(f"phase {label}: serve {tuple(res.channel_est_rg.shape)}, worst NMSE vs float64 "
               f"oracle {worst:.3e} (< {SERVE_NMSE_BOUND}), scalars within bounds, launches {counts}")
 
         cfg = dataclasses.replace(cases[0].config, matmul_precision="high")
         nL = cases[0].pilots.shape[2]
-        fac = estimator.build_ri(cases[0].hop1, cases[0].hop2, cfg, nL, batched=True,
-                                 out_layout="factored", kernels="pallas_front")(*args)
+        fn_fac = estimator.build_ri(cases[0].hop1, cases[0].hop2, cfg, nL, batched=True,
+                                    out_layout="factored", kernels="pallas_front")
+        reset_counts()
+        fac = fn_fac(*args)
         torch.cuda.synchronize()
+        fac_counts = read_counts()
+        need(f"{label} factored", fac_counts, launched=("fused_front", "front_finish"),
+             idle=("fused_fill_rotate_serve", "rc_smooth", "fused_fill_rotate"))
+        if kf.route_launches != {"profiles": fac_counts["front_finish"], "scalars": 0}:
+            fail(f"{label} factored: front_finish by route {kf.route_launches}, expected the "
+                 "profiles route alone (linear interpolation)")
         ch = res.channel_est_rg.cpu().numpy()
         prof = estimator.merge_ri(np.moveaxis(fac.profiles.cpu().numpy(), 1, 0))
         rot = estimator.merge_ri(np.moveaxis(fac.sym_rot.cpu().numpy(), 1, 0))
@@ -581,10 +598,11 @@ def main() -> int:
         err = np.abs(grid - serve).max() / np.abs(serve).max()
         if not err <= 1e-5:
             fail(f"{label}: factored layout vs serve grid rel err {err:.3e} > 1e-5")
-        print(f"phase {label} factored: reconstruct_factored vs serve grid rel err {err:.3e}")
-        return counts, fn, args
+        print(f"phase {label} factored: reconstruct_factored vs serve grid rel err {err:.3e}, "
+              f"launches {fac_counts}")
+        return counts, fac_counts, fn, args
 
-    counts, fn_c2, c2_args = drive("5 c2", C2, 128)
+    counts, fac_counts_c2, fn_c2, c2_args = drive("5 c2", C2, 128)
     drive("6 c4 two hops", C4, 256)
 
     # 7. times (CUDA events, after warm-up), plain / kernel / kernel / plain
@@ -683,9 +701,42 @@ def main() -> int:
         torch.cuda.synchronize()
         return ev, (time.perf_counter() - t0) / 50 * 1e3
 
+    # the finish of the factored layout on K1's c2 outputs (the profiles route)
+    h_c2, sc_c2 = k1.fused_front(*f_args, **f_kw)
+    fin_args = ([h_c2], [sc_c2], [pt_c2["hops"][0]["taps"]], pt_c2["sst"])
+    fin_kw = dict(sc_starts=[plan_c2.hop1.sc_start], cfo_possible=[plan_c2.hop1.cfo_possible],
+                  n_sc=c2[2].shape[2], n_sym=c2[2].shape[3], n_pilots=plan_c2.n_pilots,
+                  noise_den=plan_c2.noise_den, scs_hz=plan_c2.config.scs_hz,
+                  cfo_compensate=plan_c2.config.cfo_compensate)
+    # the finish against its plain version on both routes: profiles within
+    # relative 1e-6, the rotation within 2e-7 absolute, each scalar within
+    # relative 1e-6 (NaN where the plain version has NaN)
+    for route, taps_f in (("profiles", fin_args[2]), ("scalars", None)):
+        args_r = fin_args[:2] + (taps_f,) + fin_args[3:]
+        got_f = kf.front_finish(*args_r, **fin_kw)
+        want_f = kf.front_finish_plain(*args_r, **fin_kw)
+        torch.cuda.synchronize()
+        prof_abs, prof_rel = (0.0, 0.0) if taps_f is None else errs(got_f[0], want_f[0])
+        rot_abs = errs(got_f[1], want_f[1])[0]
+        scal_rel = 0.0
+        for g, w in zip(got_f[2:], want_f[2:]):
+            g, w = g.double(), w.double()
+            same = (g == w) | (g.isnan() & w.isnan())
+            scal_rel = max(scal_rel, float(torch.where(same, 0.0, (g - w).abs() / w.abs()).max()))
+        if (got_f[0] is None) != (taps_f is None) or not (
+                prof_rel <= 1e-6 and rot_abs <= 2e-7 and scal_rel <= 1e-6):
+            fail(f"front_finish {route} c2 B=128 vs plain: profiles rel err {prof_rel:.3e} "
+                 f"(<= 1e-6), rotation abs err {rot_abs:.3e} (<= 2e-7), scalars rel err "
+                 f"{scal_rel:.3e} (<= 1e-6)")
+        results.setdefault("front_finish", prof_abs)
+        print(f"phase 7 front_finish vs plain ({route} route, c2 B=128 on K1's outputs): "
+              f"profiles max abs err {prof_abs:.3e}, rel err {prof_rel:.3e} (<= 1e-6); rotation "
+              f"max abs err {rot_abs:.3e} (<= 2e-7); scalars rel err {scal_rel:.3e} (<= 1e-6)")
     times = {
         "fused_front": ab(lambda: k1.fused_front(*f_args, **f_kw),
                           lambda: k1.fused_front_plain(*f_args, **f_kw)),
+        "front_finish": ab(lambda: kf.front_finish(*fin_args, **fin_kw),
+                           lambda: kf.front_finish_plain(*fin_args, **fin_kw)),
         "fused_fill_rotate_serve": ab(
             lambda: k2.fused_fill_rotate_serve(*k2_args, layer_slices=hp.layer_slices),
             lambda: k2.fused_fill_rotate_serve_plain(*k2_args, layer_slices=hp.layer_slices)),
@@ -798,7 +849,7 @@ def main() -> int:
     for label, kw, batch in (("c2", C2, 128), ("c4 two hops", C4, 256)):
         cases, res, cnt, fn, args = run_path(kw, batch, "pallas", "ref")
         need(f"pallas/ref {label}", cnt, launched=("rc_smooth", "fused_fill_rotate"),
-             idle=("fused_front", "fused_fill_rotate_serve"))
+             idle=("fused_front", "fused_fill_rotate_serve", "front_finish"))
         worst = oracle_check(f"pallas/ref {label}", cases, res, "ref", batch, REF_NMSE_BOUND)
         print(f"phase 10 pallas/ref {label}: ref {tuple(res.channel_est_rg.shape)}, worst NMSE vs "
               f"float64 oracle {worst:.3e} (< {REF_NMSE_BOUND}), scalars within bounds, launches {cnt}")
@@ -808,7 +859,7 @@ def main() -> int:
     # 11. kernels="pallas", serve layout: the deferred route (plain front, then K2)
     cases, res, cnt, fn_pserve, _ = run_path(C2, 128, "pallas", "serve")
     need("pallas/serve c2", cnt, launched=("fused_fill_rotate_serve",),
-         idle=("fused_front", "rc_smooth", "fused_fill_rotate"))
+         idle=("fused_front", "rc_smooth", "fused_fill_rotate", "front_finish"))
     worst = oracle_check("pallas/serve c2", cases, res, "serve", 128, SERVE_NMSE_BOUND)
     print(f"phase 11 pallas/serve c2: worst NMSE vs float64 oracle {worst:.3e} "
           f"(< {SERVE_NMSE_BOUND}), launches {cnt}")
@@ -1059,6 +1110,12 @@ def main() -> int:
                              + rx.shape[0] * (2 * nL_f * hp.n_re + 8) * 4, f_ops),
         "fused_fill_rotate_serve": bound(nbytes(*k2_args) + B2 * 2 * nL2 * 14 * n_sc2 * 4,
                                          fill_ops(B2, nL2, n_re2, n_sc2)),
+        # h_s, the scalars, the tables and the start times in; the profiles,
+        # the rotation and the five scalars out; 3 operations an output value
+        "front_finish": bound(nbytes(h_c2, sc_c2, pt_c2["sst"], *pt_c2["hops"][0]["taps"].values())
+                              + h_c2.shape[0] * (2 * nL_f * fin_kw["n_sc"] + 2 * fin_kw["n_sym"]
+                                                 + 5) * 4,
+                              3 * h_c2.shape[0] * 2 * nL_f * plan_c2.hop1.n_sc_hop),
         "rc_smooth": bound(nbytes(x5) + x5.shape[0] * x5.shape[1] * M5 * 4,
                            2 * taps.size * x5.shape[0] * x5.shape[1] * M5),
         "fused_fill_rotate": bound(nbytes(h6, w6, r6) + B6 * 2 * w6.shape[-1] * 14 * nL6 * 4,
@@ -1066,11 +1123,13 @@ def main() -> int:
     }
     for k, v in bounds.items():
         times[k] = times[k] + v[:2]
-    # K1, K2 and K6 device-only (the profiler's kernel time) beside their cold-L2 events
+    # K1, K2, K6 and the finish device-only (the profiler's kernel time) beside
+    # their cold-L2 events
     for k, fn in (("fused_front", lambda: k1.fused_front(*f_args, **f_kw)),
                   ("fused_fill_rotate_serve",
                    lambda: k2.fused_fill_rotate_serve(*k2_args, layer_slices=hp.layer_slices)),
-                  ("fused_fill_rotate", lambda: k6.fused_fill_rotate(h6, w6, r6, s6))):
+                  ("fused_fill_rotate", lambda: k6.fused_fill_rotate(h6, w6, r6, s6)),
+                  ("front_finish", lambda: kf.front_finish(*fin_args, **fin_kw))):
         dev_only[k] = device_ms(fn)
         print(f"phase 20 {k} c2 B=128: cold-L2 events {times[k][0]:.4f} ms, device-only "
               f"{dev_only[k]:.4f} ms, bound {times[k][4]:.4f} ms ({times[k][5]}) {card}")
@@ -1112,7 +1171,8 @@ def main() -> int:
         print(f"phase 20 {k} one-call yardstick torch.einsum('{spec}') c2 B=128: rel err vs plain "
               f"{e_err:.2e}, cold-L2 events {library[k]:.4f} ms (device-only {device_ms(ein):.4f}), "
               f"kernel {times[k][0]:.4f} ms (device-only {dev_only[k]:.4f}) {card}")
-    for k in ("fused_front", "fused_fill_rotate_serve", "rc_smooth", "fused_fill_rotate"):
+    for k in ("fused_front", "fused_fill_rotate_serve", "rc_smooth", "fused_fill_rotate",
+              "front_finish"):
         ms, plain_ms, _, _, b_ms, b_by = times[k]
         print(f"phase 20 {k} c2 B=128: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; bytes "
               f"{bounds[k][2]:.4f}, operations {bounds[k][3]:.4f}), "
@@ -1260,7 +1320,7 @@ def main() -> int:
         else:
             need(f"receiver {mode}/{kern}", cnt, launched=("rc_smooth",) + (
                 ("fused_fill_rotate_serve",) if mode == "dense" else ()),
-                 idle=("fused_front", "fused_fill_rotate") + (
+                 idle=("fused_front", "fused_fill_rotate", "front_finish") + (
                 ("fused_fill_rotate_serve",) if mode == "auto" else ()))
         want = fn(*ref_args)  # the same receiver on CPU float64 tensors: the plain tier
         x = res.x[:n_ref].double().cpu()
@@ -1777,10 +1837,12 @@ def main() -> int:
     learned_path(29, "learned c2", C2L, params1, params1_cpu, "xla", "serve", (), tuple(kmods))
     learned_path(29, "learned c2", C2L, params1, params1_cpu, "pallas", "serve",
                  ("fused_fill_rotate_serve",),
-                 ("fused_front", "rc_smooth", "fused_fill_rotate", "inpaint_stack"))
+                 ("fused_front", "rc_smooth", "fused_fill_rotate", "inpaint_stack",
+                  "front_finish"))
     learned_path(29, "learned c2", C2L, params1, params1_cpu, "pallas", "ref",
                  ("fused_fill_rotate",),
-                 ("fused_front", "rc_smooth", "fused_fill_rotate_serve", "inpaint_stack"))
+                 ("fused_front", "rc_smooth", "fused_fill_rotate_serve", "inpaint_stack",
+                  "front_finish"))
 
     # the denoiser alone at the c2 shape (128 x 4 rows of 636 pilots, three
     # cuDNN convolutions, 21.1 GFLOP): device-only time against its bound,
@@ -2600,9 +2662,10 @@ def main() -> int:
     if missing or errors:
         fail(f"phase 44 cli bench: rows missing {missing}, rows failed {errors}")
     # the kernels bench.py's rows run: K1 (_pallas_front), K2 (_pallas, _pallas_front),
-    # K4 (n976, the auto rows), K3 (the streamed rows, e2e)
+    # K4 (n976, the auto rows), K3 (the streamed rows, e2e), the finish
+    # (_pallas_front)
     not_run = [k for k in ("fused_front", "fused_fill_rotate_serve", "ldpc_posterior",
-                           "ldpc_stream_posterior") if cnt44[k] == 0]
+                           "ldpc_stream_posterior", "front_finish") if cnt44[k] == 0]
     if not_run:
         fail(f"phase 44 cli bench: kernels not launched {not_run} (launches {cnt44})")
     for n in want_rows:
@@ -2654,11 +2717,13 @@ def main() -> int:
                "ldpc_stream_posterior": ("srsran_ce_tpu_torch/csrc/ldpc_stream.cu",
                                          "srsran_ce_tpu/ops/pallas/kernels.py:1139"),
                "inpaint_stack": ("srsran_ce_tpu_torch/csrc/inpaint.cu",
-                                 "srsran_ce_tpu/ops/pallas/kernels.py:852")}
+                                 "srsran_ce_tpu/ops/pallas/kernels.py:852"),
+               "front_finish": ("srsran_ce_tpu_torch/csrc/front_finish.cu", None)}
     launches = dict(counts)
     launches.update({k: pallas_counts[k] for k in ("rc_smooth", "fused_fill_rotate")})
     launches.update(ldpc_launches)
     launches["inpaint_stack"] = k7_launches
+    launches["front_finish"] = counts["front_finish"] + fac_counts_c2["front_finish"]
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
          "launches": launches[k], "max_abs_err": results[k], "ms": times[k][0],

@@ -10,8 +10,9 @@ plain PyTorch version that the CPU runs.
 
 Covered: the estimator, `models.estimator.build_ri` over the three kernel tiers
 ("xla" plain torch, "pallas" with K5 `rc_smooth` and K6 `fused_fill_rotate`,
-"pallas_front" with K1 `fused_front`; K2 `fused_fill_rotate_serve` fills the
-serve grid) and the three layouts, plus `build`, `build_batched` and
+"pallas_front" with K1 `fused_front` and its finish `front_finish`, a kernel
+of the port that replaces no TPU kernel; K2 `fused_fill_rotate_serve` fills
+the serve grid) and the three layouts, plus `build`, `build_batched` and
 `estimate`; the conformance replay (`validation/cli.py selftest | validate`).
 `entry.entry()` builds the c2 case.
 """

@@ -20,7 +20,8 @@ Each graph holds a private memory pool, so at most `MAX_GRAPHS` are kept
 capture launches nothing, so its counts are taken back, and each replay adds
 them again, once per kernel the graph launches, so the counters go on
 counting launches on the card (one call, one launch of each of its kernels).
-The same holds for a wrapper's launches by route (`route_launches`, K3's).
+The same holds for a wrapper's launches by route (`route_launches`: K3's and
+`front_finish`'s).
 A replay is the span `graphs.replay` (its input copies, the replay and the
 output clones), and its work on the card the event-timed `graphs.replay_ms`
 (`utils/spans.py`, while the spans are on).
@@ -86,11 +87,14 @@ def _side_stream(dev) -> "torch.cuda.Stream":
 
 
 def kernel_modules():
-    """The seven kernels' wrapper modules, each with its `launches` counter."""
-    from .ops.kernels import (fill_rotate, fill_rotate_serve, front, inpaint, ldpc, ldpc_stream,
-                              rc_smooth)
+    """The kernels' wrapper modules, each with its `launches` counter: the seven
+    that replace the TPU package's kernels, then `front_finish`, a kernel of
+    the port that replaces none (the fused front's finish)."""
+    from .ops.kernels import (fill_rotate, fill_rotate_serve, front, front_finish, inpaint, ldpc,
+                              ldpc_stream, rc_smooth)
 
-    return (front, fill_rotate_serve, rc_smooth, fill_rotate, ldpc, ldpc_stream, inpaint)
+    return (front, fill_rotate_serve, rc_smooth, fill_rotate, ldpc, ldpc_stream, inpaint,
+            front_finish)
 
 
 def launch_counts(mods) -> tuple:

@@ -51,6 +51,7 @@ from ..ops import dsp, mathx
 from ..ops.kernels import fill_rotate as _k6
 from ..ops.kernels import fill_rotate_serve as _k2
 from ..ops.kernels import front as _k1
+from ..ops.kernels import front_finish as _finish
 from ..ops.kernels import full_f32_matmul
 from ..ops.kernels import rc_smooth as _k5
 from . import denoiser as _dn
@@ -853,26 +854,24 @@ def _front_pallas_batched(
     plan: EstimatorPlan, pt: dict, rg_ri: torch.Tensor, pil_ri: torch.Tensor,
     beta: torch.Tensor, out_layout: str, out_dtype=None,
 ):
-    """The batched estimator over K1 and K2.
+    """The batched estimator over K1, its finish and K2.
 
     plan: an EstimatorPlan of either package; pt: `plan_tensors(plan, ...)` on
     the inputs' device and dtype. rg_ri (B, 2, n_sc, n_sym); pil_ri
     (B, 2, n_re, n_dsym_total, nL); beta (B,). Returns EstimateResult (serve)
-    or FactoredResult (factored)."""
+    or FactoredResult (factored). One `front_finish` launch a call takes the
+    scalars and the rotation, and with linear interpolation the factored
+    profiles too (its two-tap tables); the "cnn" inpainting operator is not
+    two-tap, so its factored profiles stay one product a CDM group."""
     config = plan.config
     nL = plan.n_layers
     B, _, n_sc, n_sym = rg_ri.shape
-    rdtype = rg_ri.dtype
-    dev = rg_ri.device
     hops = [plan.hop1] + ([plan.hop2] if plan.hop2 is not None else [])
     splits = [(0, plan.n_dsym1)] + (
         [(plan.n_dsym1, plan.n_dsym1 + plan.hop2.n_dsym)] if plan.hop2 is not None else []
     )
 
-    zeros = torch.zeros(B, dtype=rdtype, device=dev)
-    epre, noise, rsrp, ta = zeros, zeros, zeros, zeros
-    cfo = None
-    h_ps = []
+    h_ps, scs = [], []
     for hp, ht, (d0, d1) in zip(hops, pt["hops"], splits):
         rx = _gather_rx(hp, ht, rg_ri)
         # pilots (B, 2, n_re, n_dsym, nL) -> (B, 2, nL, n_dsym, n_re)
@@ -884,39 +883,26 @@ def _front_pallas_batched(
             cfo_compensate=config.cfo_compensate,
         )
         h_ps.append(h_s)
-        ta = ta + sc[:, 1]
-        noise = noise + sc[:, 2]
-        rsrp = rsrp + sc[:, 3]
-        epre = epre + sc[:, 4]
-        if hp.cfo_possible:
-            cfo = sc[:, 0] if cfo is None else (cfo + sc[:, 0]) / 2.0
+        scs.append(sc)
 
-    rsrp = rsrp / plan.n_pilots / nL
-    epre = epre / plan.n_pilots
-    noise = noise / plan.noise_den
-    if plan.hop2 is not None:
-        ta = ta / 2.0
-    cfo_hz = cfo * config.scs_hz if cfo is not None else torch.full_like(zeros, math.nan)
-
-    if config.cfo_compensate and cfo is not None:
-        phase = (2.0 * math.pi) * cfo[:, None] * pt["sst"][None, :]  # (B, 14)
-        rot_ri = torch.stack([torch.cos(phase), torch.sin(phase)], dim=1)
-    else:
-        rot_ri = torch.stack(
-            [torch.ones(B, n_sym, dtype=rdtype, device=dev),
-             torch.zeros(B, n_sym, dtype=rdtype, device=dev)],
-            dim=1,
-        )
+    two_tap = out_layout == "factored" and config.interp == "linear"
+    profiles, rot_ri, noise, rsrp, epre, ta, cfo_hz = _finish.front_finish(
+        h_ps, scs, [ht["taps"] for ht in pt["hops"]] if two_tap else None, pt["sst"],
+        sc_starts=[hp.sc_start for hp in hops], cfo_possible=[hp.cfo_possible for hp in hops],
+        n_sc=n_sc, n_sym=n_sym, n_pilots=plan.n_pilots, noise_den=plan.noise_den,
+        scs_hz=config.scs_hz, cfo_compensate=config.cfo_compensate,
+    )
 
     if out_layout == "factored":
-        profiles = torch.zeros((B, 2, len(hops), nL, n_sc), dtype=rdtype, device=dev)
-        for h, (hp, ht, h_s) in enumerate(zip(hops, pt["hops"], h_ps)):
-            for c, (l0, l1) in enumerate(hp.layer_slices):
-                # contiguous, the group's rows fold into one (B 2 n_lc, n_re) x
-                # (n_re, n_sc_hop) product; the strided slice runs as B 2 batched
-                # products of n_lc rows each (~15x slower on an H100 at 106 PRB)
-                full = torch.matmul(h_s[:, :, l0:l1].contiguous(), ht["interp"][c])
-                profiles[:, :, h, l0:l1, hp.sc_start : hp.sc_start + hp.n_sc_hop] = full
+        if profiles is None:
+            profiles = rg_ri.new_zeros((B, 2, len(hops), nL, n_sc))
+            for h, (hp, ht, h_s) in enumerate(zip(hops, pt["hops"], h_ps)):
+                for c, (l0, l1) in enumerate(hp.layer_slices):
+                    # contiguous, the group's rows fold into one (B 2 n_lc, n_re) x
+                    # (n_re, n_sc_hop) product; the strided slice runs as B 2
+                    # batched products of n_lc rows each (~15x slower on an H100)
+                    full = torch.matmul(h_s[:, :, l0:l1].contiguous(), ht["interp"][c])
+                    profiles[:, :, h, l0:l1, hp.sc_start : hp.sc_start + hp.n_sc_hop] = full
         return FactoredResult(profiles, rot_ri, noise, rsrp, epre, ta, cfo_hz)
 
     channel = _serve_fill_pallas_batched(plan, pt, tuple(h_ps), rot_ri, n_sc, n_sym, out_dtype)

@@ -471,6 +471,23 @@ def make_plan(
     )
 
 
+def _interp_taps(hp) -> tuple:
+    """The linear interpolation operator of a hop as its two taps a column:
+    (left, right) int32 and (w_l, w_r) float64, each (n_cdm, n_sc_hop), with
+    w_l = interp_matrix[c, left, j] and w_r = interp_matrix[c, right, j], or
+    0 where right == left (at the band's edges, where the operator holds the
+    two weights summed into one entry). Every other entry of a column is zero,
+    so w_l * h[left] + w_r * h[right] sums exactly the operator's nonzero
+    terms."""
+    left = np.asarray(hp.interp_left, dtype=np.int32)
+    right = np.asarray(hp.interp_right, dtype=np.int32)
+    c = np.arange(left.shape[0])[:, None]
+    j = np.arange(left.shape[1])[None, :]
+    w_l = hp.interp_matrix[c, left, j]
+    w_r = np.where(right != left, hp.interp_matrix[c, right, j], 0.0)
+    return left, right, w_l, w_r
+
+
 def plan_tensors(plan, device, dtype) -> dict:
     """The device tensors the port's estimator consumes, from an `EstimatorPlan`
     of either package (only numpy attributes are read).
@@ -482,6 +499,12 @@ def plan_tensors(plan, device, dtype) -> dict:
                    interpolation matrices, or with interp="cnn" the exact
                    inpainting operators (`ops.dsp.inpaint_operator`, built on
                    the device);
+      taps         with interp="linear" on a plan the fused front (K1) takes
+                   (`estimator._front_pallas_ok`), the interpolation matrices'
+                   two taps a column (`_interp_taps`): left, right (int32) and
+                   w_l, w_r, each (n_cdm, n_sc_hop), which
+                   `ops.kernels.front_finish` reads in place of the dense
+                   product; else None (no other tier reads them);
       inpaint      with interp="cnn", per CDM group whose chain the fill runs
                    pass by pass (`ops.dsp.INPAINT_CHAIN_MAX_ITERS` or fewer
                    iterations), the known positions' indices and the
@@ -502,7 +525,7 @@ def plan_tensors(plan, device, dtype) -> dict:
     import torch
 
     from ..ops.dsp import INPAINT_CHAIN_MAX_ITERS, inpaint_consts, inpaint_operator
-    from .estimator import _front_mats
+    from .estimator import _front_mats, _front_pallas_ok
 
     def real(a):
         return None if a is None else torch.as_tensor(
@@ -513,6 +536,7 @@ def plan_tensors(plan, device, dtype) -> dict:
         return torch.as_tensor(np.asarray(a, dtype=np.int64).reshape(-1), device=device)
 
     sst = plan.symbol_start_time
+    two_tap = plan.config.interp == "linear" and _front_pallas_ok(plan)
     hops = []
     for hp in (plan.hop1, plan.hop2):
         if hp is None:
@@ -530,6 +554,11 @@ def plan_tensors(plan, device, dtype) -> dict:
             ]
         else:
             interp = real(hp.interp_matrix)
+        taps = None
+        if two_tap:
+            left, right, w_l, w_r = _interp_taps(hp)
+            taps = dict(left=torch.as_tensor(left, device=device),
+                        right=torch.as_tensor(right, device=device), w_l=real(w_l), w_r=real(w_r))
         fused = None
         if hp.smooth_mat is not None:
             fused = dict(pair_l=real(hp.pair_l_mat), pair_r=real(hp.pair_r_mat),
@@ -546,6 +575,7 @@ def plan_tensors(plan, device, dtype) -> dict:
                 re_idx=index(hp.re_idx),  # (n_cdm * n_re,) group-major
                 dmrs_sym_idx=index(hp.dmrs_sym_idx),
                 interp=interp,
+                taps=taps,
                 inpaint=inpaint,
                 vp=real(hp.vp_matrix),
                 fused=fused,

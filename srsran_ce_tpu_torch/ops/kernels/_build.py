@@ -22,7 +22,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("front", "fill_rotate_serve", "rc_smooth", "fill_rotate", "ldpc", "ldpc_stream",
-           "inpaint")
+           "inpaint", "front_finish")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

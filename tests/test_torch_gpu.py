@@ -13,6 +13,8 @@ f32 sums run in another order; the TA is a discrete bin); the whole CUDA estimat
 against the float64 CPU run of the same port at channel NMSE < 4e-11, the JAX
 package's serve bound, and < 1e-12 in the reference layout (its ref bound);
 bfloat16 grids within 1e-2 of the float32 grid's scale (bf16 keeps 8 bits).
+The front's finish (`front_finish`) against its plain version: relative 1e-6
+on the profiles and scalars, 2e-7 absolute on the rotation.
 """
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from srsran_ce_tpu_torch.models.plan import make_plan, plan_tensors
 from srsran_ce_tpu_torch.ops.kernels import fill_rotate as k6
 from srsran_ce_tpu_torch.ops.kernels import fill_rotate_serve as k2
 from srsran_ce_tpu_torch.ops.kernels import front as k1
+from srsran_ce_tpu_torch.ops.kernels import front_finish as kf
 from srsran_ce_tpu_torch.ops.kernels import rc_smooth as k5
 from srsran_ce_tpu_torch.utils import synthetic
 
@@ -1735,3 +1738,144 @@ def test_equalized_serving_launches_no_k1():
     for _ in range(3):
         serving.process(probs, batch_size=2, out="equalized")
     assert k1.launches == n0 and graphs.replays > r0
+
+
+# ---------------------------------------------------------------------------
+# The fused front's finish (`front_finish`)
+# ---------------------------------------------------------------------------
+
+FINISH_CASES = [
+    ("one_hop", dict(n_prbs=106, n_layers=3)),
+    ("two_hops", dict(n_prbs=24, n_layers=3, two_hops=True, n_dmrs_syms=3)),
+    ("cell_shape", dict(n_prbs=106, n_layers=4)),
+]
+
+
+def _finish_call(kw, batch, fn, profiles, seed=0):
+    """`fn` (`front_finish` or its plain version) on K1-shaped random outputs
+    of each hop of a synthetic case's plan, on the card."""
+    case = synthetic.make_case(seed=5, **kw)
+    plan = make_plan(case.hop1, case.hop2, case.config, kw["n_layers"])
+    pt = plan_tensors(plan, "cuda", torch.float32)
+    hops = [hp for hp in (plan.hop1, plan.hop2) if hp is not None]
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    h_s = [t(rng.standard_normal((batch, 2, plan.n_layers, hp.n_re))) for hp in hops]
+    sc = [t(np.concatenate([rng.uniform(-0.05, 0.05, (batch, 1)), rng.uniform(-2e-6, 2e-6, (batch, 1)),
+                            rng.uniform(0.5, 50.0, (batch, 3)), np.zeros((batch, 3))], axis=1))
+          for _ in hops]
+    taps = [ht["taps"] for ht in pt["hops"]] if profiles else None
+    return fn(h_s, sc, taps, pt["sst"], sc_starts=[hp.sc_start for hp in hops],
+              cfo_possible=[hp.cfo_possible for hp in hops], n_sc=case.received_rg.shape[0],
+              n_sym=14, n_pilots=plan.n_pilots, noise_den=plan.noise_den,
+              scs_hz=plan.config.scs_hz, cfo_compensate=plan.config.cfo_compensate)
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("route", ["profiles", "scalars"])
+@pytest.mark.parametrize("batch", [1, 128, 133])
+@pytest.mark.parametrize("name,kw", FINISH_CASES, ids=[c[0] for c in FINISH_CASES])
+def test_front_finish_kernel_matches_plain(name, kw, batch, route):
+    profiles = route == "profiles"
+    n0, r0 = kf.launches, dict(kf.route_launches)
+    got = _finish_call(kw, batch, kf.front_finish, profiles)
+    assert kf.launches == n0 + 1
+    assert {r: n - r0[r] for r, n in kf.route_launches.items()} == {
+        "profiles": int(profiles), "scalars": int(not profiles)}
+    want = _finish_call(kw, batch, kf.front_finish_plain, profiles)
+    torch.cuda.synchronize()
+    if profiles:
+        assert got[0].shape == want[0].shape and rel(got[0], want[0]) <= 1e-6, name
+    else:
+        assert got[0] is None
+    assert got[1].shape == want[1].shape
+    assert float((got[1] - want[1]).abs().max()) <= 2e-7, name
+    for g, w, field in zip(got[2:], want[2:], ("noise", "rsrp", "epre", "ta", "cfo_hz")):
+        assert g.shape == w.shape == (batch,), field
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-6, atol=0,
+                                   err_msg=field)
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("interp,layout,route", [
+    ("linear", "factored", "profiles"), ("linear", "serve", "scalars"),
+    ("cnn", "factored", "scalars"), ("cnn", "serve", "scalars")])
+def test_front_finish_route_follows_the_layout_and_the_interpolation(interp, layout, route):
+    """One finish launch a call of the fused-front tier, on the profiles route
+    only for the factored layout with linear interpolation (the "cnn"
+    inpainting operator is not two-tap: its profiles stay a product)."""
+    kw = dict(n_prbs=24, n_layers=2, comb=2, snr_db=30.0, interp=interp)
+    case, rg, pil, beta = case_inputs(kw, 8, torch.float32, "cuda", seed=4)
+    fn = est.build_ri(case.hop1, case.hop2, case.config, 2, batched=True, out_layout=layout,
+                      kernels="pallas_front")
+    n0, r0 = kf.launches, dict(kf.route_launches)
+    with graphs.eager():
+        got = fn(rg, pil, beta)
+    assert kf.launches == n0 + 1
+    assert {r: n - r0[r] for r, n in kf.route_launches.items()} == {
+        "profiles": int(route == "profiles"), "scalars": int(route == "scalars")}
+    want = est.build_ri(case.hop1, case.hop2, case.config, 2, batched=True,
+                        out_layout=layout)(rg.double().cpu(), pil.double().cpu(),
+                                           beta.double().cpu())
+    field = "profiles" if layout == "factored" else "channel_est_rg"
+    a, b = getattr(got, field).double().cpu(), getattr(want, field)
+    assert float(((a - b) ** 2).sum() / (b**2).sum()) < 4e-11, (interp, layout)
+
+
+@NEEDS_GPU
+def test_front_finish_launches_once_a_replay():
+    """Through the graphed path the factored call's finish is one launch on
+    the profiles route each replay, as K1 is."""
+    kw = FRONT_CASES[0][1]
+    case, rg, pil, beta = case_inputs(kw, 16, torch.float32, "cuda", seed=6)
+    fn = est.build_ri(case.hop1, case.hop2, case.config, 4, batched=True,
+                      out_layout="factored", kernels="pallas_front")
+    graphs.clear()  # a builder of an earlier test may hold this key's graph
+    fn(rg, pil, beta)  # eager: the key's first call
+    fn(rg, pil, beta)  # captured and replayed
+    n0, p0, k0, r0 = kf.launches, kf.route_launches["profiles"], k1.launches, graphs.replays
+    for _ in range(3):
+        out = fn(rg, pil, beta)
+    torch.cuda.synchronize()
+    assert graphs.replays - r0 == 3
+    assert kf.launches - n0 == 3 and kf.route_launches["profiles"] - p0 == 3
+    assert k1.launches - k0 == 3
+    with graphs.eager():
+        eager = fn(rg, pil, beta)
+    assert torch.equal(out.profiles, eager.profiles) and torch.equal(out.sym_rot, eager.sym_rot)
+
+
+@NEEDS_GPU
+def test_front_finish_refuses_bands_off_the_four_subcarrier_grid_and_unaligned_tables():
+    """The kernel reads and writes 4 subcarriers as one 16-byte word: the
+    wrapper refuses an n_sc or a band edge off multiples of 4 and tables not
+    16-byte aligned, before any launch."""
+    case = synthetic.make_case(seed=5, n_prbs=8, n_layers=2)
+    plan = make_plan(case.hop1, case.hop2, case.config, 2)
+    pt = plan_tensors(plan, "cuda", torch.float32)
+    hp, taps = plan.hop1, pt["hops"][0]["taps"]
+    h_s = [torch.randn(4, 2, 2, hp.n_re, device="cuda")]
+    sc = [torch.rand(4, 8, device="cuda")]
+    n_sc = case.received_rg.shape[0]
+
+    def call(taps, sc_start=hp.sc_start, n_sc=n_sc):
+        return kf.front_finish(h_s, sc, [taps], pt["sst"], sc_starts=[sc_start],
+                               cfo_possible=[hp.cfo_possible], n_sc=n_sc, n_sym=14,
+                               n_pilots=plan.n_pilots, noise_den=plan.noise_den,
+                               scs_hz=plan.config.scs_hz, cfo_compensate=True)
+
+    def shifted(t):  # a contiguous copy 4 bytes past a 16-byte boundary
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    n0 = kf.launches
+    assert call(taps)[0].shape == (4, 2, 1, 2, n_sc)
+    for bad in (dict(n_sc=n_sc + 2), dict(sc_start=hp.sc_start + 2, n_sc=n_sc + 4)):
+        with pytest.raises(ValueError, match="multiples of 4"):
+            call(taps, **bad)
+    for name in ("left", "right", "w_l", "w_r"):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            call(dict(taps, **{name: shifted(taps[name])}))
+    assert kf.launches == n0 + 1

@@ -174,13 +174,16 @@ def test_graphed_runs_eagerly_on_the_cpu():
 
 def test_launch_counts_are_taken_back_and_added_by_route():
     """What a capture takes back and each replay adds: every kernel module's
-    launches and, for K3, its launches by route (`route_launches`)."""
+    launches and, for K3 and the front's finish, its launches by route
+    (`route_launches`)."""
+    from srsran_ce_tpu_torch.ops.kernels import front_finish as kf
     from srsran_ce_tpu_torch.ops.kernels import ldpc_stream as k3
 
     mods = graphs.kernel_modules()
     before = graphs.launch_counts(mods)
     assert dict(before[mods.index(k3)][1]) == k3.route_launches
-    assert all(by_route == {} for m, (_, by_route) in zip(mods, before) if m is not k3)
+    assert dict(before[mods.index(kf)][1]) == kf.route_launches
+    assert all(by_route == {} for m, (_, by_route) in zip(mods, before) if m not in (k3, kf))
     one = tuple((int(m is k3), {"pair": 1} if m is k3 else {}) for m in mods)
     graphs.add_launch_counts(mods, one)  # a replay of a graph holding one pair launch
     after = graphs.launch_counts(mods)

@@ -17,6 +17,10 @@ Tolerances:
   float32 — the JAX package's kernel-vs-XLA bounds of
     tests/test_pallas_kernels.py:319-332 (NMSE 1e-9, noise rtol 1e-4, rsrp
     1e-5, epre 1e-6, ta 1e-6, cfo 1e-4), with the unmodified JAX kernel.
+`front_finish_plain` replaces no JAX kernel: it is held against the
+arithmetic it took the place of (the dense operator product per CDM group and
+the scalar finish in plain torch), float64 within 1e-13 and float32 within
+1e-6 relative.
 The CUDA kernels themselves are held against their plain versions on the card
 by tests/test_torch_gpu.py (no JAX there) and chip_smoke.py.
 """
@@ -40,6 +44,7 @@ from srsran_ce_tpu_torch.ops.kernels import _build
 from srsran_ce_tpu_torch.ops.kernels import fill_rotate as k6
 from srsran_ce_tpu_torch.ops.kernels import fill_rotate_serve as k2
 from srsran_ce_tpu_torch.ops.kernels import front as k1
+from srsran_ce_tpu_torch.ops.kernels import front_finish as kf
 from srsran_ce_tpu_torch.ops.kernels import inpaint as k7
 from srsran_ce_tpu_torch.ops.kernels import rc_smooth as k5
 from srsran_ce_tpu_torch.utils import synthetic
@@ -811,3 +816,179 @@ def test_k6_plan_and_refusals():
         k6.launch_plan(4, 4, c2, 636, 1272, 33, 132)
     with pytest.raises(ValueError):
         k6.launch_plan(0, 4, c2, 636, 1272, 14, 132)
+
+
+# ---------------------------------------------------------------------------
+# front_finish: the fused front's finish, against the arithmetic it replaced
+# ---------------------------------------------------------------------------
+
+FINISH_CASES = [
+    ("nL1", dict(n_prbs=8, n_layers=1)),
+    ("nL2_two_hops", dict(n_prbs=8, n_layers=2, two_hops=True)),
+    ("nL3", dict(n_prbs=10, n_layers=3)),
+    ("nL4_cfo_off", dict(n_prbs=12, n_layers=4, cfo_compensate=False)),
+    ("nL8_comb4", dict(n_prbs=8, n_layers=8, comb=4)),
+    ("nL1_one_dmrs_sym", dict(n_prbs=8, n_layers=1, n_dmrs_syms=1)),
+    ("nL2_two_hops_first_without_cfo", dict(n_prbs=8, n_layers=2, two_hops=True, n_dmrs_syms=3)),
+    ("nL3_two_hops_no_cfo_offset", dict(n_prbs=6, n_layers=3, two_hops=True, n_dmrs_syms=2,
+                                        prb_start=2, n_prb_total=20)),
+]
+
+
+def finish_inputs(kw, dtype, batch=3, seed=0):
+    """A plan of a synthetic case and K1-shaped outputs of each of its hops:
+    (plan, pt, hops, h_s, sc, n_sc)."""
+    case = synthetic.make_case(seed=5, **kw)
+    plan = make_plan(case.hop1, case.hop2, case.config, kw["n_layers"])
+    pt = plan_tensors(plan, "cpu", dtype)
+    hops = [hp for hp in (plan.hop1, plan.hop2) if hp is not None]
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype)
+    h_s = [t(rng.standard_normal((batch, 2, plan.n_layers, hp.n_re))) for hp in hops]
+    sc = [t(np.concatenate([rng.uniform(-0.05, 0.05, (batch, 1)),  # cfo (of the scs)
+                            rng.uniform(-2e-6, 2e-6, (batch, 1)),  # ta (s)
+                            rng.uniform(0.5, 50.0, (batch, 3)),  # noise, rsrp, epre sums
+                            np.zeros((batch, 3))], axis=1)) for _ in hops]
+    return plan, pt, hops, h_s, sc, case.received_rg.shape[0]
+
+
+def finish_as_before(plan, pt, hops, h_s, sc, n_sc, profiles):
+    """The finish as `_front_pallas_batched` computed it before `front_finish`:
+    the scalars in plain torch and, for the factored layout, one dense product
+    a CDM group by the plan's interpolation operator into a zero array."""
+    config, nL = plan.config, plan.n_layers
+    B, dt, n_sym = sc[0].shape[0], sc[0].dtype, 14
+    zeros = torch.zeros(B, dtype=dt)
+    epre, noise, rsrp, ta = zeros, zeros, zeros, zeros
+    cfo = None
+    for hp, s in zip(hops, sc):
+        ta, noise, rsrp, epre = ta + s[:, 1], noise + s[:, 2], rsrp + s[:, 3], epre + s[:, 4]
+        if hp.cfo_possible:
+            cfo = s[:, 0] if cfo is None else (cfo + s[:, 0]) / 2.0
+    rsrp = rsrp / plan.n_pilots / nL
+    epre = epre / plan.n_pilots
+    noise = noise / plan.noise_den
+    if len(hops) == 2:
+        ta = ta / 2.0
+    cfo_hz = cfo * config.scs_hz if cfo is not None else torch.full_like(zeros, math.nan)
+    if config.cfo_compensate and cfo is not None:
+        phase = (2.0 * math.pi) * cfo[:, None] * pt["sst"][None, :]
+        rot = torch.stack([torch.cos(phase), torch.sin(phase)], dim=1)
+    else:
+        rot = torch.stack([torch.ones(B, n_sym, dtype=dt), torch.zeros(B, n_sym, dtype=dt)], 1)
+    prof = None
+    if profiles:
+        prof = torch.zeros((B, 2, len(hops), nL, n_sc), dtype=dt)
+        for h, (hp, ht, hs) in enumerate(zip(hops, pt["hops"], h_s)):
+            for c, (l0, l1) in enumerate(hp.layer_slices):
+                full = torch.matmul(hs[:, :, l0:l1].contiguous(), ht["interp"][c])
+                prof[:, :, h, l0:l1, hp.sc_start : hp.sc_start + hp.n_sc_hop] = full
+    return prof, rot, noise, rsrp, epre, ta, cfo_hz
+
+
+def run_finish(fn, plan, pt, hops, h_s, sc, n_sc, profiles):
+    taps = [ht["taps"] for ht in pt["hops"]] if profiles else None
+    return fn(h_s, sc, taps, pt["sst"], sc_starts=[hp.sc_start for hp in hops],
+              cfo_possible=[hp.cfo_possible for hp in hops], n_sc=n_sc, n_sym=14,
+              n_pilots=plan.n_pilots, noise_den=plan.noise_den, scs_hz=plan.config.scs_hz,
+              cfo_compensate=plan.config.cfo_compensate)
+
+
+@pytest.mark.parametrize("route", ["profiles", "scalars"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13), (torch.float32, 1e-6)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("name,kw", FINISH_CASES, ids=[c[0] for c in FINISH_CASES])
+def test_front_finish_plain_matches_the_dense_finish(name, kw, dtype, tol, route):
+    """`front_finish_plain` against the arithmetic it replaced: the profiles
+    (a two-tap gather against the dense product, the band placed into zeros),
+    the rotation and the five scalars; NaN CFO where no hop estimates it."""
+    args = finish_inputs(kw, dtype)
+    profiles = route == "profiles"
+    got = run_finish(kf.front_finish_plain, *args, profiles)
+    want = finish_as_before(*args, profiles)
+    if profiles:
+        assert got[0].shape == want[0].shape and got[0].dtype == dtype
+        assert rel(got[0], want[0]) <= tol, rel(got[0], want[0])
+        outside = want[0] == 0
+        assert torch.equal(got[0][outside], want[0][outside])  # zeros outside the band
+    else:
+        assert got[0] is None
+    assert got[1].shape == want[1].shape and rel(got[1], want[1]) <= tol
+    for g, w, field in zip(got[2:], want[2:], ("noise", "rsrp", "epre", "ta", "cfo_hz")):
+        assert g.shape == w.shape and g.dtype == dtype, field
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=tol, atol=0, equal_nan=True,
+                                   err_msg=field)
+    plan, hops = args[0], args[2]
+    assert torch.isnan(got[6]).all() == (not any(hp.cfo_possible for hp in hops))
+    no_rotation = not (plan.config.cfo_compensate and any(hp.cfo_possible for hp in hops))
+    assert no_rotation == (torch.equal(got[1][:, 0], torch.ones_like(got[1][:, 0]))
+                           and torch.equal(got[1][:, 1], torch.zeros_like(got[1][:, 1])))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("name,kw", [FINISH_CASES[i] for i in (1, 2, 4, 7)],
+                         ids=[FINISH_CASES[i][0] for i in (1, 2, 4, 7)])
+def test_front_finish_taps_rebuild_the_operator_exactly(name, kw, dtype):
+    """The two-tap tables scattered back, w_l at (left, j) and w_r at
+    (right, j), give the operator `plan_tensors` holds, bit for bit: the
+    kernel sums exactly its nonzero terms."""
+    plan, pt, hops, *_ = finish_inputs(kw, dtype)
+    for hp, ht in zip(hops, pt["hops"]):
+        t = ht["taps"]
+        n_cdm, n_sc_hop = t["left"].shape
+        assert t["left"].dtype == t["right"].dtype == torch.int32
+        assert t["w_l"].dtype == t["w_r"].dtype == dtype
+        op = torch.zeros((n_cdm, hp.n_re, n_sc_hop), dtype=dtype)
+        c = torch.arange(n_cdm)[:, None].expand(n_cdm, n_sc_hop)
+        j = torch.arange(n_sc_hop)[None, :].expand(n_cdm, n_sc_hop)
+        op.index_put_((c, t["left"].long(), j), t["w_l"], accumulate=True)
+        op.index_put_((c, t["right"].long(), j), t["w_r"], accumulate=True)
+        assert torch.equal(op, ht["interp"])
+        both = t["left"] == t["right"]
+        assert torch.equal(t["w_r"][both], torch.zeros_like(t["w_r"][both]))
+
+
+def test_front_finish_wrapper_takes_plain_version_on_cpu():
+    args = finish_inputs(FINISH_CASES[1][1], torch.float32)
+    n0, r0 = kf.launches, dict(kf.route_launches)
+    for profiles in (True, False):
+        got = run_finish(kf.front_finish, *args, profiles)
+        want = run_finish(kf.front_finish_plain, *args, profiles)
+        for g, w in zip(got, want):
+            assert (g is None and w is None) or torch.equal(g, w)
+    assert (kf.launches, kf.route_launches) == (n0, r0)  # plain versions never count
+    plan, pt, hops, h_s, sc, n_sc = args
+    with pytest.raises(ValueError, match="CPU .plain. or CUDA"):
+        run_finish(kf.front_finish, plan, pt, hops, [h.to("meta") for h in h_s], sc, n_sc, True)
+
+
+TAPS_CASES = [
+    ("k1_one_hop", dict(n_prbs=8, n_layers=2), True),
+    ("k1_two_hops_offset", dict(n_prbs=6, n_layers=3, two_hops=True, n_dmrs_syms=2,
+                                prb_start=2, n_prb_total=20), True),
+    ("wide_no_fused_smoothing", dict(n_prbs=273, n_layers=1), False),
+    ("mean_smoothing", dict(n_prbs=8, n_layers=2, smoothing="mean"), False),
+    ("time_interpolation", dict(n_prbs=8, n_layers=1, time_interp="linear", doppler_hz=300.0),
+     False),
+    ("cnn_interpolation", dict(n_prbs=8, n_layers=1, interp="cnn"), False),
+]
+
+
+@pytest.mark.parametrize("name,kw,two_tap", TAPS_CASES, ids=[c[0] for c in TAPS_CASES])
+def test_plan_tensors_build_taps_only_for_plans_the_fused_front_takes(name, kw, two_tap):
+    """The two-tap tables exist exactly where the fused front (K1) takes a
+    linear-interpolation plan, the one tier whose finish reads them, and lie
+    on the whole-PRB grid the kernel's 16-byte loads and stores need."""
+    case = synthetic.make_case(seed=5, **kw)
+    plan = make_plan(case.hop1, case.hop2, case.config, kw["n_layers"])
+    assert two_tap == (case.config.interp == "linear" and port_est._front_pallas_ok(plan))
+    pt = plan_tensors(plan, "cpu", torch.float32)
+    hops = [hp for hp in (plan.hop1, plan.hop2) if hp is not None]
+    for hp, ht in zip(hops, pt["hops"]):
+        if not two_tap:
+            assert ht["taps"] is None
+            continue
+        assert set(ht["taps"]) == {"left", "right", "w_l", "w_r"}
+        assert ht["taps"]["left"].shape == (hp.n_cdm, hp.n_sc_hop)
+        assert hp.sc_start % 4 == 0 and hp.n_sc_hop % 4 == 0
+        assert case.received_rg.shape[0] % 4 == 0
