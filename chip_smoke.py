@@ -100,7 +100,11 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      CRC24B, NR-rate-matched BG1 Z=384 words at 15 dB through
      `process(out="decoded", batch_size=8)` on the host path and with
      decode_on_device=True, 8 and 24 slots: every word ok and payload-exact,
-     both paths identical, K3 launched in every decode call;
+     both paths identical, K3 launched in every decode call; then the
+     2-layer 256QAM uplink (4 RX, 273 PRB, 42 BG1 Z=384 words of E=12480 a
+     slot, 32 fillers, scrambled, 30 dB): one 8-slot device-path call replayed
+     with the spans on, one K3 launch on the pair route for its 336 words,
+     `serving.decode_words` 336, every word payload-exact;
  25. times: K7 (kernel, plain, bound, and its one-call counterpart, the
      operator matmul; K7 and the matmul at c3 and in the chain regime three
      ways, as in phase 20), the receiver's ms per batch (CUDA events, both
@@ -1512,6 +1516,48 @@ def main() -> int:
             if not (np.array_equal(rh.info, rd.info) and np.array_equal(rh.ok, rd.ok)):
                 fail(f"e2e {n} slots: host and device paths differ")
     print("phase 24 host and device paths identical (info, ok) on 8 and 24 slots")
+
+    from srsran_ce_tpu_torch.ops import sequences
+    from srsran_ce_tpu_torch.utils import spans
+
+    c256 = transport.TransportCoding(
+        code=code384, rate_match="nr", tx_bits=12480, n_filler=32, schedule="layered",
+        n_iters=16, crc="crc24b", interleave_seed=7, layered_group=1, stream_c2v_dtype="bfloat16",
+        scramble_c_init=sequences.pusch_scrambling_c_init(0x4601, seed % 1024))
+    lay256 = transport.layout(c256, geo.hop1, geo.hop2, n_sc, n_sym, 2, 8)
+    rng256 = np.random.default_rng(seed)
+    u256 = rng256.integers(0, 2, (lay256.c_words, transport.payload_bits(c256, lplan.k)),
+                           dtype=np.uint8)
+    words256 = np.concatenate([transport.crc_attach(u256, "crc24b"),
+                               np.zeros((lay256.c_words, 32), np.uint8)], axis=1)
+    bits256 = transport.place_codewords(lay256, ldpc.encode(code384, words256), 2, 8,
+                                        fill_rng=rng256)
+    case256 = synthetic.make_mimo_case(seed=seed, n_rx=4, modulation="256qam", scramble=True,
+                                       rnti=0x4601, bits=bits256, n_prbs=273, n_layers=2,
+                                       snr_db=30.0)
+    kw256 = dict(out="decoded", modulation="256qam", coding=c256, matmul_precision="high",
+                 decode_on_device=True, device=dev)
+    for _ in range(2):  # the chunk's key: eager, then captured and replayed
+        serving.process([prob_of(case256)] * 8, **kw256)
+    reset_counts()
+    s0 = spans.snapshot()
+    with spans.enabled():
+        res256 = serving.process([prob_of(case256)] * 8, **kw256)
+    torch.cuda.synchronize()
+    s1 = spans.snapshot()
+    cnt = read_counts()
+    n_words256 = (s1["counters"]["serving.decode_words"]
+                  - s0["counters"].get("serving.decode_words", 0))
+    if not all(bool(np.all(r.ok)) and np.array_equal(r.info, u256) for r in res256):
+        fail("e2e 2-layer 256QAM: not payload-exact")
+    if cnt["ldpc_stream_posterior"] != 1 or k3.route_launches["pair"] != 1 \
+            or n_words256 != 8 * lay256.c_words:
+        fail(f"e2e 2-layer 256QAM: launches {cnt}, K3 by route {k3.route_launches}, "
+             f"serving.decode_words {n_words256} (want one pair launch, "
+             f"{8 * lay256.c_words} words)")
+    print(f"phase 24 e2e decoded 2 layers 256QAM 4 RX 273 PRB, 8 slots x {lay256.c_words} words "
+          f"of E={lay256.tx_bits}: payload-exact, launches {cnt}, K3 by route "
+          f"{k3.route_launches}, serving.decode_words {n_words256}")
 
     # 25. times: K7, the receiver, the e2e row, the idle share of one e2e call
     x7, known7, it7 = k7_c3

@@ -29,7 +29,8 @@ pinned buffer `serving.pack` and its copy `serving.h2d` (the bytes the
 counter `serving.h2d_bytes`), each chunk's graph replay `graphs.replay`, the
 wait for its results `serving.fetch_wait` (the bytes fetched from the card
 the counter `serving.d2h_bytes`) and their scatter, unpacking and CRC
-`serving.unpack`.
+`serving.unpack`; the code blocks each device decode chunk hands to its
+decoder the counter `serving.decode_words`.
 
 `out="decoded"` continues through descrambling, deinterleaving, rate recovery,
 LDPC decoding (ops/ldpc) and the CRC, either on the host (`_decode_soft`) or
@@ -518,7 +519,8 @@ def _device_decode_builder(coding, hop1, hop2, n_sc: int, n_sym: int, n_layers: 
         at 127;
       * the decoder (ops/ldpc.build_decoder, its tier routed for `device`);
       * the payload bit-packed big-endian (as np.unpackbits reads it) with the
-        parity flag as a trailing byte: (B, c_words, ceil(k/8) + 1) uint8."""
+        parity flag as a trailing byte: (B, c_words, ceil(k/8) + 1) uint8.
+    `run.c_words` is the code blocks of one problem."""
     lay = transport.layout(coding, hop1, hop2, n_sc, n_sym, n_layers, nbits)
     tabs = transport.device_extract_tables(lay, nbits, n_layers, n_sym, n_sc)
     sgn = None
@@ -568,6 +570,7 @@ def _device_decode_builder(coding, hop1, hop2, n_sc: int, n_sym: int, n_layers: 
         ok_byte = res.ok.reshape(B, c_words, 1)
         return torch.cat([packed.to(torch.uint8), ok_byte.to(torch.uint8)], dim=-1)
 
+    run.c_words = c_words
     return run
 
 
@@ -775,9 +778,16 @@ def _bucket_step(problems, sig, idxs, out: str, matmul_precision, device, params
         )
         if out == "decoded":
             n_sc, n_sym = problems[idxs[0]].received_rg.shape[-2:]
-            fn = _device_decode_chunk(fn, _device_decode_builder(
-                coding, hop1, hop2, int(n_sc), int(n_sym), n_layers,
-                demap.bits_per_symbol(modulation), device))
+            tail = _device_decode_builder(coding, hop1, hop2, int(n_sc), int(n_sym), n_layers,
+                                          demap.bits_per_symbol(modulation), device)
+            chunk_fn = _device_decode_chunk(fn, tail)
+
+            def decode_step(take):
+                if spans.on():
+                    spans.add("serving.decode_words", len(take) * tail.c_words)
+                return chunk_fn(*_batch_inputs(problems, take, device, multi_rx), params)
+
+            return decode_step, scatter
     else:
         layout = "factored" if out == "factored" else "serve"
         fn = estimator.build_ri(

@@ -1635,6 +1635,44 @@ def test_factored_serving_at_published_widths_within_the_cells_limits():
     assert fetched == 32 * (res[0].profiles.nbytes + res[0].sym_rot.nbytes + 5 * 4)
 
 
+@NEEDS_GPU
+def test_two_layer_256qam_call_at_published_widths_decodes_336_words_in_one_k3_launch():
+    """One 8-slot call of the 2-layer 256QAM uplink (`cebench`'s
+    `pusch_n78_100mhz_4rx_2l256`: 273 PRB, 4 rx, 42 BG1 Z=384 blocks of
+    12,480 bits a slot) through the cell's chain on the card: the replay of
+    the chunk's graph launches K3 once, on the pair route, for 336 words past
+    one wave of the card's SMs; with the spans on, `serving.decode_words`
+    counts them; every payload comes back exact and every slot within the
+    configuration's limits of the float64 reference."""
+    from cebench import spec
+    from cebench.gen import slots
+    from cebench.reference import pusch
+
+    cfg = spec.read_json("configs", "pusch_n78_100mhz_4rx_2l256.json")
+    c_words = slots.pusch_layout(cfg).c_words
+    assert c_words == 42 and 8 * c_words > sm_count()
+    pool = [slots.pusch_slot(cfg, 2**31 + 23_023, i) for i in range(8)]
+    serve = spec.load_module("chains", cfg["chain"]).server(cfg, pool, "cuda")
+    for _ in range(2):  # eager, then captured
+        serve(list(range(8)))
+    n0, routes0, r0 = k3.launches, dict(k3.route_launches), graphs.replays
+    s0 = spans.snapshot()
+    with spans.enabled():
+        res = serve(list(range(8)))
+    s1 = spans.snapshot()
+    assert graphs.replays - r0 == 1 and k3.launches - n0 == 1
+    assert {r: n - routes0[r] for r, n in k3.route_launches.items()} == {
+        "chip": 0, "stream": 0, "pair": 1}
+    words = (s1["counters"]["serving.decode_words"]
+             - s0["counters"].get("serving.decode_words", 0))
+    assert words == 8 * c_words == 336
+    for s, (r,) in zip(pool, res):
+        assert np.array_equal(r.info, s.payload) and bool(np.all(r.ok))
+        nums = pusch.judge_slot(s, [r], pusch.reference(s))
+        for k, limit in cfg["limits"].items():
+            assert nums[k] <= limit, (k, nums[k], limit)
+
+
 # ---------------------------------------------------------------------------
 # The served estimate on K1 (`estimator.served_kernels`)
 # ---------------------------------------------------------------------------

@@ -752,6 +752,8 @@ def test_pair_records_match_plain_on_saturated_llrs(name, c2v):
     ("bg1_z384", 128, 2, True, 1, "pair", 104448 + 2 * 3072 + 1824, 46 * 3072, 1),  # one wave
     ("bg1_z384", 128, 4, True, 1, "pair", 104448 + 2 * 4608 + 1824, 46 * 4608, 1),
     ("bg1_z384", 512, 2, True, 1, "pair", 104448 + 2 * 3072 + 1824, 46 * 3072, 1),  # four waves
+    # the 2-layer 256QAM cell's call: 8 slots x 42 words, a block a word past one wave
+    ("bg1_z384", 336, 2, True, 1, "pair", 104448 + 2 * 3072 + 1824, 46 * 3072, 1),
     ("bg1_z384", 512, 4, True, 1, "pair", 104448 + 2 * 4608 + 1824, 46 * 4608, 1),
     ("bg1_z384", 24, 4, False, 1, "stream", 104448 + 3744, 46 * 4608, 1),
 ])

@@ -180,7 +180,7 @@ def _coded_case(code_j, code_t, coding_kw, seed, mk, snr_db, n_filler=0):
     """(JAX coding, port coding, JAX case, payload) of a link carrying encoded words."""
     cj = jtr.TransportCoding(code=code_j, **coding_kw)
     ct = ttr.TransportCoding(code=code_t, **coding_kw)
-    nbits = {"qpsk": 2, "16qam": 4}[mk["modulation"]]
+    nbits = {"qpsk": 2, "16qam": 4, "64qam": 6, "256qam": 8}[mk["modulation"]]
     geo = jsyn.make_mimo_case(seed=seed, snr_db=snr_db, **mk)
     n_sc, n_sym = geo.data_mask.shape
     nL = geo.pilots.shape[2]
@@ -244,6 +244,31 @@ def test_decoded_nr_rate_match_matches_jax(tx_bits):
             assert np.array_equal(r.info, u) and bool(np.all(r.ok))
         assert np.array_equal(c.info, a.info) and np.array_equal(d.info, b.info)
         assert np.array_equal(c.ok, a.ok) and np.array_equal(d.ok, b.ok)
+
+
+@pytest.mark.parametrize("on_device", [False, True])
+def test_decoded_two_layer_256qam_nr_bg1_matches_jax(on_device):
+    """The 2-layer 256QAM uplink of `cebench`'s `pusch_n78_100mhz_4rx_2l256`
+    at a CPU's size: 4 rx, 2 layers on DM-RS ports 0-1, 12 PRB, an NR BG1
+    code at Z=32 (K' 672, 32 fillers, E 1152, a multiple of 2 layers x 8
+    bits), layered sweeps, scrambled, CRC24B; the host and the device decode
+    paths each against the JAX package's, payload-exact."""
+    rnti, seed = 0x4601, 5230
+    code_j, code_t = jnr.nr_base_graph(1, 32), tnr.nr_base_graph(1, 32)
+    coding_kw = dict(rate_match="nr", n_filler=32, crc="crc24b", tx_bits=1152, n_iters=16,
+                     schedule="layered", interleave_seed=7, early_iters=None,
+                     scramble_c_init=jseq.pusch_scrambling_c_init(rnti, seed % 1024, q=0))
+    mk = dict(n_rx=4, modulation="256qam", scramble=True, rnti=rnti, n_prbs=12, n_layers=2)
+    cj, ct, case, u = _coded_case(code_j, code_t, coding_kw, seed, mk, 30.0, n_filler=32)
+    assert u.shape[0] >= 8
+    kw = dict(batch_size=2, out="decoded", modulation="256qam", matmul_precision=None,
+              decode_on_device=on_device)
+    want = js.process(problems(js, [case] * 2), coding=cj, **kw)
+    got = ts.process(problems(ts, [case] * 2), coding=ct, device="cpu", **kw)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.info, u) and bool(np.all(g.ok))
+        assert np.array_equal(g.info, w.info) and np.array_equal(g.ok, w.ok)
+        check_scalars(g if on_device else g.soft, w if on_device else w.soft)
 
 
 def test_decoded_early_termination_and_per_problem_codings_match_jax():

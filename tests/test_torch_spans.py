@@ -9,7 +9,8 @@ entered, and a profiler alone does not turn them on; a decoded call of two
 chunks records one `serving.process`, a pack and an H2D copy a staged array
 (the grids, the pilots, the betas) and a fetch wait and an unpack a chunk,
 and counts the staged tensors' bytes; a `TrackedServer` call unpacks each
-chunk in its `serving.unpack` span; a factored call of two chunks whose
+chunk in its `serving.unpack` span; a device decode call counts the code
+blocks each chunk hands its decoder; a factored call of two chunks whose
 results stand on a (simulated) card counts the fetched tensors' bytes, and
 with the spans off nothing, the results bit-identical; the CUDA event pairs of `device_span`
 resolve without a wait of their own; `utils/profiling.trace()` turns the
@@ -165,6 +166,25 @@ def test_h2d_bytes_are_the_staged_tensors_nbytes(monkeypatch):
     d = spans.delta(spans.snapshot(), before)
     assert len(sent) == 6
     assert d["counters"]["serving.h2d_bytes"] == sum(t.nbytes for t in sent)
+
+
+@pytest.mark.parametrize("n_problems,batch_size,taken", [(3, 2, 4), (5, 4, 8), (2, 8, 2)])
+def test_decode_words_are_the_words_each_chunk_hands_its_decoder(n_problems, batch_size, taken):
+    """`serving.decode_words` counts every problem a device decode chunk
+    takes, the tail's repeats included, times its code blocks; nothing with
+    the spans off."""
+    probs, call = decoded_call(n_problems=n_problems, batch_size=batch_size)
+    p = probs[0]
+    coding = transport.TransportCoding(code=ldpc.array_code(8, 16, 61), n_iters=4, crc="crc16")
+    c_words = transport.layout(coding, p.hop1, p.hop2, *p.received_rg.shape[-2:], 1, 2).c_words
+    before = spans.snapshot()
+    call()
+    assert spans.snapshot() == before
+    with spans.enabled():
+        res = call()
+    d = spans.delta(spans.snapshot(), before)
+    assert c_words > 1 and all(r.info.shape[0] == c_words for r in res)
+    assert d["counters"]["serving.decode_words"] == taken * c_words
 
 
 class OnCard(torch.Tensor):
