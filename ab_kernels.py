@@ -12,10 +12,9 @@ commit unpacked by `git archive`. Its `front.cu`, `fill_rotate_serve.cu`,
 `fill_rotate.cu`, `rc_smooth.cu`, `ldpc.cu` and `ldpc_stream.cu` are built
 with this checkout's nvcc flags (each includes the headers of its own
 directory), all at the same time as this checkout's. Both libraries get the
-same arguments, except K1's last one, the shared memory of a block: the
-other checkout's body is given the one-block-a-problem layout of the first
-K1 body (2 x 2nL x n_re rows, the PDP, the edge and virtual-pilot rows),
-this checkout's its `launch_plan`; and K6's layer table: chunks of at most
+same arguments (K1's through `srs_fused_front_f32`, the gathered form,
+with the shared memory of this checkout's `launch_plan`: a body whose own
+plan differs refuses the launch), except K6's layer table: chunks of at most
 two layers of a CDM group for a body before the shared tiled product (which
 refuses more), whole CDM groups for this checkout's. The LDPC scratch and
 delta buffers are sized for either layout (per-edge messages or per-row
@@ -25,7 +24,11 @@ relative 1e-5, K6 written at its offset into a larger grid whose rest must
 stay as it was; K3 and K4 bit for bit, torch.equal on the int32 views), then
 both are timed device-only (torch.profiler's CUDA kernel time over n calls,
 over n) in turns other / this / this / other:
-  k1  c2 (106 PRB, 4 layers) at B=128 and c4 (24 PRB, 1 layer) at B=256;
+  k1  c2 (106 PRB, 4 layers, the shape of `ce40_closed4`) at B=128 and c4
+      (24 PRB, 1 layer) at B=256; whether the two outputs are bit-identical
+      (torch.equal) is printed, and this checkout's K1 on the staged grid
+      and pilots (`front.fused_front` with the hop's tables) must give this
+      checkout's gathered-form bits, its device-only time printed beside;
   k2  c2 B=128 (its interpolation operator, CDM groups (0,2),(2,4)), nL=3
       (groups (0,2),(2,3)) with a seeded operator of c2's shape, and the c3
       inpainting operator (1638 x 3276, B=16, one layer); the two outputs
@@ -155,20 +158,20 @@ def main(argv) -> int:
                                  dtype=torch.float32, device=dev)
             pil = torch.as_tensor(np.stack([estimator.split_ri(c.pilots) for c in cases])[idx],
                                   dtype=torch.float32, device=dev)
+            rg = rg + torch.as_tensor(1e-3 * np.random.default_rng(101).standard_normal(rg.shape),
+                                      dtype=torch.float32, device=dev)
             rx = estimator._gather_rx(hp, ht, rg)
-            rx = (rx + torch.as_tensor(1e-3 * np.random.default_rng(101).standard_normal(rx.shape),
-                                       dtype=torch.float32, device=dev)).contiguous()
-            pil = pil[:, :, :, : hp.n_dsym].permute(0, 1, 4, 3, 2).contiguous()
+            pil_staged = pil[:, :, :, : hp.n_dsym]
+            pil = pil_staged.permute(0, 1, 4, 3, 2).contiguous()
             beta = torch.ones(B, dtype=torch.float32, device=dev)
             mats = ht["front"]
             fkw = dict(n_samples=hp.n_samples, half_cp_len=hp.half_cp_len, fft_size=hp.fft_size,
                        scs_hz=cases[0].config.scs_hz, cfo_possible=hp.cfo_possible,
                        cfo_compensate=cases[0].config.cfo_compensate)
             h_p, s_p = k1.fused_front_plain(rx, pil, beta, mats, **fkw)
-            rows, n_re, n_pils = 2 * nL, hp.n_re, hp.n_pils
-            smem = {"other": 4 * (2 * rows * n_re + 2 * hp.half_cp_len + 4 * rows * n_pils),
-                    "this": k1.launch_plan(B, n_re, nL, n_pils, hp.half_cp_len,
-                                           mats["ta_c"].shape[0], k1.kernel_caps(dev)).smem}
+            n_re, n_pils = hp.n_re, hp.n_pils
+            smem = k1.launch_plan(B, n_re, nL, n_pils, hp.half_cp_len, mats["ta_c"].shape[0],
+                                  k1.kernel_caps(dev)).smem
             h_o = torch.empty_like(h_p)
             s_o = torch.empty_like(s_p)
             rotate = fkw["cfo_possible"] and fkw["cfo_compensate"]
@@ -179,11 +182,10 @@ def main(argv) -> int:
             scal = (B, rx.shape[2], nL, hp.n_dsym, n_re, n_pils, mats["ta_c"].shape[0],
                     hp.half_cp_len, int(fkw["cfo_possible"]), int(fkw["cfo_compensate"]),
                     2.0 * np.pi * hp.n_samples, float(hp.fft_size), float(fkw["scs_hz"]))
-            runs = {}
+            runs, outs = {}, {}
             to_bin = hp.fft_size * fkw["scs_hz"]
             for lab, fn in fns.items():
-                runs[lab] = (lambda fn=fn, lab=lab: launch("fused_front", fn, dev, *ptrs, *scal,
-                                                           smem[lab]))
+                runs[lab] = (lambda fn=fn: launch("fused_front", fn, dev, *ptrs, *scal, smem))
                 h_o.fill_(float("nan"))
                 runs[lab]()
                 torch.cuda.synchronize()
@@ -197,7 +199,17 @@ def main(argv) -> int:
                                      "scalars / TA bins differ from the plain version")
                 print(f"K1 {lab} at {label} B={B}: h_s rel err vs plain {err:.2e}, scalars "
                       "within rtol 1e-4, TA bins equal")
+                outs[lab] = (h_o.clone(), s_o.clone())
+            same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
+            staged = lambda: k1.fused_front(rg, pil_staged, beta, mats, re_idx=ht["re_idx"],
+                                            dmrs_sym_idx=ht["dmrs_sym_idx"], **fkw)
+            h_s, s_s = staged()
+            if not (torch.equal(h_s, outs["this"][0]) and torch.equal(s_s, outs["this"][1])):
+                raise SystemExit(f"K1 this staged at {label}: not bit-identical to this gathered")
+            print(f"K1 at {label} B={B}: other and this bit-identical: {same}; this staged "
+                  f"bit-identical to this gathered")
             turns(f"K1 {label} B={B}", runs, 50)
+            print(f"K1 {label} B={B} this staged device-only ms {device_ms(staged, 50):.5f} [{smi}]")
 
     fill_rows = ()
     if "k2" in picked or "k6" in picked:

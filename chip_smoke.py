@@ -12,6 +12,9 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      / c2, nL=3, c3, the c4 second hop, nL=8, each held to the kernel's own
      plan, and K1's cluster capacities;
   3. K1 (fused front) against its plain PyTorch version at c2 shapes, B=128;
+     K1 on the staged grid and pilots bit-identical to K1 on the gathered
+     inputs at c2 B=128 (`ce40_closed4`'s shape) and both hops of c4 B=256,
+     with its launches by form (`route_launches`);
   4. K2 (serve fill) against its plain version, equal and unequal CDM groups;
   5. `build_ri(..., batched=True, out_layout="serve", kernels="pallas_front")`
      at c2 (106 PRB x 4 layers, batch 128, matmul_precision="high") against
@@ -24,7 +27,10 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      1e-6); times with CUDA events: K1, K2 and `front_finish` against their
      plain versions, and the whole pallas_front call, at c2 batch 128, with
      the call's device busy time, idle share and heaviest device operations
-     (torch.profiler);
+     (torch.profiler); K1 staged against the gathered route (the gather and
+     the permute, then K1) and K1 gathered alone at c2 B=128, device-only
+     (torch.profiler, with the kernels a call) and in-graph (CUDA events over
+     replays of one captured call);
   8. K5 (rc_smooth) against its plain version at the c2 rows (B=128, C=8,
      n_ext=650) and at the time-interpolation row count (C=2*nL*n_dsym);
   9. K6 (fused_fill_rotate) against its plain version: c2 equal CDM groups,
@@ -351,7 +357,7 @@ def main() -> int:
     def reset_counts():
         for m in kmods.values():
             m.launches = 0
-        for m in (k3, kf):
+        for m in (k1, k3, kf):
             m.route_launches.update(dict.fromkeys(m.route_launches, 0))
 
     def read_counts():
@@ -494,6 +500,48 @@ def main() -> int:
               f"rel err {err:.3e} (<= 1e-5), "
               f"scalars within rtol 1e-4, TA bins equal")
 
+    def staged_inputs(cases, cfg, rg_t, pil_t, seed):
+        """Per hop: (hop plan, hop tensors, the staged form's (args, kwargs):
+        the grid perturbed by a seeded 1e-3 noise, the hop's view of the
+        staged pilots and its tables, and the gathered form's of the same:
+        `_gather_rx` and the pilots' permute)."""
+        plan = make_plan(cases[0].hop1, cases[0].hop2, cfg, cases[0].pilots.shape[2])
+        pt = plan_tensors(plan, dev, torch.float32)
+        rng = np.random.default_rng(seed)
+        rg = rg_t + torch.as_tensor(1e-3 * rng.standard_normal(tuple(rg_t.shape)),
+                                    dtype=torch.float32, device=dev)
+        beta = torch.ones(rg.shape[0], dtype=torch.float32, device=dev)
+        out, d0 = [], 0
+        for hp, ht in zip([plan.hop1, plan.hop2], pt["hops"]):
+            pil_h = pil_t[:, :, :, d0 : d0 + hp.n_dsym]
+            kw = dict(n_samples=hp.n_samples, half_cp_len=hp.half_cp_len, fft_size=hp.fft_size,
+                      scs_hz=cfg.scs_hz, cfo_possible=hp.cfo_possible,
+                      cfo_compensate=cfg.cfo_compensate)
+            staged = ((rg, pil_h, beta, ht["front"]),
+                      dict(kw, re_idx=ht["re_idx"], dmrs_sym_idx=ht["dmrs_sym_idx"]))
+            gathered = ((estimator._gather_rx(hp, ht, rg), pil_h.permute(0, 1, 4, 3, 2).contiguous(),
+                         beta, ht["front"]), kw)
+            out.append((hp, ht, staged, gathered))
+            d0 += hp.n_dsym
+        return out
+
+    staged_c2 = staged_inputs(*c2[:4], seed=103)
+    r0 = dict(k1.route_launches)
+    for label, hops in (("c2 B=128", staged_c2),
+                        ("c4 B=256", staged_inputs(*tiled(C4, 256)[:4], seed=104))):
+        for h, (_, _, (s_args, s_kw), (g_args, g_kw)) in enumerate(hops):
+            h_s, s_s = k1.fused_front(*s_args, **s_kw)
+            h_g, s_g = k1.fused_front(*g_args, **g_kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(h_s, h_g) and torch.equal(s_s, s_g)):
+                fail(f"K1 staged vs gathered ({label}, hop {h + 1}): not bit-identical, h_s max "
+                     f"abs diff {float((h_s - h_g).abs().max()):.3e}")
+    moved = {r: n - r0[r] for r, n in k1.route_launches.items()}
+    if moved != {"staged": 3, "gathered": 3}:
+        fail(f"K1 staged vs gathered: launches by form {moved}, expected 3 of each")
+    print(f"phase 3 K1 staged vs gathered (c2 B=128, the cell's shape; c4 B=256, both hops, hop 2 "
+          f"from its symbol offset): h_s and scalars bit-identical; launches by form {moved}")
+
     # 4. K2 vs plain
     rng = np.random.default_rng(7)
     hp = plan_c2.hop1
@@ -576,6 +624,8 @@ def main() -> int:
         if kf.route_launches != {"profiles": 0, "scalars": counts["front_finish"]}:
             fail(f"{label}: front_finish by route {kf.route_launches}, expected the scalar "
                  "route alone on the serve layout")
+        if k1.route_launches != {"staged": counts["fused_front"], "gathered": 0}:
+            fail(f"{label}: K1 by form {k1.route_launches}, expected the staged form alone")
         worst = oracle_check(label, cases, res, "serve", batch, SERVE_NMSE_BOUND)
         print(f"phase {label}: serve {tuple(res.channel_est_rg.shape)}, worst NMSE vs float64 "
               f"oracle {worst:.3e} (< {SERVE_NMSE_BOUND}), scalars within bounds, launches {counts}")
@@ -593,6 +643,8 @@ def main() -> int:
         if kf.route_launches != {"profiles": fac_counts["front_finish"], "scalars": 0}:
             fail(f"{label} factored: front_finish by route {kf.route_launches}, expected the "
                  "profiles route alone (linear interpolation)")
+        if k1.route_launches != {"staged": fac_counts["fused_front"], "gathered": 0}:
+            fail(f"{label} factored: K1 by form {k1.route_launches}, expected the staged form")
         ch = res.channel_est_rg.cpu().numpy()
         prof = estimator.merge_ri(np.moveaxis(fac.profiles.cpu().numpy(), 1, 0))
         rot = estimator.merge_ri(np.moveaxis(fac.sym_rot.cpu().numpy(), 1, 0))
@@ -746,6 +798,52 @@ def main() -> int:
             lambda: k2.fused_fill_rotate_serve_plain(*k2_args, layer_slices=hp.layer_slices)),
     }
     print_times(7, times)
+
+    def graph_ms(fn, n=50):
+        """ms a replay of one call of `fn` captured as a CUDA graph: CUDA events
+        over n back-to-back replays after a warm-up (L2 warm)."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        for _ in range(3):
+            g.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            g.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    # K1 at the cell's shape, staged against the route before it (the gather
+    # and the permute, then K1 on their copies) and against K1 gathered alone
+    hp_s, ht_s, (s_args, s_kw), (g_args, g_kw) = staged_c2[0]
+
+    def gathered_route():
+        rx = estimator._gather_rx(hp_s, ht_s, s_args[0])
+        return k1.fused_front(rx, s_args[1].permute(0, 1, 4, 3, 2).contiguous(), *g_args[2:],
+                              **g_kw)
+
+    r0 = dict(k1.route_launches)
+    for label, fn in (("staged", lambda: k1.fused_front(*s_args, **s_kw)),
+                      ("gathered route (gather, permute, K1)", gathered_route),
+                      ("gathered K1 alone", lambda: k1.fused_front(*g_args, **g_kw))):
+        by_name = kernel_ms(fn)
+        if not by_name:
+            fail("the profiler saw no device time in 3 sessions")
+        print(f"phase 7 K1 c2 B=128 (the cell's shape) {label}: device-only "
+              f"{sum(by_name.values()):.4f} ms, by kernel name ({len(by_name)}: "
+              + ", ".join(f"{k[:40]} {ms:.4f}" for k, ms in sorted(by_name.items(),
+                                                                 key=lambda kv: -kv[1]))
+              + f"); in a graph {graph_ms(fn):.4f} ms a replay {card}")
+    print(f"phase 7 K1 launches by form over those timings: "
+          f"{ {r: n - r0[r] for r, n in k1.route_launches.items()} }")
     e2e, wall = call_ms(fn_c2, c2_args)
     print(f"phase 7 build_ri pallas_front/serve c2 B=128 (both kernels + plain glue): {e2e:.4f} "
           f"ms/batch on CUDA events, cold L2; {wall:.4f} ms/batch host wall clock back-to-back {card}")

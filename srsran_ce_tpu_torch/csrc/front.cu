@@ -4,8 +4,21 @@
 // See srsran_ce_tpu_torch/ops/kernels/front.py for the algorithm, the plain
 // PyTorch version and the design note.
 //
-// Layouts (all row-major, contiguous):
-//   rx      (B, 2, n_cdm, nd, n_re)      pil   (B, 2, nL, nd, n_re)   beta (B)
+// Inputs, read through element strides (srs_fused_front_strided_f32):
+//   rx(b, ri, c, d, k) = rx[b*sb + ri*sri + c*sc + row(c, k)*sk + sym(d)*sd]
+//     row(c, k) = re_idx[c * n_re + k], sym(d) = sym_idx[d] (int64 tables),
+//     or k and d where a table is null;
+//   pil(b, ri, l, d, k) = pil[b*sb + ri*sri + l*sl + d*sd + k*sk].
+// Two forms take this one accessor:
+//   staged    rx: the received grid (B, 2, n_sc, n_sym) as the caller staged
+//             it (sc = 0, sk / sd its subcarrier / symbol strides), the hop's
+//             RE table (n_cdm * n_re, group-major) and DM-RS symbol table (nd);
+//             pil: the staged pilots (B, 2, n_re, nd_total, nL) from the hop's
+//             first symbol d0 on (the pointer offset by d0 * sd, no copy);
+//   gathered  rx (B, 2, n_cdm, nd, n_re), pil (B, 2, nL, nd, n_re), null tables
+//             (srs_fused_front_f32: contiguous).
+// Other layouts (all row-major, contiguous):
+//   beta (B)
 //   pair_l / pair_r (n_re, n_pils)       vp    (n_pils, n_pils), v = vp @ y
 //   sm (n_re, n_re)   svb / sve (n_pils, n_re)   ta_c / ta_s (k_ta, 2*hcp)
 //   two_pi_sst_d (nd): 2*pi * start time of each DM-RS symbol (symbol units)
@@ -48,9 +61,30 @@
 // wrapped -pi with positive difference maps to +pi); the TA argmax takes the
 // first maximum of each window and the head window on a tie (hm >= tm);
 // division order sum / beta / nd, and rsrp = (beta^2 * sum) * nd.
+//
+// Reading the inputs as staged (the TPU kernel took them gathered, having no
+// gather hardware): a thread takes a subcarrier column k in each of the three
+// passes over the DM-RS (EPRE and CFO, H, noise). With comb 2 and two CDM
+// groups its REs are the grid rows 2k and 2k+1, so a warp over 32 consecutive
+// k reads one contiguous run of 32 x 2 x n_sym floats a ri plane (3.5 KB at 14
+// symbols), every 32-byte sector of it touched: a pass moves the whole grid
+// through L2 (18.24 MB at 128 problems of 106 PRB) for the 5.2 MB of DM-RS it
+// uses, the three at most ~55 MB from L2; the pilots of one k are nd x nL
+// contiguous floats (10.4 MB a pass at nd = nL = 4). What bounds it is the
+// L1's requests, not the bytes: a warp's 4-byte read of the staged grid
+// touches ~28 cache lines where the gathered one touched 1-2. So each pass
+// reads every received value once (pass 2 symbol by symbol, every layer's
+// sums still in order of d) and the pilots 16 bytes at a time where the
+// layers are contiguous (`pil_vec`): ~1,790 L1 wavefronts a warp's 32 columns
+// of a problem over the three passes, against ~3,520 with one 4-byte read a
+// value and use. What this replaces: the gather's two index kernels, its
+// transpose and the pilots' permute, 91 MB through device memory in four
+// launches. FMAs keep their order: only the addresses and the loads differ
+// between the two forms, so the outputs are bit-identical.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 
 #include <algorithm>
@@ -62,6 +96,8 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 16;  // 2 * nL, nL <= 8
+constexpr int kMaxL = kMaxRows / 2;
+constexpr int kMaxCdm = kMaxL / 2;
 constexpr int kMaxPils = 16;
 constexpr int kMaxDsym = 32;
 constexpr int kMaxM = 32;       // rows of the products: P * 2nL
@@ -76,6 +112,8 @@ constexpr float kTwoPi = 6.28318530717958647692f;
 
 struct FrontArgs {
   const float* rx;
+  const long long* re_idx;   // row(c, k), or null: k
+  const long long* sym_idx;  // sym(d), or null: d
   const float* pil;
   const float* beta;
   const float* pair_l;
@@ -89,6 +127,10 @@ struct FrontArgs {
   const float* two_pi_sst_d;
   float* h_out;
   float* sc_out;
+  long long rx_sb, pil_sb;                // problem strides
+  int rx_sri, rx_sc, rx_sd, rx_sk;        // rx: ri, CDM group, symbol, subcarrier row
+  int pil_sri, pil_sl, pil_sd, pil_sk;    // pil: ri, layer, symbol, subcarrier
+  int pil_vec;  // layers contiguous, nL % 4 == 0, 16-byte aligned: 16-byte loads
   int B, n_cdm, nL, nd, n_re, n_pils, k_ta, hcp;
   int cfo_possible, cfo_compensate;
   float two_pi_ns, fft_size, scs_hz;
@@ -242,6 +284,31 @@ __device__ void warp_first_max(const float* x, int n, float* vmax, int* imax) {
   }
   *vmax = bv;
   *imax = bi;
+}
+
+// The pilots of every layer at one symbol of one subcarrier (q: layer 0's
+// real part, im: the imaginary part's offset, sl: the layer stride): 16-byte
+// loads of 4 layers where `vec` (layers contiguous, nL % 4 == 0, aligned),
+// else one float a layer.
+__device__ __forceinline__ void load_layers(const float* q, int im, int sl, int nL, bool vec,
+                                            float (&pr)[kMaxL], float (&pi)[kMaxL]) {
+  if (vec) {
+#pragma unroll
+    for (int l = 0; l < kMaxL; l += 4) {
+      if (l >= nL) break;
+      const float4 r = *reinterpret_cast<const float4*>(q + l);
+      const float4 i = *reinterpret_cast<const float4*>(q + im + l);
+      pr[l] = r.x, pr[l + 1] = r.y, pr[l + 2] = r.z, pr[l + 3] = r.w;
+      pi[l] = i.x, pi[l + 1] = i.y, pi[l + 2] = i.z, pi[l + 3] = i.w;
+    }
+  } else {
+#pragma unroll
+    for (int l = 0; l < kMaxL; ++l) {
+      if (l >= nL) break;
+      pr[l] = q[l * sl];
+      pi[l] = q[im + l * sl];
+    }
+  }
 }
 
 // Asynchronous copies global -> shared, zero-filled when !valid.
@@ -427,39 +494,54 @@ __global__ void __launch_bounds__(kThreads, 1) front_kernel(FrontArgs a, Plan p)
   float* s_epre = s_cfo + P;
   float* s_beta = s_epre + P;
   float* red = smem + p.o_red;      // (kWarps, 2nL + 1): group_sum scratch
+  __shared__ int s_sym[kMaxDsym];   // sym(d) * rx_sd
 
-  const size_t rx_pb = static_cast<size_t>(2) * n_cdm * nd * n_re;
-  const size_t pil_pb = static_cast<size_t>(2) * nL * nd * n_re;
-  const int rx_im = n_cdm * nd * n_re, pil_im = nL * nd * n_re;
-  auto rx_at = [&](int c, int d, int k) { return (c * nd + d) * n_re + k; };
-  auto pil_at = [&](int l, int d, int k) { return (l * nd + d) * n_re + k; };
+  // rx(ri, c, d, k) of a problem at rx_row(c, k) + s_sym[d] (+ rx_im for the
+  // imaginary part); pil(ri, l, d, k) at l * pil_sl + d * pil_sd + k * pil_sk
+  const int rx_im = a.rx_sri, pil_im = a.pil_sri, pil_sl = a.pil_sl, pil_sd = a.pil_sd;
+  auto rx_row = [&](int c, int k) {
+    return c * a.rx_sc + (a.re_idx ? static_cast<int>(__ldg(a.re_idx + c * n_re + k)) : k) * a.rx_sk;
+  };
 
   if (tid < P) s_beta[tid] = tid < pv ? a.beta[b0 + tid] : 1.f;
+  if (tid < nd) s_sym[tid] = (a.sym_idx ? static_cast<int>(__ldg(a.sym_idx + tid)) : tid) * a.rx_sd;
+  __syncthreads();
 
-  // 1. EPRE and the first-pair CFO correlations over this block's columns
+  // 1. EPRE and the first-pair CFO correlations over this block's columns;
+  // each received value read once (layer l reads CDM group l / 2)
   {
-    float e = 0.f, sr[kMaxRows / 2], si[kMaxRows / 2];
+    float e = 0.f, sr[kMaxL], si[kMaxL];
 #pragma unroll
-    for (int l = 0; l < kMaxRows / 2; ++l) sr[l] = si[l] = 0.f;
+    for (int l = 0; l < kMaxL; ++l) sr[l] = si[l] = 0.f;
     if (gp < pv) {
-      const float* rx = a.rx + (b0 + gp) * rx_pb;
-      const float* pil = a.pil + (b0 + gp) * pil_pb;
+      const float* rx = a.rx + (b0 + gp) * a.rx_sb;
+      const float* pil = a.pil + (b0 + gp) * a.pil_sb;
       for (int k = c0 + gj; k < c0 + ncol; k += tpp) {
-        for (int cd = 0; cd < n_cdm * nd; ++cd) {
-          const float xr = rx[cd * n_re + k], xi = rx[rx_im + cd * n_re + k];
-          e += xr * xr + xi * xi;
+        float x0r[kMaxCdm], x0i[kMaxCdm], x1r[kMaxCdm], x1i[kMaxCdm];
+#pragma unroll
+        for (int c = 0; c < kMaxCdm; ++c) {
+          if (c >= n_cdm) break;
+          const float* xc = rx + rx_row(c, k);
+          for (int d = 0; d < nd; ++d) {
+            const float xr = xc[s_sym[d]], xi = xc[rx_im + s_sym[d]];
+            e += xr * xr + xi * xi;
+            if (d == 0) x0r[c] = xr, x0i[c] = xi;
+            if (d == 1) x1r[c] = xr, x1i[c] = xi;
+          }
         }
         if (a.cfo_possible) {
+          float p0r[kMaxL], p0i[kMaxL], p1r[kMaxL], p1i[kMaxL];
+          const float* pk = pil + k * a.pil_sk;
+          load_layers(pk, pil_im, pil_sl, nL, a.pil_vec, p0r, p0i);
+          load_layers(pk + pil_sd, pil_im, pil_sl, nL, a.pil_vec, p1r, p1i);
 #pragma unroll
-          for (int l = 0; l < kMaxRows / 2; ++l) {
+          for (int l = 0; l < kMaxL; ++l) {
             if (l >= nL) break;
-            const int cl = min(l / 2, n_cdm - 1);
-            const float x0r = rx[rx_at(cl, 0, k)], x0i = rx[rx_im + rx_at(cl, 0, k)];
-            const float x1r = rx[rx_at(cl, 1, k)], x1i = rx[rx_im + rx_at(cl, 1, k)];
-            const float p0r = pil[pil_at(l, 0, k)], p0i = pil[pil_im + pil_at(l, 0, k)];
-            const float p1r = pil[pil_at(l, 1, k)], p1i = pil[pil_im + pil_at(l, 1, k)];
-            const float ar = x0r * p0r + x0i * p0i, ai = x0i * p0r - x0r * p0i;
-            const float er = x1r * p1r + x1i * p1i, ei = x1i * p1r - x1r * p1i;
+            const int cl = l / 2;
+            const float ar = x0r[cl] * p0r[l] + x0i[cl] * p0i[l];
+            const float ai = x0i[cl] * p0r[l] - x0r[cl] * p0i[l];
+            const float er = x1r[cl] * p1r[l] + x1i[cl] * p1i[l];
+            const float ei = x1i[cl] * p1r[l] - x1r[cl] * p1i[l];
             sr[l] += ar * er + ai * ei;
             si[l] += ar * ei - ai * er;
           }
@@ -469,7 +551,7 @@ __global__ void __launch_bounds__(kThreads, 1) front_kernel(FrontArgs a, Plan p)
     e = group_sum(e, tpp, red);
     if (gj == 0 && gp < P) p1[gp * n1 + rows] = e;
 #pragma unroll
-    for (int l = 0; l < kMaxRows / 2; ++l) {
+    for (int l = 0; l < kMaxL; ++l) {
       if (l >= nL) break;
       const float r_ = group_sum(sr[l], tpp, red), i_ = group_sum(si[l], tpp, red);
       if (gj == 0 && gp < P) {
@@ -527,24 +609,42 @@ __global__ void __launch_bounds__(kThreads, 1) front_kernel(FrontArgs a, Plan p)
       for (int r = 0; r < rows; ++r) hcol[r] = 0.f;
       continue;
     }
-    const float* rx = a.rx + (b0 + pp) * rx_pb;
-    const float* pil = a.pil + (b0 + pp) * pil_pb;
+    const float* rx = a.rx + (b0 + pp) * a.rx_sb;
+    const float* pk = a.pil + (b0 + pp) * a.pil_sb + k * a.pil_sk;
     const float beta = s_beta[pp];
     const float* csp = cs + pp * kMaxDsym * 2;
-    for (int l = 0; l < nL; ++l) {
-      const int cl = min(l / 2, n_cdm - 1);
-      float sr = 0.f, si = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < nd; ++d) {
-        const float xr = rx[rx_at(cl, d, k)], xi = rx[rx_im + rx_at(cl, d, k)];
-        const float pr = pil[pil_at(l, d, k)], pi = pil[pil_im + pil_at(l, d, k)];
-        const float rr = xr * pr + xi * pi, ri = xi * pr - xr * pi;
-        const float co = csp[2 * d], s = csp[2 * d + 1];
-        sr += rr * co + ri * s;
-        si += ri * co - rr * s;
+    // symbol by symbol, each received value and pilot read once; every
+    // layer's sums still run over d in order
+    const float* xc[kMaxCdm];
+#pragma unroll
+    for (int c = 0; c < kMaxCdm; ++c) xc[c] = c < n_cdm ? rx + rx_row(c, k) : rx;
+    float sr[kMaxL], si[kMaxL];
+#pragma unroll
+    for (int l = 0; l < kMaxL; ++l) sr[l] = si[l] = 0.f;
+    for (int d = 0; d < nd; ++d) {
+      float xr[kMaxCdm], xi[kMaxCdm], pr[kMaxL], pi[kMaxL];
+#pragma unroll
+      for (int c = 0; c < kMaxCdm; ++c) {
+        if (c >= n_cdm) break;
+        xr[c] = xc[c][s_sym[d]];
+        xi[c] = xc[c][rx_im + s_sym[d]];
       }
-      hcol[l] = sr / beta / static_cast<float>(nd);
-      hcol[nL + l] = si / beta / static_cast<float>(nd);
+      load_layers(pk + d * pil_sd, pil_im, pil_sl, nL, a.pil_vec, pr, pi);
+      const float co = csp[2 * d], s = csp[2 * d + 1];
+#pragma unroll
+      for (int l = 0; l < kMaxL; ++l) {
+        if (l >= nL) break;
+        const int cl = l / 2;
+        const float rr = xr[cl] * pr[l] + xi[cl] * pi[l], ri = xi[cl] * pr[l] - xr[cl] * pi[l];
+        sr[l] += rr * co + ri * s;
+        si[l] += ri * co - rr * s;
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < kMaxL; ++l) {
+      if (l >= nL) break;
+      hcol[l] = sr[l] / beta / static_cast<float>(nd);
+      hcol[nL + l] = si[l] / beta / static_cast<float>(nd);
     }
   }
   const int m_pad = Mpad - P * rows;
@@ -658,27 +758,41 @@ __global__ void __launch_bounds__(kThreads, 1) front_kernel(FrontArgs a, Plan p)
   {
     float npart = 0.f, rpart = 0.f;
     if (gp < pv) {
-      const float* rx = a.rx + (b0 + gp) * rx_pb;
-      const float* pil = a.pil + (b0 + gp) * pil_pb;
+      const float* rx = a.rx + (b0 + gp) * a.rx_sb;
+      const float* pil = a.pil + (b0 + gp) * a.pil_sb;
       const float beta = s_beta[gp];
       const float* csp = cs + gp * kMaxDsym * 2;
       for (int kk = gj; kk < ncol; kk += tpp) {
         const int k = c0 + kk;
         const float* hs = hss + kk * Mpad + gp * rows;
+        const float* pk = pil + k * a.pil_sk;
         for (int c = 0; c < n_cdm; ++c) {
-          const int l1 = min(2 * c + 2, nL);
+          const int l0 = 2 * c, nl = min(l0 + 2, nL) - l0;
+          const float* xc = rx + rx_row(c, k);
 #pragma unroll 4
           for (int d = 0; d < nd; ++d) {
             const float co = csp[2 * d], s = csp[2 * d + 1];
-            float er = 0.f, ei = 0.f;
-            for (int l = 2 * c; l < l1; ++l) {
-              const float hr = hs[l], hi = hs[nL + l];
-              const float hpr = hr * co - hi * s, hpi = hr * s + hi * co;
-              const float pr = pil[pil_at(l, d, k)], pi = pil[pil_im + pil_at(l, d, k)];
-              er += beta * (pr * hpr - pi * hpi);
-              ei += beta * (pr * hpi + pi * hpr);
+            // the group's two layers: one 8-byte load a part where vectorised
+            const float* q = pk + l0 * pil_sl + d * pil_sd;
+            float pr[2], pi[2];
+            if (a.pil_vec) {
+              const float2 r = *reinterpret_cast<const float2*>(q);
+              const float2 i = *reinterpret_cast<const float2*>(q + pil_im);
+              pr[0] = r.x, pr[1] = r.y, pi[0] = i.x, pi[1] = i.y;
+            } else {
+              pr[0] = q[0], pi[0] = q[pil_im];
+              if (nl > 1) pr[1] = q[pil_sl], pi[1] = q[pil_im + pil_sl];
             }
-            const float dr = rx[rx_at(c, d, k)] - er, di = rx[rx_im + rx_at(c, d, k)] - ei;
+            float er = 0.f, ei = 0.f;
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              if (j >= nl) break;
+              const float hr = hs[l0 + j], hi = hs[nL + l0 + j];
+              const float hpr = hr * co - hi * s, hpi = hr * s + hi * co;
+              er += beta * (pr[j] * hpr - pi[j] * hpi);
+              ei += beta * (pr[j] * hpi + pi[j] * hpr);
+            }
+            const float dr = xc[s_sym[d]] - er, di = xc[rx_im + s_sym[d]] - ei;
             npart += dr * dr + di * di;
           }
         }
@@ -811,25 +925,40 @@ extern "C" int srs_front_plan(long long* out, int B, int n_re, int nL, int n_pil
   return 0;
 }
 
-// smem_bytes: the plan's shared memory as the caller computed it (front.launch_plan);
-// a launch whose caller disagrees with the kernel's own plan is refused.
-extern "C" int srs_fused_front_f32(
-    const float* rx, const float* pil, const float* beta, const float* pair_l,
-    const float* pair_r, const float* vp, const float* sm, const float* svb,
-    const float* sve, const float* ta_c, const float* ta_s, const float* two_pi_sst_d,
-    float* h_out, float* sc_out, int B, int n_cdm, int nL, int nd, int n_re,
-    int n_pils, int k_ta, int hcp, int cfo_possible, int cfo_compensate,
+// The launch of both forms. rx_st: rx's element strides (problem, ri, CDM
+// group, symbol, subcarrier row), pil_st: pil's (problem, ri, layer, symbol,
+// subcarrier); re_idx / sym_idx: the staged form's int64 tables, or null.
+// smem_bytes: the plan's shared memory as the caller computed it
+// (front.launch_plan); a launch whose caller disagrees with the kernel's own
+// plan is refused, and so is a stride past 32 bits after the problem's.
+extern "C" int srs_fused_front_strided_f32(
+    const float* rx, const long long* re_idx, const long long* sym_idx,
+    const long long* rx_st, const float* pil, const long long* pil_st, const float* beta,
+    const float* pair_l, const float* pair_r, const float* vp, const float* sm,
+    const float* svb, const float* sve, const float* ta_c, const float* ta_s,
+    const float* two_pi_sst_d, float* h_out, float* sc_out, int B, int n_cdm, int nL,
+    int nd, int n_re, int n_pils, int k_ta, int hcp, int cfo_possible, int cfo_compensate,
     float two_pi_ns, float fft_size, float scs_hz, int smem_bytes, void* stream) {
-  if (nd < 1 || nd > kMaxDsym || k_ta < 1 || k_ta > n_re || (cfo_possible && nd < 2))
+  if (nd < 1 || nd > kMaxDsym || k_ta < 1 || k_ta > n_re || (cfo_possible && nd < 2) ||
+      nL < 1 || nL > kMaxL || n_cdm != (nL + 1) / 2)
     return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 1; i < 5; ++i)
+    if (rx_st[i] < 0 || rx_st[i] > INT_MAX || pil_st[i] < 0 || pil_st[i] > INT_MAX)
+      return static_cast<int>(cudaErrorInvalidValue);
   int cap[kMaxCluster];
   int bad = cluster_caps(cap);
   if (bad != 0) return bad;
   Plan p;
   bad = make_plan(&p, B, n_re, nL, n_pils, hcp, k_ta, cap);
   if (bad != 0 || smem_bytes != p.smem) return static_cast<int>(cudaErrorInvalidValue);
-  FrontArgs a{rx, pil, beta, pair_l, pair_r, vp, sm, svb, sve, ta_c, ta_s, two_pi_sst_d,
-              h_out, sc_out, B, n_cdm, nL, nd, n_re, n_pils, k_ta, hcp,
+  const auto i32 = [](long long v) { return static_cast<int>(v); };
+  bool pil_vec = pil_st[2] == 1 && nL % 4 == 0 && (reinterpret_cast<size_t>(pil) & 15) == 0;
+  for (int i = 0; i < 5; ++i) pil_vec = pil_vec && (i == 2 || pil_st[i] % 4 == 0);
+  FrontArgs a{rx, re_idx, sym_idx, pil, beta, pair_l, pair_r, vp, sm, svb, sve, ta_c, ta_s,
+              two_pi_sst_d, h_out, sc_out, rx_st[0], pil_st[0],
+              i32(rx_st[1]), i32(rx_st[2]), i32(rx_st[3]), i32(rx_st[4]),
+              i32(pil_st[1]), i32(pil_st[2]), i32(pil_st[3]), i32(pil_st[4]), pil_vec,
+              B, n_cdm, nL, nd, n_re, n_pils, k_ta, hcp,
               cfo_possible, cfo_compensate, two_pi_ns, fft_size, scs_hz};
   const FrontFn fn = kFns[p.RN - 1];
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -849,4 +978,24 @@ extern "C" int srs_fused_front_f32(
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, fn, a, p);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The gathered form, contiguous: rx (B, 2, n_cdm, nd, n_re), pil (B, 2, nL,
+// nd, n_re). The entry every earlier version of this file has, with the same
+// arguments (ab_kernels.py times one checkout's against another's).
+extern "C" int srs_fused_front_f32(
+    const float* rx, const float* pil, const float* beta, const float* pair_l,
+    const float* pair_r, const float* vp, const float* sm, const float* svb,
+    const float* sve, const float* ta_c, const float* ta_s, const float* two_pi_sst_d,
+    float* h_out, float* sc_out, int B, int n_cdm, int nL, int nd, int n_re,
+    int n_pils, int k_ta, int hcp, int cfo_possible, int cfo_compensate,
+    float two_pi_ns, float fft_size, float scs_hz, int smem_bytes, void* stream) {
+  const long long rx_st[5] = {2LL * n_cdm * nd * n_re, 1LL * n_cdm * nd * n_re,
+                              1LL * nd * n_re, n_re, 1};
+  const long long pil_st[5] = {2LL * nL * nd * n_re, 1LL * nL * nd * n_re, 1LL * nd * n_re,
+                               n_re, 1};
+  return srs_fused_front_strided_f32(
+      rx, nullptr, nullptr, rx_st, pil, pil_st, beta, pair_l, pair_r, vp, sm, svb, sve, ta_c,
+      ta_s, two_pi_sst_d, h_out, sc_out, B, n_cdm, nL, nd, n_re, n_pils, k_ta, hcp,
+      cfo_possible, cfo_compensate, two_pi_ns, fft_size, scs_hz, smem_bytes, stream);
 }

@@ -20,8 +20,8 @@ Each graph holds a private memory pool, so at most `MAX_GRAPHS` are kept
 capture launches nothing, so its counts are taken back, and each replay adds
 them again, once per kernel the graph launches, so the counters go on
 counting launches on the card (one call, one launch of each of its kernels).
-The same holds for a wrapper's launches by route (`route_launches`: K3's and
-`front_finish`'s).
+The same holds for a wrapper's launches by route (`route_launches`: K1's by
+input form, K3's and `front_finish`'s).
 A replay is the span `graphs.replay` (its input copies, the replay and the
 output clones), and its work on the card the event-timed `graphs.replay_ms`
 (`utils/spans.py`, while the spans are on).

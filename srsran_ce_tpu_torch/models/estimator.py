@@ -236,14 +236,8 @@ def _front_mats(hp: HopPlan) -> dict:
 def _gather_rx(hp: HopPlan, ht: dict, rg: torch.Tensor) -> torch.Tensor:
     """The hop's received pilot REs, time-major: (..., n_cdm, n_dsym, n_re)
     from a grid (..., n_sc, n_sym) — ri (B, 2, n_sc, n_sym) or complex
-    (B, n_sc, n_sym).
-
-    One index gather with the plan's RE table; the TPU package's reshape-and-
-    slice form for contiguous combs (`fast_sel`, TPUs have no gather hardware)
-    selects the same elements in the same order."""
-    lead = rg.shape[:-2]
-    g = rg.index_select(-2, ht["re_idx"]).index_select(-1, ht["dmrs_sym_idx"])
-    return g.reshape(lead + (hp.n_cdm, hp.n_re, hp.n_dsym)).transpose(-1, -2).contiguous()
+    (B, n_sc, n_sym) (`ops.kernels.front.gather_rx` with the hop's tables)."""
+    return _k1.gather_rx(rg, ht["re_idx"], ht["dmrs_sym_idx"], hp.n_cdm)
 
 
 # ---------------------------------------------------------------------------
@@ -858,8 +852,10 @@ def _front_pallas_batched(
 
     plan: an EstimatorPlan of either package; pt: `plan_tensors(plan, ...)` on
     the inputs' device and dtype. rg_ri (B, 2, n_sc, n_sym); pil_ri
-    (B, 2, n_re, n_dsym_total, nL); beta (B,). Returns EstimateResult (serve)
-    or FactoredResult (factored). One `front_finish` launch a call takes the
+    (B, 2, n_re, n_dsym_total, nL); beta (B,). K1 reads both as staged,
+    through each hop's RE and symbol tables and its view of the pilots, so
+    nothing is gathered or permuted in front of it. Returns EstimateResult
+    (serve) or FactoredResult (factored). One `front_finish` launch a call takes the
     scalars and the rotation, and with linear interpolation the factored
     profiles too (its two-tap tables); the "cnn" inpainting operator is not
     two-tap, so its factored profiles stay one product a CDM group."""
@@ -873,14 +869,12 @@ def _front_pallas_batched(
 
     h_ps, scs = [], []
     for hp, ht, (d0, d1) in zip(hops, pt["hops"], splits):
-        rx = _gather_rx(hp, ht, rg_ri)
-        # pilots (B, 2, n_re, n_dsym, nL) -> (B, 2, nL, n_dsym, n_re)
-        pil = pil_ri[:, :, :, d0:d1].permute(0, 1, 4, 3, 2).contiguous()
         h_s, sc = _k1.fused_front(
-            rx, pil, beta, ht["front"],
+            rg_ri, pil_ri[:, :, :, d0:d1], beta, ht["front"],
             n_samples=hp.n_samples, half_cp_len=hp.half_cp_len, fft_size=hp.fft_size,
             scs_hz=config.scs_hz, cfo_possible=hp.cfo_possible,
             cfo_compensate=config.cfo_compensate,
+            re_idx=ht["re_idx"], dmrs_sym_idx=ht["dmrs_sym_idx"],
         )
         h_ps.append(h_s)
         scs.append(sc)

@@ -33,6 +33,33 @@ a batch, on 8 warps an SM. Now:
 `make_plan` in csrc/front.cu number for number (a card test compares them
 through `srs_front_plan`); a shape that fits no plan raises.
 
+Inputs, in one of two forms that the kernel reads through one accessor (the
+element strides of both inputs, and the RE and symbol tables or none):
+- staged: the received grid `rg_ri` (B, 2, n_sc, n_sym) as the caller staged
+  it, read through the hop's RE table `re_idx` (n_cdm * n_re,) (group-major)
+  and DM-RS symbol table `dmrs_sym_idx` (nd,), both int64 (`plan_tensors`'
+  per-hop "re_idx" and "dmrs_sym_idx"):
+  rx[b, ri, c, d, k] = rg_ri[b, ri, re_idx[c * n_re + k], dmrs_sym_idx[d]];
+  and the staged pilots of the hop's symbols, `pil_ri[:, :, :, d0:d1]`
+  (B, 2, n_re, nd, nL), a view: the kernel starts at d0 through the view's
+  offset and reads its strides, so nothing is copied:
+  pil[b, ri, l, d, k] = pil_ri[b, ri, k, d0 + d, l];
+- gathered: rx (B, 2, n_cdm, nd, n_re) and pil (B, 2, nL, nd, n_re), the TPU
+  kernel's layout (a TPU has no gather hardware), read with no tables.
+The wrapper tells them apart by the grid's rank and counts the launches of
+each in `route_launches`. On the card a thread takes one subcarrier column
+k, so with comb 2 a warp's 32 columns read one contiguous run of the staged
+grid (the rows 2k, 2k + 1 of both CDM groups): a pass over the DM-RS moves
+the whole grid through L2 (18.24 MB at 128 problems of 106 PRB, 14 symbols)
+for the 5.2 MB it uses, the three passes at most ~55 MB from L2, and the
+pilots 10.4 MB a pass. The L1's requests bound it, not the bytes (a warp's
+read of one symbol touches ~28 lines of the staged grid), so each pass reads
+every value once and the pilots 16 bytes at a time where their layers are
+contiguous. The staged form replaces four launches in front of the kernel
+(the gather's two index kernels, its transpose, the pilots' permute: 91 MB
+through device memory); both forms give the same bits, since only the
+addresses and the loads differ.
+
 Precision: the TPU runs matmul_precision "high" as a 3-pass bf16 split
 (`kernels._dot_f32x3`); the kernel's full f32 FMA is at least as accurate, so
 "high" and "highest" both map to it.
@@ -59,6 +86,9 @@ from . import bind, check_cuda_f32, check_shape, full_f32_matmul, launch
 #: kernel launches since the count was last set to 0 (incremented only where
 #: the CUDA kernel is launched, never by the plain version)
 launches = 0
+#: the same launches by input form: "staged" (the grid and the pilots as the
+#: caller staged them) or "gathered"
+route_launches = {"staged": 0, "gathered": 0}
 
 _MAX_LAYERS = 8
 _MAX_PILS = 16
@@ -78,7 +108,12 @@ SMEM_HALF = 233472 // 2 - 1024
 NOMINAL_CAPS = tuple(132 // s for s in range(1, 9))
 
 _PTR = ctypes.c_void_p
+#: `srs_fused_front_f32`, the gathered form (contiguous)
 _ARGTYPES = [_PTR] * 14 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3 + [ctypes.c_int, _PTR]
+#: `srs_fused_front_strided_f32`: rx, its tables and strides, pil and its
+#: strides, then the gathered form's arguments after its pil
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+_STRIDED_ARGTYPES = [_PTR] * 3 + [_STRIDES, _PTR, _STRIDES] + _ARGTYPES[2:]
 PLAN_ARGTYPES = ([ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6
                  + [ctypes.POINTER(ctypes.c_int)])
 CAPS_ARGTYPES = [ctypes.POINTER(ctypes.c_int)]
@@ -290,6 +325,55 @@ def fused_front_plain(
     return Hs.reshape(B, 2, nL, n_re), sc
 
 
+def gather_rx(rg: torch.Tensor, re_idx: torch.Tensor, dmrs_sym_idx: torch.Tensor,
+              n_cdm: int) -> torch.Tensor:
+    """A hop's received pilot REs, time-major: (..., n_cdm, n_dsym, n_re) from
+    a grid (..., n_sc, n_sym), ri (B, 2, n_sc, n_sym) or complex (B, n_sc,
+    n_sym), by the hop's RE table (n_cdm * n_re,) (group-major) and DM-RS
+    symbol table.
+
+    One index gather with the plan's RE table; the TPU package's reshape-and-
+    slice form for contiguous combs (`fast_sel`, TPUs have no gather hardware)
+    selects the same elements in the same order."""
+    lead = rg.shape[:-2]
+    g = rg.index_select(-2, re_idx).index_select(-1, dmrs_sym_idx)
+    n_re = re_idx.shape[0] // n_cdm
+    return g.reshape(lead + (n_cdm, n_re, g.shape[-1])).transpose(-1, -2).contiguous()
+
+
+def gather_staged(rg_ri: torch.Tensor, pil_ri: torch.Tensor, re_idx: torch.Tensor,
+                  dmrs_sym_idx: torch.Tensor):
+    """The gathered form of staged inputs: (rx (B, 2, n_cdm, nd, n_re), pil
+    (B, 2, nL, nd, n_re)) from the grid (B, 2, n_sc, n_sym), a hop's staged
+    pilots (B, 2, n_re, nd, nL) and its tables, element for element what the
+    kernel reads through the tables."""
+    n_re = pil_ri.shape[2]
+    rx = gather_rx(rg_ri, re_idx, dmrs_sym_idx, re_idx.shape[0] // n_re)
+    return rx, pil_ri.permute(0, 1, 4, 3, 2).contiguous()
+
+
+def _check_staged(rg_ri, pil_ri, re_idx, dmrs_sym_idx, n_re: int):
+    """Validate the staged form's grid, pilots and tables (on either device):
+    returns (n_cdm, nd, nL)."""
+    if rg_ri.dim() != 4 or rg_ri.shape[1] != 2 or rg_ri.shape[0] < 1:
+        raise ValueError(f"the staged grid must be (B>=1, 2, n_sc, n_sym), got {tuple(rg_ri.shape)}")
+    for name, t in (("re_idx", re_idx), ("dmrs_sym_idx", dmrs_sym_idx)):
+        if t is None:
+            raise ValueError(f"the staged form needs the hop's {name}")
+        if t.dtype != torch.int64 or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int64 tensor, got {t.dtype} {tuple(t.shape)}")
+        if t.device != rg_ri.device:
+            raise ValueError(f"{name} is on {t.device}, the grid on {rg_ri.device}")
+    if pil_ri.dim() != 5:
+        raise ValueError(f"the staged pilots must be (B, 2, n_re, n_dsym, nL), got "
+                         f"{tuple(pil_ri.shape)}")
+    nd, nL = dmrs_sym_idx.shape[0], pil_ri.shape[4]
+    n_cdm = (nL + 1) // 2
+    check_shape("pil_ri", pil_ri, (rg_ri.shape[0], 2, n_re, nd, nL))
+    check_shape("re_idx", re_idx, (n_cdm * n_re,))
+    return n_cdm, nd, nL
+
+
 def fused_front(
     rx_ri: torch.Tensor,
     pil_ri: torch.Tensor,
@@ -302,43 +386,72 @@ def fused_front(
     scs_hz: float,
     cfo_possible: bool,
     cfo_compensate: bool,
+    re_idx: torch.Tensor | None = None,
+    dmrs_sym_idx: torch.Tensor | None = None,
 ):
     """Fused front for a batch of problems: (h_s (B, 2, nL, n_re), scalars (B, 8)).
 
-    `mats`: the hop's tensors of `models.plan.plan_tensors` (pair_l, pair_r,
-    vp, smooth, smooth_vb, smooth_ve, ta_c, ta_s, two_pi_sst_d). CPU tensors go
-    through `fused_front_plain`; CUDA tensors launch the kernel."""
+    Staged form: `rx_ri` the received grid (B, 2, n_sc, n_sym), `pil_ri` the
+    hop's staged pilots (B, 2, n_re, nd, nL) (a view of its symbols), with
+    the hop's `re_idx` and `dmrs_sym_idx`. Gathered form: `rx_ri` (B, 2,
+    n_cdm, nd, n_re), `pil_ri` (B, 2, nL, nd, n_re), no tables. The grid's
+    rank says which (module docstring). `mats`: the hop's tensors of
+    `models.plan.plan_tensors` (pair_l, pair_r, vp, smooth, smooth_vb,
+    smooth_ve, ta_c, ta_s, two_pi_sst_d). CPU tensors go through
+    `fused_front_plain` (the staged form gathered first, by `gather_staged`);
+    CUDA tensors launch the kernel."""
     kw = dict(
         n_samples=n_samples, half_cp_len=half_cp_len, fft_size=fft_size, scs_hz=scs_hz,
         cfo_possible=cfo_possible, cfo_compensate=cfo_compensate,
     )
+    n_re = mats["smooth"].shape[0]
+    staged = rx_ri.dim() == 4
+    if staged:
+        n_cdm, nd, nL = _check_staged(rx_ri, pil_ri, re_idx, dmrs_sym_idx, n_re)
+    elif re_idx is not None or dmrs_sym_idx is not None:
+        raise ValueError("the gathered form (rx_ri (B, 2, n_cdm, n_dsym, n_re)) takes no tables")
     if rx_ri.device.type == "cpu":
+        if staged:
+            rx_ri, pil_ri = gather_staged(rx_ri, pil_ri, re_idx, dmrs_sym_idx)
         return fused_front_plain(rx_ri, pil_ri, beta, mats, **kw)
     if rx_ri.device.type != "cuda":
         raise ValueError(f"fused_front runs on CPU (plain) or CUDA tensors, not {rx_ri.device}")
 
-    B, two, n_cdm, nd, n_re = rx_ri.shape
-    nL = pil_ri.shape[2]
+    if not staged:
+        if rx_ri.dim() != 5 or rx_ri.shape[1] != 2 or rx_ri.shape[0] < 1:
+            raise ValueError(f"rx_ri must be (B>=1, 2, n_cdm, n_dsym, n_re), got "
+                             f"{tuple(rx_ri.shape)}")
+        n_cdm, nd = rx_ri.shape[2:4]
+        nL = pil_ri.shape[2]
+        check_shape("rx_ri", rx_ri, (rx_ri.shape[0], 2, n_cdm, nd, n_re))
+        check_shape("pil_ri", pil_ri, (rx_ri.shape[0], 2, nL, nd, n_re))
+    B = rx_ri.shape[0]
     n_pils = mats["pair_l"].shape[1]
     k_ta, n_bins = mats["ta_c"].shape
     rotate = cfo_possible and cfo_compensate
     vp = mats["vp"] if n_pils > 1 else None
     sst_d = mats["two_pi_sst_d"] if rotate else None
-    tensors = dict(
-        rx_ri=rx_ri, pil_ri=pil_ri, beta=beta, pair_l=mats["pair_l"], pair_r=mats["pair_r"],
-        vp=vp, smooth=mats["smooth"], smooth_vb=mats["smooth_vb"],
-        smooth_ve=mats["smooth_ve"], ta_c=mats["ta_c"], ta_s=mats["ta_s"], two_pi_sst_d=sst_d,
+    device = check_cuda_f32(
+        beta=beta, pair_l=mats["pair_l"], pair_r=mats["pair_r"], vp=vp, smooth=mats["smooth"],
+        smooth_vb=mats["smooth_vb"], smooth_ve=mats["smooth_ve"], ta_c=mats["ta_c"],
+        ta_s=mats["ta_s"], two_pi_sst_d=sst_d,
     )
-    device = check_cuda_f32(**tensors)
-    if two != 2 or B < 1:
-        raise ValueError(f"rx_ri must be (B>=1, 2, n_cdm, n_dsym, n_re), got {tuple(rx_ri.shape)}")
+    for name, t in (("rx_ri", rx_ri), ("pil_ri", pil_ri), ("re_idx", re_idx),
+                    ("dmrs_sym_idx", dmrs_sym_idx)):
+        if t is not None and t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+    for name, t in (("rx_ri", rx_ri), ("pil_ri", pil_ri)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes float32")
+        # a problem's offsets are 32-bit in the kernel
+        if sum((n - 1) * st for n, st in zip(t.shape[1:], t.stride()[1:])) >= 2**31:
+            raise ValueError(f"{name} spans more than 2**31 elements a problem")
     if not 1 <= nL <= _MAX_LAYERS or n_cdm != (nL + 1) // 2:
         raise ValueError(f"kernel takes 1..{_MAX_LAYERS} layers in ceil(nL/2) CDM groups")
     if not 1 <= n_pils <= _MAX_PILS or nd > _MAX_DSYM or (cfo_possible and nd < 2):
         raise ValueError(f"unsupported n_pils={n_pils} / n_dsym={nd}")
     if n_bins != 2 * half_cp_len or k_ta > n_re:
         raise ValueError(f"TA DFT {tuple(mats['ta_c'].shape)} does not match half_cp_len / n_re")
-    check_shape("pil_ri", pil_ri, (B, 2, nL, nd, n_re))
     check_shape("beta", beta, (B,))
     check_shape("pair_l", mats["pair_l"], (n_re, n_pils))
     check_shape("pair_r", mats["pair_r"], (n_re, n_pils))
@@ -352,12 +465,21 @@ def fused_front(
         check_shape("two_pi_sst_d", sst_d, (nd,))
     plan = launch_plan(B, n_re, nL, n_pils, half_cp_len, k_ta, kernel_caps(device))
 
+    if staged:  # strides (problem, ri, CDM group, symbol, row), (problem, ri, l, d, k)
+        sb, sri, sk, sd = rx_ri.stride()
+        rx_st = (sb, sri, 0, sd, sk)
+        pb, pri, pk, pd, pl = pil_ri.stride()
+        pil_st = (pb, pri, pl, pd, pk)
+    else:
+        rx_st, pil_st = rx_ri.stride(), pil_ri.stride()
     h_out = torch.empty((B, 2, nL, n_re), dtype=torch.float32, device=device)
     sc_out = torch.empty((B, 8), dtype=torch.float32, device=device)
     ptr = lambda t: None if t is None else t.data_ptr()
+    strides = lambda st: (ctypes.c_longlong * 5)(*st)
     launch(
-        "fused_front", bind("front", "srs_fused_front_f32", _ARGTYPES), device,
-        ptr(rx_ri), ptr(pil_ri), ptr(beta), ptr(mats["pair_l"]), ptr(mats["pair_r"]),
+        "fused_front", bind("front", "srs_fused_front_strided_f32", _STRIDED_ARGTYPES), device,
+        ptr(rx_ri), ptr(re_idx), ptr(dmrs_sym_idx), strides(rx_st), ptr(pil_ri), strides(pil_st),
+        ptr(beta), ptr(mats["pair_l"]), ptr(mats["pair_r"]),
         ptr(vp), ptr(mats["smooth"]), ptr(mats["smooth_vb"]), ptr(mats["smooth_ve"]),
         ptr(mats["ta_c"]), ptr(mats["ta_s"]), ptr(sst_d), ptr(h_out), ptr(sc_out),
         B, n_cdm, nL, nd, n_re, n_pils, k_ta, half_cp_len,
@@ -366,6 +488,7 @@ def fused_front(
     )
     global launches
     launches += 1
+    route_launches["staged" if staged else "gathered"] += 1
     return h_out, sc_out
 
 

@@ -204,6 +204,46 @@ def test_fused_front_kernel_both_hops_of_c4():
         assert_front_matches_plain((rx, pil_h, beta, ht["front"]), kw_, f"c4 hop {i + 1}")
 
 
+STAGED_CASES = [
+    ("cell_shape", dict(n_prbs=106, n_layers=4, comb=2, scs_hz=30e3, snr_db=20.0), 128),
+    ("c4_both_hops", dict(n_prbs=24, n_layers=1, comb=2, scs_hz=30e3, snr_db=30.0,
+                          two_hops=True), 256),
+    ("partial_prb_gap", dict(n_prbs=20, n_layers=3, comb=2, snr_db=30.0, prb_start=6,
+                             n_prb_total=30, prb_hole=(5, 8)), 33),
+]
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("name,kw,batch", STAGED_CASES, ids=[c[0] for c in STAGED_CASES])
+def test_fused_front_kernel_staged_equals_gathered(name, kw, batch):
+    """K1 on the staged grid and each hop's view of the staged pilots (hop 2
+    from its symbol offset d0 > 0) gives, bit for bit, what it gives on the
+    gathered inputs (`_gather_rx`, the pilots' permute): only the addresses
+    differ. `ce40_closed4`'s shape (B=128, nd=nL=4, n_re=636), both hops of
+    c4, and an RE table with a gap (a partial-PRB allocation with a hole).
+    Each launch is counted by its form."""
+    case, rg, pil, beta = case_inputs(kw, batch, torch.float32, "cuda", seed=7)
+    plan = make_plan(case.hop1, case.hop2, case.config, case.pilots.shape[2])
+    pt = plan_tensors(plan, "cuda", torch.float32)
+    d0 = 0
+    for hp, ht in zip([plan.hop1, plan.hop2], pt["hops"]):
+        pil_h = pil[:, :, :, d0 : d0 + hp.n_dsym]
+        kw_ = dict(n_samples=hp.n_samples, half_cp_len=hp.half_cp_len, fft_size=hp.fft_size,
+                   scs_hz=case.config.scs_hz, cfo_possible=hp.cfo_possible,
+                   cfo_compensate=case.config.cfo_compensate)
+        r0 = dict(k1.route_launches)
+        h_s, s_s = k1.fused_front(rg, pil_h, beta, ht["front"], re_idx=ht["re_idx"],
+                                  dmrs_sym_idx=ht["dmrs_sym_idx"], **kw_)
+        rx = est._gather_rx(hp, ht, rg)
+        pil_g = pil_h.permute(0, 1, 4, 3, 2).contiguous()
+        h_g, s_g = k1.fused_front(rx, pil_g, beta, ht["front"], **kw_)
+        assert {r: n - r0[r] for r, n in k1.route_launches.items()} == {"staged": 1, "gathered": 1}
+        torch.cuda.synchronize()
+        assert torch.equal(h_s, h_g) and torch.equal(s_s, s_g), (name, d0)
+        d0 += hp.n_dsym
+    assert (d0 > plan.hop1.n_dsym) == (plan.hop2 is not None)
+
+
 @NEEDS_GPU
 def test_fill_rotate_serve_kernel_at_the_c3_operator():
     """c3 (273 PRB, cnn): one layer through the 1638 x 3276 inpainting operator,
@@ -1684,6 +1724,19 @@ def _cell_call(n_slots, seed):
     compensated) as one `serving.process` call's problems, the served
     precision, and the float64 CPU run of the same problems on the "xla" tier
     in both served layouts."""
+    problems, (hop1, hop2, high, nL) = _cell_problems(n_slots, seed)
+    rg = torch.as_tensor(np.stack([est.split_ri(p.received_rg.astype(np.complex128))
+                                   for p in problems]))
+    pil = torch.as_tensor(np.stack([est.split_ri(p.pilots.astype(np.complex128))
+                                    for p in problems]))
+    beta = torch.tensor([p.beta for p in problems], dtype=torch.float64)
+    want = {layout: est.build_ri(hop1, hop2, high, nL, batched=True, out_layout=layout)(
+        rg, pil, beta) for layout in ("serve", "factored")}
+    return problems, (hop1, hop2, high, nL), want
+
+
+def _cell_problems(n_slots, seed):
+    """The problems of `_cell_call` and (hop1, hop2, served config, n_layers)."""
     import dataclasses
 
     from cebench import spec
@@ -1699,15 +1752,7 @@ def _cell_call(n_slots, seed):
     problems = [serving.Problem(np.ascontiguousarray(p.rg[r]), p.pilots, p.beta, hop1, hop2, conf)
                 for p in pool for r in range(p.rg.shape[0])]
     high = dataclasses.replace(conf, matmul_precision=cfg["matmul_precision"])
-    nL = int(cfg["n_layers"])
-    rg = torch.as_tensor(np.stack([est.split_ri(p.received_rg.astype(np.complex128))
-                                   for p in problems]))
-    pil = torch.as_tensor(np.stack([est.split_ri(p.pilots.astype(np.complex128))
-                                    for p in problems]))
-    beta = torch.tensor([p.beta for p in problems], dtype=torch.float64)
-    want = {layout: est.build_ri(hop1, hop2, high, nL, batched=True, out_layout=layout)(
-        rg, pil, beta) for layout in ("serve", "factored")}
-    return problems, (hop1, hop2, high, nL), want
+    return problems, (hop1, hop2, high, int(cfg["n_layers"]))
 
 
 def _served_numbers(out, got, want):
@@ -1764,6 +1809,28 @@ def test_served_estimate_takes_k1_at_the_cells_shape_within_its_limits():
         report[out] = (nmse, s_err)
         assert nmse <= 1e-10 and s_err <= 1e-5, (out, nmse, s_err)
     print(f"served K1 at the cell's shape vs float64 CPU (NMSE, scalar rel err): {report}")
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("out", ["factored", "grid"])
+def test_served_call_at_the_cells_shape_launches_k1_staged_once_a_replay(out):
+    """A served call of the cell's 128 problems reads its staged grid and
+    pilots in K1: over replays of its graph `front.route_launches` moves by
+    {"staged": replays, "gathered": 0}, and `front_finish` launches once a
+    replay."""
+    problems, key = _cell_problems(4, 2**31 + 20_002)
+    assert est.served_kernels(*key, "factored" if out == "factored" else "serve",
+                              "cuda") == "pallas_front"
+    graphs.clear()
+    serving.process(problems, out=out)  # eager: the key's first call
+    serving.process(problems, out=out)  # captured and replayed
+    r0, routes0, f0 = graphs.replays, dict(k1.route_launches), kf.launches
+    for _ in range(3):
+        serving.process(problems, out=out)
+    n = graphs.replays - r0
+    assert n == 3
+    assert {r: k - routes0[r] for r, k in k1.route_launches.items()} == {"staged": n, "gathered": 0}
+    assert kf.launches - f0 == n
 
 
 @NEEDS_GPU

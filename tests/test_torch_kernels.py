@@ -24,6 +24,7 @@ the scalar finish in plain torch), float64 within 1e-13 and float32 within
 The CUDA kernels themselves are held against their plain versions on the card
 by tests/test_torch_gpu.py (no JAX there) and chip_smoke.py.
 """
+import dataclasses
 import math
 import re
 
@@ -302,6 +303,149 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         k6.fused_fill_rotate(h, torch.empty((8, 16), device="meta"),
                              torch.empty((2, 2, 14), device="meta"))
+
+
+# The staged form of K1's inputs: the grid and the pilots as the caller staged
+# them, read through the hop's RE and symbol tables (ops/kernels/front.py).
+STAGED_CASES = FRONT_CASES + [
+    ("cell_shape", dict(n_prbs=106, n_layers=4, comb=2, scs_hz=30e3, snr_db=20.0)),
+    ("partial_prb_gap", dict(n_prbs=20, n_layers=3, comb=2, snr_db=30.0, prb_start=6,
+                             n_prb_total=30, prb_hole=(5, 8))),
+    ("two_hops_gap", dict(n_prbs=24, n_layers=1, comb=2, snr_db=30.0, two_hops=True,
+                          prb_hole=(4, 6))),
+]
+
+
+def staged_inputs(kw, dtype, batch=3, seed=0):
+    """The staged batch of a synthetic case: (plan, plan tensors, grid (B, 2,
+    n_sc, n_sym), pilots (B, 2, n_re, nd_total, nL), beta), each problem
+    perturbed by seeded noise."""
+    case = synthetic.make_case(seed=31, **kw)
+    plan = make_plan(case.hop1, case.hop2, case.config, case.pilots.shape[2])
+    pt = plan_tensors(plan, "cpu", dtype)
+    rng = np.random.default_rng(seed)
+    rg = port_est.split_ri(case.received_rg)
+    rg = np.broadcast_to(rg, (batch,) + rg.shape) + 1e-3 * rng.standard_normal((batch,) + rg.shape)
+    pil = np.broadcast_to(port_est.split_ri(case.pilots), (batch, 2) + case.pilots.shape)
+    beta = np.full(batch, case.beta) * (1.0 + 0.1 * rng.uniform(size=batch))
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype)
+    return case, plan, pt, t(rg), t(pil), t(beta)
+
+
+def hop_views(plan, pt, pil):
+    """Per hop: (hop plan, hop tensors, d0, the hop's view of the staged pilots)."""
+    out, d0 = [], 0
+    for hp, ht in zip([plan.hop1, plan.hop2], pt["hops"]):
+        out.append((hp, ht, d0, pil[:, :, :, d0 : d0 + hp.n_dsym]))
+        d0 += hp.n_dsym
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name,kw", STAGED_CASES, ids=[c[0] for c in STAGED_CASES])
+def test_fused_front_staged_plain_equals_the_gathered_route(name, kw, dtype):
+    """On the CPU the staged form (the grid, a hop's view of the staged
+    pilots, its tables) gives, bit for bit, what `_gather_rx` and the pilots'
+    permute feeding `fused_front_plain` give; the gather follows the rule
+    rx[b, ri, c, d, k] = rg[b, ri, re_idx[c n_re + k], sym[d]] and
+    pil[b, ri, l, d, k] = pil_ri[b, ri, k, d0 + d, l] element for element; the
+    plain version counts no launch."""
+    case, plan, pt, rg, pil, beta = staged_inputs(kw, dtype, seed=len(name))
+    n0, r0 = k1.launches, dict(k1.route_launches)
+    views = hop_views(plan, pt, pil)
+    assert len(views) == 1 + kw.get("two_hops", False)
+    for hp, ht, d0, pil_h in views:
+        t_kw = dict(n_samples=hp.n_samples, half_cp_len=hp.half_cp_len, fft_size=hp.fft_size,
+                    scs_hz=case.config.scs_hz, cfo_possible=hp.cfo_possible,
+                    cfo_compensate=case.config.cfo_compensate)
+        rx_g = port_est._gather_rx(hp, ht, rg)
+        pil_g = pil_h.permute(0, 1, 4, 3, 2).contiguous()
+        re_t = hp.re_idx.reshape(hp.n_cdm, hp.n_re)
+        want_rx = rg.numpy()[:, :, re_t[:, None, :], hp.dmrs_sym_idx[None, :, None]]
+        want_pil = np.transpose(pil.numpy()[:, :, :, d0 : d0 + hp.n_dsym], (0, 1, 4, 3, 2))
+        rx_s, pil_s = k1.gather_staged(rg, pil_h, ht["re_idx"], ht["dmrs_sym_idx"])
+        assert np.array_equal(rx_s.numpy(), want_rx) and np.array_equal(pil_s.numpy(), want_pil)
+        assert torch.equal(rx_s, rx_g) and torch.equal(pil_s, pil_g)
+        h_s, s_s = k1.fused_front(rg, pil_h, beta, ht["front"], re_idx=ht["re_idx"],
+                                  dmrs_sym_idx=ht["dmrs_sym_idx"], **t_kw)
+        h_g, s_g = k1.fused_front_plain(rx_g, pil_g, beta, ht["front"], **t_kw)
+        assert torch.equal(h_s, h_g) and torch.equal(s_s, s_g), (name, d0)
+    assert (k1.launches, k1.route_launches) == (n0, r0)
+
+
+def test_fused_front_refuses_bad_staged_inputs():
+    """The wrapper checks the staged form's grid, pilots and tables on either
+    device, before any launch: shape, dtype and device of each."""
+    case, plan, pt, rg, pil, beta = staged_inputs(FRONT_CASES[0][1], torch.float32)
+    hp, ht = plan.hop1, pt["hops"][0]
+    kw = dict(n_samples=hp.n_samples, half_cp_len=hp.half_cp_len, fft_size=hp.fft_size,
+              scs_hz=case.config.scs_hz, cfo_possible=hp.cfo_possible,
+              cfo_compensate=case.config.cfo_compensate)
+    re_idx, sym = ht["re_idx"], ht["dmrs_sym_idx"]
+
+    def call(rg_=rg, pil_=pil, re_=re_idx, sym_=sym):
+        return k1.fused_front(rg_, pil_, beta, ht["front"], re_idx=re_, dmrs_sym_idx=sym_, **kw)
+
+    call()  # as given, it runs
+    bad = [
+        ("grid", dict(rg_=torch.cat([rg, rg[:, :1]], 1)), ValueError, "staged grid"),
+        ("grid", dict(rg_=rg[0]), ValueError, "takes no tables"),
+        ("pilots", dict(pil_=pil[:, :, :-1]), ValueError, "pil_ri has shape"),
+        ("pilots", dict(pil_=pil[:, :, :, :, :2]), ValueError, "shape"),
+        ("pilots", dict(pil_=pil[..., 0]), ValueError, "staged pilots"),
+        ("table", dict(re_=re_idx.to(torch.int32)), TypeError, "int64"),
+        ("table", dict(sym_=sym.to(torch.float32)), TypeError, "int64"),
+        ("table", dict(re_=re_idx[:-1]), ValueError, "re_idx has shape"),
+        ("table", dict(sym_=sym[:1]), ValueError, "pil_ri has shape"),
+        ("table", dict(re_=re_idx.reshape(hp.n_cdm, -1)), TypeError, "1-D"),
+        ("table", dict(re_=None), ValueError, "needs the hop's re_idx"),
+        ("table", dict(sym_=None), ValueError, "needs the hop's dmrs_sym_idx"),
+        ("table", dict(re_=re_idx.to("meta")), ValueError, "re_idx is on meta"),
+        ("table", dict(sym_=sym.to("meta")), ValueError, "dmrs_sym_idx is on meta"),
+    ]
+    for what, args, exc, match in bad:
+        with pytest.raises(exc, match=match):
+            call(**args)
+    with pytest.raises(ValueError, match="CPU \\(plain\\) or CUDA"):
+        call(rg_=rg.to("meta"), pil_=pil.to("meta"), re_=re_idx.to("meta"), sym_=sym.to("meta"))
+    # the gathered form takes no tables
+    rx_g, pil_g = k1.gather_staged(rg, pil, re_idx, sym)
+    with pytest.raises(ValueError, match="takes no tables"):
+        k1.fused_front(rx_g, pil_g, beta, ht["front"], re_idx=re_idx, **kw)
+
+
+@pytest.mark.parametrize("layout", ["serve", "factored"])
+@pytest.mark.parametrize("name,kw", [STAGED_CASES[0], STAGED_CASES[2], STAGED_CASES[6],
+                                     STAGED_CASES[7]],
+                         ids=["nL4_2cdm", "nL2_two_hops", "partial_prb_gap", "two_hops_gap"])
+def test_pallas_front_on_cpu_is_unchanged_by_the_staged_inputs(name, kw, layout, monkeypatch):
+    """`_front_pallas_batched` ("pallas_front") hands K1 the grid and each
+    hop's view of the staged pilots from its first symbol, with the hop's
+    tables; its result equals, bit for bit, the one of the route before it
+    (each hop's `_gather_rx` and a permuted copy of its pilots, then the
+    gathered form)."""
+    case, plan, pt, rg, pil, beta = staged_inputs(kw, torch.float64, batch=2, seed=3)
+    views = hop_views(plan, pt, pil)
+    seen = []
+
+    def gathered_route(rg_, pil_h, beta_, mats, *, re_idx, dmrs_sym_idx, **f_kw):
+        h = next(i for i, v in enumerate(views) if v[1]["re_idx"] is re_idx)
+        hp, ht, d0, view = views[h]
+        assert rg_ is rg and dmrs_sym_idx is ht["dmrs_sym_idx"] and mats is ht["front"]
+        assert pil_h.data_ptr() == view.data_ptr() and pil_h.shape == view.shape
+        assert pil_h.stride() == pil.stride()  # a view, not a copy
+        seen.append(d0)
+        rx = port_est._gather_rx(hp, ht, rg)
+        pil_g = pil[:, :, :, d0 : d0 + hp.n_dsym].permute(0, 1, 4, 3, 2).contiguous()
+        return k1.fused_front_plain(rx, pil_g, beta_, mats, **f_kw)
+
+    got = port_est._front_pallas_batched(plan, pt, rg, pil, beta, layout)
+    monkeypatch.setattr(port_est._k1, "fused_front", gathered_route)
+    want = port_est._front_pallas_batched(plan, pt, rg, pil, beta, layout)
+    assert seen == [v[2] for v in views]
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        assert torch.equal(a, b) or (a.isnan().all() and b.isnan().all()), (name, f.name)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
