@@ -10,18 +10,29 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      ptxas must report no spills for any K1, K2, K6, K5, K7, K4 or K3
      instantiation; K1's, K2's and K6's launch plans at c2, c4 / c2, nL=3, c3
      / c2, nL=3, c3, the c4 second hop, nL=8, each held to the kernel's own
-     plan, and K1's cluster capacities;
+     plan, K1's banded plan at `ce100_64ant_closed2`'s shape (273 PRB, 4
+     layers, B=128) too, and K1's cluster capacities;
   3. K1 (fused front) against its plain PyTorch version at c2 shapes, B=128;
      K1 on the staged grid and pilots bit-identical to K1 on the gathered
      inputs at c2 B=128 (`ce40_closed4`'s shape) and both hops of c4 B=256,
-     with its launches by form (`route_launches`);
+     with its launches by form (`route_launches`); K1's banded smoothing
+     route at `ce100_64ant_closed2`'s shape (273 PRB, 4 layers, B=128,
+     staged) against its plain version (h_s relative 1e-5, scalars 1e-4,
+     the same TA bins), one launch on that route (`smoothing_launches`);
   4. K2 (serve fill) against its plain version, equal and unequal CDM groups;
   5. `build_ri(..., batched=True, out_layout="serve", kernels="pallas_front")`
      at c2 (106 PRB x 4 layers, batch 128, matmul_precision="high") against
      the float64 oracle, with each kernel's launch count of that run (the
      front's finish, `front_finish`, on its scalar route); then the factored
      layout against the serve grid, the finish on its profiles route;
-  6. the two-hop c4 geometry (24 PRB, 1 layer) at batch 256, same checks;
+  6. the two-hop c4 geometry (24 PRB, 1 layer) at batch 256, same checks
+     (c2 and c4 on K1's dense smoothing route alone); then the served path
+     at `ce100_64ant_closed2`'s shape: `serving.process(out="factored")`
+     over 2 UE-slots of the 64-antenna configuration (273 PRB, 4 ports, 128
+     problems, one chunk), counts set to 0 just before the call: K1 once on
+     its banded route and staged, `front_finish` once on its profiles route,
+     no other kernel, and both slots within the configuration's limits of
+     the float64 oracle (`cebench.reference.ce`);
   7. `front_finish` against its plain version on K1's c2 outputs, both
      routes (profiles relative 1e-6, rotation 2e-7 absolute, scalars relative
      1e-6); times with CUDA events: K1, K2 and `front_finish` against their
@@ -30,7 +41,8 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      (torch.profiler); K1 staged against the gathered route (the gather and
      the permute, then K1) and K1 gathered alone at c2 B=128, device-only
      (torch.profiler, with the kernels a call) and in-graph (CUDA events over
-     replays of one captured call);
+     replays of one captured call); K1 on its dense and banded smoothing
+     routes at c2 B=128, and banded at 273 PRB B=128, the same two ways;
   8. K5 (rc_smooth) against its plain version at the c2 rows (B=128, C=8,
      n_ext=650) and at the time-interpolation row count (C=2*nL*n_dsym);
   9. K6 (fused_fill_rotate) against its plain version: c2 equal CDM groups,
@@ -225,7 +237,9 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
  45. `cli scaling --device cuda` (NCCL worlds of up to the card count, a
      world of 1 on one card): exit 0, the dp, sp and config[4] rows of every
      world run present, the world sizes not run named in the report.
-Then one JSON line of per-kernel results, and as the last line
+Then one JSON line of per-kernel results (K1's launches are phase 5's c2
+serve call's and phase 6's served 273-PRB call's, with their split by
+smoothing route), and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -359,6 +373,7 @@ def main() -> int:
             m.launches = 0
         for m in (k1, k3, kf):
             m.route_launches.update(dict.fromkeys(m.route_launches, 0))
+        k1.smoothing_launches.update(dict.fromkeys(k1.smoothing_launches, 0))
 
     def read_counts():
         return {k: m.launches for k, m in kmods.items()}
@@ -416,6 +431,12 @@ def main() -> int:
         print(f"phase 2 K1 plan {label} B={B_}: {lp.P} problems x {lp.S} blocks a cluster, "
               f"{lp.blocks} blocks, Mpad {lp.Mpad}, RN {lp.RN}, K tile {lp.KT}, {lp.NS} columns / "
               f"{lp.TS} bins a block, {lp.smem} B shared memory (as the kernel's own plan)")
+    lp = k1.launch_plan(128, 1638, 4, 7, 144, 1638, caps, n_taps=15)
+    if k1.kernel_plan(128, 1638, 4, 7, 144, 1638, caps, n_taps=15) != lp:
+        fail(f"K1 banded launch_plan differs from the kernel's plan: {lp}")
+    print(f"phase 2 K1 banded plan (ce100_64ant_closed2's shape) B=128: {lp.P} problems x {lp.S} "
+          f"blocks a cluster, {lp.blocks} blocks, Mpad {lp.Mpad}, RN {lp.RN}, K tile {lp.KT}, "
+          f"{lp.NS} columns / {lp.TS} bins a block, {lp.smem} B shared memory (as the kernel's own)")
     for label, B_, nL_, slices, n_re_, n_sc_ in (
             ("c2", 128, 4, ((0, 2), (2, 4)), 636, 1272), ("nL=3", 128, 3, ((0, 2), (2, 3)), 636, 1272),
             ("c3", 16, 1, ((0, 1),), 1638, 3276)):
@@ -476,9 +497,10 @@ def main() -> int:
     plan_c2, pt_c2, f_args, f_kw = front_inputs(*c2[:4], 128, seed=101)
     results = {}
     f4_args, f4_kw = front_inputs(*tiled(C4, 256)[:4], 256, seed=102)[2:]
-    for label, args, kw in (("c2", f_args, f_kw), ("c4", f4_args, f4_kw)):
-        h_k, s_k = k1.fused_front(*args, **kw)
-        h_p, s_p = k1.fused_front_plain(*args, **kw)
+
+    def front_vs_plain(label, h_k, s_k, h_p, s_p, kw):
+        """K1's outputs against its plain version's: h_s relative 1e-5, the
+        scalars relative 1e-4 and the same TA bins."""
         torch.cuda.synchronize()
         abs_err, err = errs(h_k, h_p)
         if not err <= 1e-5:
@@ -496,9 +518,12 @@ def main() -> int:
                  f"{bins_k[bad[:8]]} vs {bins_p[bad[:8]]} (a PDP near-tie?)")
         check_rtol(f"K1 {label} ta", s_k[:, 1], s_p[:, 1], 1e-6)
         results.setdefault("fused_front", abs_err)
-        print(f"phase 3 K1 vs plain ({label}, B={args[0].shape[0]}): h_s max abs err {abs_err:.3e}, "
+        print(f"phase 3 K1 vs plain ({label}, B={h_k.shape[0]}): h_s max abs err {abs_err:.3e}, "
               f"rel err {err:.3e} (<= 1e-5), "
               f"scalars within rtol 1e-4, TA bins equal")
+
+    for label, args, kw in (("c2", f_args, f_kw), ("c4", f4_args, f4_kw)):
+        front_vs_plain(label, *k1.fused_front(*args, **kw), *k1.fused_front_plain(*args, **kw), kw)
 
     def staged_inputs(cases, cfg, rg_t, pil_t, seed):
         """Per hop: (hop plan, hop tensors, the staged form's (args, kwargs):
@@ -541,6 +566,21 @@ def main() -> int:
         fail(f"K1 staged vs gathered: launches by form {moved}, expected 3 of each")
     print(f"phase 3 K1 staged vs gathered (c2 B=128, the cell's shape; c4 B=256, both hops, hop 2 "
           f"from its symbol offset): h_s and scalars bit-identical; launches by form {moved}")
+
+    # K1's banded smoothing route at ce100_64ant_closed2's shape: past 1,024
+    # pilot REs the plan has no dense operator, and K1 filters with the taps
+    c100 = tiled(dict(n_prbs=273, n_layers=4, comb=2, scs_hz=30e3, snr_db=20.0), 128)
+    ((_, _, (w_args, w_kw), (wg_args, wg_kw)),) = staged_inputs(*c100[:4], seed=105)
+    if "taps" not in w_args[3]:
+        fail(f"K1 273 PRB: the hop's tensors {sorted(w_args[3])} hold no taps (the banded route)")
+    m0 = dict(k1.smoothing_launches)
+    front_vs_plain("273 PRB banded, staged", *k1.fused_front(*w_args, **w_kw),
+                   *k1.fused_front_plain(*wg_args, **wg_kw), wg_kw)
+    moved = {r: n - m0[r] for r, n in k1.smoothing_launches.items()}
+    if moved != {"dense": 0, "banded": 1}:
+        fail(f"K1 273 PRB: launches by smoothing route {moved}, expected one banded")
+    print(f"phase 3 K1 at 273 PRB B=128 (ce100_64ant_closed2's shape, staged): launches by "
+          f"smoothing route {moved}")
 
     # 4. K2 vs plain
     rng = np.random.default_rng(7)
@@ -626,6 +666,9 @@ def main() -> int:
                  "route alone on the serve layout")
         if k1.route_launches != {"staged": counts["fused_front"], "gathered": 0}:
             fail(f"{label}: K1 by form {k1.route_launches}, expected the staged form alone")
+        if k1.smoothing_launches != {"dense": counts["fused_front"], "banded": 0}:
+            fail(f"{label}: K1 by smoothing route {k1.smoothing_launches}, expected the dense "
+                 "route alone")
         worst = oracle_check(label, cases, res, "serve", batch, SERVE_NMSE_BOUND)
         print(f"phase {label}: serve {tuple(res.channel_est_rg.shape)}, worst NMSE vs float64 "
               f"oracle {worst:.3e} (< {SERVE_NMSE_BOUND}), scalars within bounds, launches {counts}")
@@ -645,6 +688,9 @@ def main() -> int:
                  "profiles route alone (linear interpolation)")
         if k1.route_launches != {"staged": fac_counts["fused_front"], "gathered": 0}:
             fail(f"{label} factored: K1 by form {k1.route_launches}, expected the staged form")
+        if k1.smoothing_launches != {"dense": fac_counts["fused_front"], "banded": 0}:
+            fail(f"{label} factored: K1 by smoothing route {k1.smoothing_launches}, expected "
+                 "the dense route alone")
         ch = res.channel_est_rg.cpu().numpy()
         prof = estimator.merge_ri(np.moveaxis(fac.profiles.cpu().numpy(), 1, 0))
         rot = estimator.merge_ri(np.moveaxis(fac.sym_rot.cpu().numpy(), 1, 0))
@@ -660,6 +706,52 @@ def main() -> int:
 
     counts, fac_counts_c2, fn_c2, c2_args = drive("5 c2", C2, 128)
     drive("6 c4 two hops", C4, 256)
+
+    # 6. the served path at ce100_64ant_closed2's shape: 2 UE-slots of the
+    # 64-antenna configuration through serving.process, one chunk of 128
+    # problems, K1 on its banded route
+    from cebench import spec as cb_spec
+    from cebench.gen import slots as cb_slots
+    from cebench.reference import ce as cb_ce
+    from srsran_ce_tpu_torch import config as pconfig
+
+    wide_cfg = cb_spec.read_json("configs", "ce_n78_100mhz_4port_64ant.json")
+    wide_pool = [cb_slots.ce_slot(wide_cfg, 2**31 + 6_006, i) for i in range(2)]
+    s0 = wide_pool[0]
+    w_hop1 = pconfig.HopConfig(**dataclasses.asdict(s0.hop1))
+    w_conf = pconfig.EstimatorConfig(**dataclasses.asdict(s0.config))
+    n_rx = wide_cfg["n_rx"]
+    wide_probs = [serving.Problem(np.ascontiguousarray(p.rg[r]), p.pilots, p.beta, w_hop1, None,
+                                  w_conf) for p in wide_pool for r in range(n_rx)]
+    w_high = dataclasses.replace(w_conf, matmul_precision=wide_cfg["matmul_precision"])
+    tier = estimator.served_kernels(w_hop1, None, w_high, wide_cfg["n_layers"], "factored", dev)
+    if tier != "pallas_front" or len(wide_probs) != 128:
+        fail(f"phase 6 273 PRB served: tier {tier!r}, {len(wide_probs)} problems")
+    torch.cuda.synchronize()
+    reset_counts()
+    wide_res = serving.process(wide_probs, out="factored", device=dev)
+    torch.cuda.synchronize()
+    wide_counts, wide_smoothing = read_counts(), dict(k1.smoothing_launches)
+    need("6 273 PRB served", wide_counts, launched=("fused_front", "front_finish"),
+         idle=tuple(k for k in kmods if k not in ("fused_front", "front_finish")))
+    if (wide_counts["fused_front"], wide_counts["front_finish"]) != (1, 1) \
+            or wide_smoothing != {"dense": 0, "banded": 1} \
+            or k1.route_launches != {"staged": 1, "gathered": 0} \
+            or kf.route_launches != {"profiles": 1, "scalars": 0}:
+        fail(f"phase 6 273 PRB served: launches {wide_counts}, K1 by smoothing route "
+             f"{wide_smoothing}, by form {k1.route_launches}, front_finish by route "
+             f"{kf.route_launches}; expected one banded staged K1 and one profiles finish")
+    worst = {}
+    for i, slot in enumerate(wide_pool):
+        nums = cb_ce.judge_slot(slot, wide_res[i * n_rx:(i + 1) * n_rx], cb_ce.reference(slot))
+        for k, limit in wide_cfg["limits"].items():
+            if not nums[k] <= limit:
+                fail(f"phase 6 273 PRB served, slot {i}: {k} {nums[k]:.3e} > {limit}")
+            worst[k] = max(worst.get(k, 0.0), nums[k])
+    print(f"phase 6 served 273 PRB factored (ce100_64ant_closed2's shape: 2 UE-slots x {n_rx} "
+          f"antennas, one chunk, tier {tier}): launches {wide_counts}, K1 by smoothing route "
+          f"{wide_smoothing}; worst of both slots against the float64 oracle "
+          + ", ".join(f"{k} {v:.3e} (<= {wide_cfg['limits'][k]})" for k, v in worst.items()))
 
     # 7. times (CUDA events, after warm-up), plain / kernel / kernel / plain
     # In the serve call each kernel finds L2 cold (K2 writes 72.9 MB, more than
@@ -844,6 +936,26 @@ def main() -> int:
               + f"); in a graph {graph_ms(fn):.4f} ms a replay {card}")
     print(f"phase 7 K1 launches by form over those timings: "
           f"{ {r: n - r0[r] for r, n in k1.route_launches.items()} }")
+
+    # K1's smoothing routes: the banded one at the dense route's band (c2, the
+    # taps in place of the operator) against the dense one, and at the wide
+    # cell's band (273 PRB, 128 problems, where it is the only route)
+    c2_banded = dict(taps=torch.as_tensor(hp_s.rc_taps, dtype=torch.float32, device=dev),
+                     **{k: s_args[3][k] for k in ("vp", "ta_c", "ta_s", "two_pi_sst_d")})
+    m0 = dict(k1.smoothing_launches)
+    for label, fn in (
+            ("c2 B=128 dense", lambda: k1.fused_front(*s_args, **s_kw)),
+            ("c2 B=128 banded", lambda: k1.fused_front(*s_args[:3], c2_banded, **s_kw)),
+            ("273 PRB B=128 banded (ce100_64ant_closed2's shape)",
+             lambda: k1.fused_front(*w_args, **w_kw))):
+        by_name = kernel_ms(fn)
+        if not by_name:
+            fail("the profiler saw no device time in 3 sessions")
+        print(f"phase 7 K1 {label}: device-only {sum(by_name.values()):.4f} ms ("
+              + ", ".join(f"{k[:40]} {ms:.4f}" for k, ms in by_name.items())
+              + f"); in a graph {graph_ms(fn):.4f} ms a replay {card}")
+    print(f"phase 7 K1 launches by smoothing route over those timings: "
+          f"{ {r: n - m0[r] for r, n in k1.smoothing_launches.items()} }")
     e2e, wall = call_ms(fn_c2, c2_args)
     print(f"phase 7 build_ri pallas_front/serve c2 B=128 (both kernels + plain glue): {e2e:.4f} "
           f"ms/batch on CUDA events, cold L2; {wall:.4f} ms/batch host wall clock back-to-back {card}")
@@ -2864,6 +2976,7 @@ def main() -> int:
                                  "srsran_ce_tpu/ops/pallas/kernels.py:852"),
                "front_finish": ("srsran_ce_tpu_torch/csrc/front_finish.cu", None)}
     launches = dict(counts)
+    launches["fused_front"] = counts["fused_front"] + wide_counts["fused_front"]
     launches.update({k: pallas_counts[k] for k in ("rc_smooth", "fused_fill_rotate")})
     launches.update(ldpc_launches)
     launches["inpaint_stack"] = k7_launches
@@ -2872,7 +2985,12 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
          "launches": launches[k], "max_abs_err": results[k], "ms": times[k][0],
          "plain_ms": times[k][1], "bound_ms": times[k][4], "bound_by": times[k][5],
-         "library_ms": library[k]}
+         "library_ms": library[k],
+         # K1's launches above by smoothing route: phase 5's c2 call, dense,
+         # and phase 6's served 273-PRB call, banded
+         **({"smoothing_launches": {"dense": counts["fused_front"] + wide_smoothing["dense"],
+                                    "banded": wide_smoothing["banded"]}}
+            if k == "fused_front" else {})}
         for k in sources
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -52,6 +52,14 @@
 //      noise and RSRP partials (pushed to rank 0);
 //   4. the TA product over the block's bins -> the PDP (pushed to rank 0),
 //      whose first-maximum argmax rank 0 takes with the scalars.
+// The banded route (front_kernel_banded, n_taps > 0: bands past the plan's
+// 1,024-RE dense operator) replaces steps 2's edge products and 3's product:
+// each block averages its own CDM pairs of H in place, takes the np edge
+// columns from the blocks that own them, and filters its columns with the
+// raised-cosine taps over the extended band [vb | H | flip(ve)], the 2 hw
+// columns past its share read from its neighbours' shared memory: n_taps
+// FMAs a row and column where the dense product spends n_re + 2 np. Its plan
+// sizes the register tile by the TA product alone.
 // The per-problem sums over the block's columns (EPRE, CFO correlations,
 // noise, RSRP) run on 512 / P2 threads a problem (P2: P rounded up to a power
 // of two), reduced by shuffles and, past a warp, through shared memory.
@@ -134,6 +142,8 @@ struct FrontArgs {
   int B, n_cdm, nL, nd, n_re, n_pils, k_ta, hcp;
   int cfo_possible, cfo_compensate;
   float two_pi_ns, fft_size, scs_hz;
+  const float* taps;  // the banded route's smoothing filter (n_taps, odd), or null: dense
+  int n_taps;
 };
 
 struct Plan {
@@ -193,10 +203,15 @@ long long layout(Plan* p, int P, int S, int Mpad, int NX, int RN, int NS, int TS
 // is resident at once, the same search without that condition. Every launch
 // asks for at least half an SM's shared memory, so that a block has its SM to
 // itself. NS and TS are multiples of 4 (16-byte copies).
-int make_plan(Plan* p, int B, int n_re, int nL, int n_pils, int hcp, int k_ta, const int* cap) {
+// n_taps > 0: the banded route (no smoothing product; the filter's n_taps
+// FMAs a column and row instead), whose register columns serve the TA product
+// alone: RN = min(kMaxRN, the TA columns over NX), in passes past that.
+int make_plan(Plan* p, int B, int n_re, int nL, int n_pils, int hcp, int k_ta, const int* cap,
+              int n_taps) {
   const int rows = 2 * nL, np = n_pils, nbins = 2 * hcp;
   if (B < 1 || nL < 1 || rows > kMaxRows || np < 1 || np > kMaxPils || n_re < 1 || hcp < 1 ||
-      k_ta < 1 || k_ta > n_re || cap == nullptr)
+      k_ta < 1 || k_ta > n_re || cap == nullptr || n_taps < 0 ||
+      (n_taps > 0 && (n_taps % 2 == 0 || n_re < np)))
     return static_cast<int>(cudaErrorInvalidValue);
   for (const bool resident : {true, false}) {
     long long best = -1;
@@ -208,12 +223,13 @@ int make_plan(Plan* p, int B, int n_re, int nL, int n_pils, int hcp, int k_ta, c
       for (int S = 1; S <= kMaxCluster; ++S) {
         if (resident && clusters > cap[S - 1]) continue;
         const int NS = ((n_re + S - 1) / S + 3) / 4 * 4;
-        const int RN = (NS + NX - 1) / NX;
-        if (RN > kMaxRN) continue;
         const int TS = ((nbins + S - 1) / S + 3) / 4 * 4;
+        int RN = (NS + NX - 1) / NX;
+        if (n_taps > 0) RN = std::min(kMaxRN, (2 * TS + NX - 1) / NX);
+        if (RN > kMaxRN) continue;
         const long long W = static_cast<long long>(NX) * RN;
-        const long long cost =
-            Mpad * (W * (n_re + 2 * np) + (2 * TS + W - 1) / W * W * k_ta);
+        const long long smooth = n_taps > 0 ? 1LL * n_taps * NS : W * (n_re + 2 * np);
+        const long long cost = Mpad * (smooth + (2 * TS + W - 1) / W * W * k_ta);
         if (best >= 0 && cost >= best) continue;
         for (int KT = 32; KT >= 8; KT /= 2) {
           Plan q;
@@ -460,8 +476,9 @@ __device__ void product(int Mpad, int kpad, int KT, int ncols, bool b_vec, float
   }
 }
 
-template <int RN>
-__global__ void __launch_bounds__(kThreads, 1) front_kernel(FrontArgs a, Plan p) {
+// The kernel's body; kBanded: the banded route (front_kernel_banded).
+template <int RN, bool kBanded>
+__device__ __forceinline__ void front_body(FrontArgs a, Plan p) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
 
@@ -654,23 +671,45 @@ __global__ void __launch_bounds__(kThreads, 1) front_kernel(FrontArgs a, Plan p)
   }
   for (int i = tid; i < 2 * np * Mpad; i += kThreads) hv[i] = 0.f;
   __syncthreads();
-  // partial edge products H @ pair_l and H @ pair_r over this block's columns
-  for (int o = tid; o < 2 * Mpad * np; o += kThreads) {
-    const int side = o / (Mpad * np), j = (o / Mpad) % np, m = o % Mpad;
-    const float* pm = (side ? a.pair_r : a.pair_l) + static_cast<size_t>(c0) * np + j;
-    float v = 0.f;
+  if constexpr (kBanded) {
+    // the CDM pair average of H in place, this block's pairs (c0 is even; an
+    // odd band's last RE stays as it is), then the edges' np columns of it
+    // from the blocks that own them
+    if (nL >= 2) {
+      for (int i = tid; i < (ncol / 2) * Mpad; i += kThreads) {
+        const int q = i / Mpad;
+        float* h0 = hl + 2 * q * Mpad + (i - q * Mpad);
+        const float v = (h0[0] + h0[Mpad]) * 0.5f;
+        h0[0] = v;
+        h0[Mpad] = v;
+      }
+    }
+    cluster.sync();
+    for (int o = tid; o < 2 * Mpad * np; o += kThreads) {
+      const int side = o / (Mpad * np), j = (o / Mpad) % np, m = o % Mpad;
+      const int k = side ? n_re - np + j : j, r = k / NS;
+      edge[(side * Mpad + m) * np + j] = cluster.map_shared_rank(hl, r)[(k - r * NS) * Mpad + m];
+    }
+    __syncthreads();
+  } else {
+    // partial edge products H @ pair_l and H @ pair_r over this block's columns
+    for (int o = tid; o < 2 * Mpad * np; o += kThreads) {
+      const int side = o / (Mpad * np), j = (o / Mpad) % np, m = o % Mpad;
+      const float* pm = (side ? a.pair_r : a.pair_l) + static_cast<size_t>(c0) * np + j;
+      float v = 0.f;
 #pragma unroll 8
-    for (int kk = 0; kk < ncol; ++kk) v += hl[kk * Mpad + m] * __ldg(pm + kk * np);
-    edgep[(side * Mpad + m) * np + j] = v;
-  }
-  cluster.sync();
+      for (int kk = 0; kk < ncol; ++kk) v += hl[kk * Mpad + m] * __ldg(pm + kk * np);
+      edgep[(side * Mpad + m) * np + j] = v;
+    }
+    cluster.sync();
 
-  for (int o = tid; o < 2 * Mpad * np; o += kThreads) {
-    float v = 0.f;
-    for (int r = 0; r < S; ++r) v += cluster.map_shared_rank(edgep, r)[o];
-    edge[o] = v;
+    for (int o = tid; o < 2 * Mpad * np; o += kThreads) {
+      float v = 0.f;
+      for (int r = 0; r < S; ++r) v += cluster.map_shared_rank(edgep, r)[o];
+      edge[o] = v;
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // virtual pilots: one lane per (problem, side, layer) series, serial over
   // n_pils; side 1 fits the reversed right edge (the TPU kernel's flipped
@@ -724,33 +763,70 @@ __global__ void __launch_bounds__(kThreads, 1) front_kernel(FrontArgs a, Plan p)
   // columns; row k < n_re of A lives in block k / NS
   float* h_out = a.h_out + static_cast<size_t>(b0) * rows * n_re;
   const int m_valid = pv * rows;
-  product<RN>(
-      Mpad, (n_re + 2 * np + p.KT - 1) / p.KT * p.KT, p.KT, ncol, (n_re & 3) == 0, as, bs, a.sm,
-      [&](int k) -> const float* {
-        if (k < n_re) {
-          const int r = k / NS;
-          return cluster.map_shared_rank(hl, r) + (k - r * NS) * Mpad;
+  if constexpr (kBanded) {
+    // the banded route: Hs[:, j] = sum_t taps[t] x[j + np + hw - t] over the
+    // extended band x = [vb | pair-averaged H | ve reversed] (zero outside),
+    // what the dense operator holds; a column's 2 hw neighbours past this
+    // block's share come from the blocks that own them
+    const int K = a.n_taps, hw = (K - 1) / 2, m4 = Mpad >> 2, n_ext = n_re + 2 * np;
+    for (int i = tid; i < ncol * m4; i += kThreads) {
+      const int c = i / m4, m0 = (i - c * m4) * 4;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int t = 0; t < K; ++t) {
+        const int x = c0 + c + np + hw - t;
+        if (x < 0 || x >= n_ext) continue;
+        const float* src;
+        if (x < np) {
+          src = hv + x * Mpad;
+        } else if (x < np + n_re) {
+          const int k = x - np, r = k / NS;
+          src = cluster.map_shared_rank(hl, r) + (k - r * NS) * Mpad;
+        } else {
+          src = hv + (3 * np + n_re - 1 - x) * Mpad;  // ve row np + (np - 1 - (x - np - n_re))
         }
-        return k < n_re + 2 * np ? hv + (k - n_re) * Mpad : nullptr;
-      },
-      [&](int k, int c) -> const float* {
-        if (c >= ncol) return nullptr;
-        const int col = c0 + c;
-        if (k < n_re) return a.sm + static_cast<size_t>(k) * n_re + col;
-        k -= n_re;
-        if (k < np) return a.svb + static_cast<size_t>(k) * n_re + col;
-        k -= np;
-        if (k < np) return a.sve + static_cast<size_t>(np - 1 - k) * n_re + col;
-        return nullptr;
-      },
-      [&](int m0, int c, float4 v) {
-        *reinterpret_cast<float4*>(hss + c * Mpad + m0) = v;
-        float* o = h_out + static_cast<size_t>(m0) * n_re + c0 + c;
-        if (m0 < m_valid) o[0] = v.x;
-        if (m0 + 1 < m_valid) o[n_re] = v.y;
-        if (m0 + 2 < m_valid) o[2 * n_re] = v.z;
-        if (m0 + 3 < m_valid) o[3 * n_re] = v.w;
-      });
+        const float4 v = *reinterpret_cast<const float4*>(src + m0);
+        const float w = __ldg(a.taps + t);
+        acc.x = fmaf(w, v.x, acc.x);
+        acc.y = fmaf(w, v.y, acc.y);
+        acc.z = fmaf(w, v.z, acc.z);
+        acc.w = fmaf(w, v.w, acc.w);
+      }
+      *reinterpret_cast<float4*>(hss + c * Mpad + m0) = acc;
+      float* o = h_out + static_cast<size_t>(m0) * n_re + c0 + c;
+      if (m0 < m_valid) o[0] = acc.x;
+      if (m0 + 1 < m_valid) o[n_re] = acc.y;
+      if (m0 + 2 < m_valid) o[2 * n_re] = acc.z;
+      if (m0 + 3 < m_valid) o[3 * n_re] = acc.w;
+    }
+  } else {
+    product<RN>(
+        Mpad, (n_re + 2 * np + p.KT - 1) / p.KT * p.KT, p.KT, ncol, (n_re & 3) == 0, as, bs, a.sm,
+        [&](int k) -> const float* {
+          if (k < n_re) {
+            const int r = k / NS;
+            return cluster.map_shared_rank(hl, r) + (k - r * NS) * Mpad;
+          }
+          return k < n_re + 2 * np ? hv + (k - n_re) * Mpad : nullptr;
+        },
+        [&](int k, int c) -> const float* {
+          if (c >= ncol) return nullptr;
+          const int col = c0 + c;
+          if (k < n_re) return a.sm + static_cast<size_t>(k) * n_re + col;
+          k -= n_re;
+          if (k < np) return a.svb + static_cast<size_t>(k) * n_re + col;
+          k -= np;
+          if (k < np) return a.sve + static_cast<size_t>(np - 1 - k) * n_re + col;
+          return nullptr;
+        },
+        [&](int m0, int c, float4 v) {
+          *reinterpret_cast<float4*>(hss + c * Mpad + m0) = v;
+          float* o = h_out + static_cast<size_t>(m0) * n_re + c0 + c;
+          if (m0 < m_valid) o[0] = v.x;
+          if (m0 + 1 < m_valid) o[n_re] = v.y;
+          if (m0 + 2 < m_valid) o[2 * n_re] = v.z;
+          if (m0 + 3 < m_valid) o[3 * n_re] = v.w;
+        });
+  }
   __syncthreads();
 
   // noise (received pilots minus the reconstruction from Hs) and RSRP over
@@ -871,9 +947,21 @@ __global__ void __launch_bounds__(kThreads, 1) front_kernel(FrontArgs a, Plan p)
   }
 }
 
+template <int RN>
+__global__ void __launch_bounds__(kThreads, 1) front_kernel(FrontArgs a, Plan p) {
+  front_body<RN, false>(a, p);
+}
+
+template <int RN>
+__global__ void __launch_bounds__(kThreads, 1) front_kernel_banded(FrontArgs a, Plan p) {
+  front_body<RN, true>(a, p);
+}
+
 using FrontFn = void (*)(FrontArgs, Plan);
 const FrontFn kFns[kMaxRN] = {front_kernel<1>, front_kernel<2>, front_kernel<3>,
                                   front_kernel<4>};
+const FrontFn kBandedFns[kMaxRN] = {front_kernel_banded<1>, front_kernel_banded<2>,
+                                    front_kernel_banded<3>, front_kernel_banded<4>};
 
 // cap[S - 1]: the clusters of S blocks resident at once, one block an SM, on
 // the current device (asked once a device).
@@ -914,11 +1002,12 @@ int cluster_caps(int* cap) {
 // device, one block an SM (the plan's cap).
 extern "C" int srs_front_caps(int* out) { return cluster_caps(out); }
 
-// out[0..8] = P, S, Mpad, RN, KT, NS, TS, blocks, smem of a launch.
+// out[0..8] = P, S, Mpad, RN, KT, NS, TS, blocks, smem of a launch (n_taps > 0:
+// the banded route's).
 extern "C" int srs_front_plan(long long* out, int B, int n_re, int nL, int n_pils, int hcp,
-                              int k_ta, const int* cap) {
+                              int k_ta, const int* cap, int n_taps) {
   Plan p;
-  const int bad = make_plan(&p, B, n_re, nL, n_pils, hcp, k_ta, cap);
+  const int bad = make_plan(&p, B, n_re, nL, n_pils, hcp, k_ta, cap, n_taps);
   if (bad != 0) return bad;
   const long long v[9] = {p.P, p.S, p.Mpad, p.RN, p.KT, p.NS, p.TS, p.blocks, p.smem};
   for (int i = 0; i < 9; ++i) out[i] = v[i];
@@ -931,6 +1020,8 @@ extern "C" int srs_front_plan(long long* out, int B, int n_re, int nL, int n_pil
 // smem_bytes: the plan's shared memory as the caller computed it
 // (front.launch_plan); a launch whose caller disagrees with the kernel's own
 // plan is refused, and so is a stride past 32 bits after the problem's.
+// taps / n_taps: the banded route's smoothing filter (n_taps odd; pair_l,
+// pair_r, sm, svb and sve are then not read), or null / 0: the dense route.
 extern "C" int srs_fused_front_strided_f32(
     const float* rx, const long long* re_idx, const long long* sym_idx,
     const long long* rx_st, const float* pil, const long long* pil_st, const float* beta,
@@ -938,9 +1029,10 @@ extern "C" int srs_fused_front_strided_f32(
     const float* svb, const float* sve, const float* ta_c, const float* ta_s,
     const float* two_pi_sst_d, float* h_out, float* sc_out, int B, int n_cdm, int nL,
     int nd, int n_re, int n_pils, int k_ta, int hcp, int cfo_possible, int cfo_compensate,
-    float two_pi_ns, float fft_size, float scs_hz, int smem_bytes, void* stream) {
+    float two_pi_ns, float fft_size, float scs_hz, int smem_bytes, const float* taps,
+    int n_taps, void* stream) {
   if (nd < 1 || nd > kMaxDsym || k_ta < 1 || k_ta > n_re || (cfo_possible && nd < 2) ||
-      nL < 1 || nL > kMaxL || n_cdm != (nL + 1) / 2)
+      nL < 1 || nL > kMaxL || n_cdm != (nL + 1) / 2 || (n_taps > 0) != (taps != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 1; i < 5; ++i)
     if (rx_st[i] < 0 || rx_st[i] > INT_MAX || pil_st[i] < 0 || pil_st[i] > INT_MAX)
@@ -949,7 +1041,7 @@ extern "C" int srs_fused_front_strided_f32(
   int bad = cluster_caps(cap);
   if (bad != 0) return bad;
   Plan p;
-  bad = make_plan(&p, B, n_re, nL, n_pils, hcp, k_ta, cap);
+  bad = make_plan(&p, B, n_re, nL, n_pils, hcp, k_ta, cap, n_taps);
   if (bad != 0 || smem_bytes != p.smem) return static_cast<int>(cudaErrorInvalidValue);
   const auto i32 = [](long long v) { return static_cast<int>(v); };
   bool pil_vec = pil_st[2] == 1 && nL % 4 == 0 && (reinterpret_cast<size_t>(pil) & 15) == 0;
@@ -959,8 +1051,8 @@ extern "C" int srs_fused_front_strided_f32(
               i32(rx_st[1]), i32(rx_st[2]), i32(rx_st[3]), i32(rx_st[4]),
               i32(pil_st[1]), i32(pil_st[2]), i32(pil_st[3]), i32(pil_st[4]), pil_vec,
               B, n_cdm, nL, nd, n_re, n_pils, k_ta, hcp,
-              cfo_possible, cfo_compensate, two_pi_ns, fft_size, scs_hz};
-  const FrontFn fn = kFns[p.RN - 1];
+              cfo_possible, cfo_compensate, two_pi_ns, fft_size, scs_hz, taps, n_taps};
+  const FrontFn fn = (n_taps > 0 ? kBandedFns : kFns)[p.RN - 1];
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(p.smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -997,5 +1089,6 @@ extern "C" int srs_fused_front_f32(
   return srs_fused_front_strided_f32(
       rx, nullptr, nullptr, rx_st, pil, pil_st, beta, pair_l, pair_r, vp, sm, svb, sve, ta_c,
       ta_s, two_pi_sst_d, h_out, sc_out, B, n_cdm, nL, nd, n_re, n_pils, k_ta, hcp,
-      cfo_possible, cfo_compensate, two_pi_ns, fft_size, scs_hz, smem_bytes, stream);
+      cfo_possible, cfo_compensate, two_pi_ns, fft_size, scs_hz, smem_bytes, nullptr, 0,
+      stream);
 }

@@ -20,8 +20,9 @@ Each graph holds a private memory pool, so at most `MAX_GRAPHS` are kept
 capture launches nothing, so its counts are taken back, and each replay adds
 them again, once per kernel the graph launches, so the counters go on
 counting launches on the card (one call, one launch of each of its kernels).
-The same holds for a wrapper's launches by route (`route_launches`: K1's by
-input form, K3's and `front_finish`'s).
+The same holds for a wrapper's launches by route (`ROUTE_COUNTERS`:
+`route_launches`, K1's by input form, K3's and `front_finish`'s; K1's
+`smoothing_launches`, by smoothing route).
 A replay is the span `graphs.replay` (its input copies, the replay and the
 output clones), and its work on the card the event-timed `graphs.replay_ms`
 (`utils/spans.py`, while the spans are on).
@@ -97,10 +98,21 @@ def kernel_modules():
             front_finish)
 
 
+#: a wrapper's counters of its launches by route, each {route: launches}; the
+#: routes of one module's counters have distinct names
+ROUTE_COUNTERS = ("route_launches", "smoothing_launches")
+
+
+def _route_counters(m) -> list:
+    return [getattr(m, c) for c in ROUTE_COUNTERS if hasattr(m, c)]
+
+
 def launch_counts(mods) -> tuple:
-    """Per kernel module of `mods`: (launches, {route: launches}), the
-    second empty for a wrapper that does not count its routes."""
-    return tuple((m.launches, dict(getattr(m, "route_launches", {}))) for m in mods)
+    """Per kernel module of `mods`: (launches, {route: launches}) over all of
+    its route counters, the second empty for a wrapper that counts no
+    routes."""
+    return tuple((m.launches, {r: n for d in _route_counters(m) for r, n in d.items()})
+                 for m in mods)
 
 
 def add_launch_counts(mods, counts, sign: int = 1) -> None:
@@ -109,7 +121,7 @@ def add_launch_counts(mods, counts, sign: int = 1) -> None:
     for m, (n, by_route) in zip(mods, counts):
         m.launches += sign * n
         for r, k in by_route.items():
-            m.route_launches[r] += sign * k
+            next(d for d in _route_counters(m) if r in d)[r] += sign * k
 
 
 def map_tensors(fn, value):

@@ -174,14 +174,28 @@ def _serve_pallas_deferred_ok(plan: EstimatorPlan) -> bool:
     return True
 
 
+#: the widest band (pilot REs a CDM group) for which the plan builds the fused
+#: smoothing operator (`models.plan.make_hop_plan`)
+_DENSE_MAX_RE = 1024
+
+
+def _front_banded(hp: HopPlan) -> bool:
+    """True when K1 smooths the hop on its banded route: 'filter' smoothing
+    past the plan's dense operator (more than `_DENSE_MAX_RE` pilot REs, so
+    `smooth_mat` is None), from the plan's raised-cosine taps."""
+    return (hp.smoothing == "filter" and hp.smooth_mat is None and hp.n_re > _DENSE_MAX_RE
+            and hp.rc_taps is not None)
+
+
 def _front_pallas_ok(plan: EstimatorPlan) -> bool:
-    """True when the fused front kernel (K1) covers the plan: fused-matrix
-    'filter' smoothing (no alpha blend), the first-pair CFO estimator, no time
-    interpolation, the paired CDM layer layout, the direct-DFT TA path, an
-    interpolation or inpainting operator for the fill, and a launch of the
-    kernel for the hop's shape (`front.launch_plan`, the plan the kernel's
-    wrapper launches; whether one exists does not depend on the batch or the
-    card)."""
+    """True when the fused front kernel (K1) covers the plan: 'filter'
+    smoothing (no alpha blend) through the plan's fused matrices or, past
+    1,024 pilot REs, K1's banded route (`_front_banded`), the first-pair CFO
+    estimator, no time interpolation, the paired CDM layer layout, the
+    direct-DFT TA path, an interpolation or inpainting operator for the fill,
+    and a launch of the kernel for the hop's shape (`front.launch_plan`, the
+    plan the kernel's wrapper launches; whether one exists does not depend on
+    the batch or the card)."""
     config = plan.config
     if config.time_interp != "none" or config.cnn_alpha > 0.0:
         return False
@@ -193,7 +207,8 @@ def _front_pallas_ok(plan: EstimatorPlan) -> bool:
     for hp in (plan.hop1, plan.hop2):
         if hp is None:
             continue
-        if hp.smooth_mat is None or hp.cfo_pair_dt is not None:
+        banded = _front_banded(hp)
+        if (hp.smooth_mat is None and not banded) or hp.cfo_pair_dt is not None:
             return False
         if hp.vp_matrix is None and hp.n_pils != 1:
             return False
@@ -209,7 +224,8 @@ def _front_pallas_ok(plan: EstimatorPlan) -> bool:
             return False
         try:
             _k1.launch_plan(1, hp.n_re, nL, hp.n_pils, hp.half_cp_len,
-                            hp.ta_dft_cos.shape[0], _k1.NOMINAL_CAPS)
+                            hp.ta_dft_cos.shape[0], _k1.NOMINAL_CAPS,
+                            **({"n_taps": hp.rc_taps.size} if banded else {}))
         except ValueError:
             return False
     return True
@@ -220,11 +236,15 @@ def _front_mats(hp: HopPlan) -> dict:
     version folds two flips into pair_r and smooth_ve (Mosaic has no lane
     reversal); here they are dropped and the kernel indexes the right edge
     reversed. `vp` is the fit matrix itself (v = vp @ y); a (1, 1) zero stands
-    in when n_pils == 1 (no fit)."""
+    in when n_pils == 1 (no fit). On the banded route (`_front_banded`) the
+    raised-cosine taps stand in for the five smoothing matrices."""
+    vp = hp.vp_matrix if hp.vp_matrix is not None else np.zeros((1, 1))
+    if _front_banded(hp):
+        return dict(taps=hp.rc_taps, vp=vp, ta_c=hp.ta_dft_cos, ta_s=hp.ta_dft_sin)
     return dict(
         pair_l=hp.pair_l_mat,
         pair_r=hp.pair_r_mat,
-        vp=hp.vp_matrix if hp.vp_matrix is not None else np.zeros((1, 1)),
+        vp=vp,
         smooth=hp.smooth_mat,
         smooth_vb=hp.smooth_vb_mat,
         smooth_ve=hp.smooth_ve_mat,
@@ -939,7 +959,8 @@ class BatchedEstimator:
         key = (torch.device(device), dtype)
         pt = self._tensors.get(key)
         if pt is None:
-            pt = self._tensors[key] = plan_tensors(self.plan, key[0], dtype)
+            pt = self._tensors[key] = plan_tensors(self.plan, key[0], dtype,
+                                                    k1=self.kernels == "pallas_front")
         return pt
 
     def __call__(self, rg_ri, pil_ri, beta, params=None):
@@ -997,9 +1018,10 @@ def _build_ri_cached(plan_key, batched: bool, kernels: str, out_layout: str, out
             raise ValueError("kernels='pallas_front' supports the serve and factored layouts")
         if not _front_pallas_ok(plan):
             raise ValueError(
-                "plan not eligible for the fused front kernel (needs fused-matrix "
-                "'filter' smoothing, first-pair CFO, no time interp, paired CDM "
-                "layers, direct-DFT TA, shared-memory budget)"
+                "plan not eligible for the fused front kernel (needs 'filter' "
+                "smoothing through the fused matrices or the banded route, first-pair "
+                "CFO, no time interp, paired CDM layers, direct-DFT TA, shared-memory "
+                "budget)"
             )
         if out_layout == "serve" and not _serve_pallas_deferred_ok(plan):
             raise ValueError("serve fill not eligible for the batched fill kernel")
@@ -1053,7 +1075,12 @@ def build_ri(
 @functools.lru_cache(maxsize=256)
 def _front_serves(plan_key, out_layout: str) -> bool:
     plan = make_plan(*plan_key)
-    return _front_pallas_ok(plan) and (out_layout == "factored" or _serve_pallas_deferred_ok(plan))
+    if not _front_pallas_ok(plan):
+        return False
+    if out_layout == "factored":
+        return True
+    hops = [hp for hp in (plan.hop1, plan.hop2) if hp is not None]
+    return _serve_pallas_deferred_ok(plan) and not any(_front_banded(hp) for hp in hops)
 
 
 def served_kernels(
@@ -1070,8 +1097,10 @@ def served_kernels(
     CUDA device when the fused front covers the plan; "xla" otherwise (the
     CPU, and the plans K1 cannot take: learned or wiener smoothing, time
     interpolation, the CFO pair estimator, more than 8 layers, unpaired CDM
-    slices). Both tiers compute one algorithm to within float32 rounding.
-    Decided once per plan key."""
+    slices). A band past 1,024 pilot REs takes K1's banded route for out
+    "factored" only: its "grid" (K2's serve fill over the wide operator after
+    it) stays on "xla". Both tiers compute one algorithm to within float32
+    rounding. Decided once per plan key."""
     if torch.device(device).type != "cuda":
         return "xla"
     if hop2 is not None and hop2.is_empty:

@@ -488,9 +488,13 @@ def _interp_taps(hp) -> tuple:
     return left, right, w_l, w_r
 
 
-def plan_tensors(plan, device, dtype) -> dict:
+def plan_tensors(plan, device, dtype, k1=None) -> dict:
     """The device tensors the port's estimator consumes, from an `EstimatorPlan`
-    of either package (only numpy attributes are read).
+    of either package (only numpy attributes are read). `k1`: whether the
+    caller may launch the fused front (K1), so that its tensors that no other
+    tier reads are built; None when K1 takes the plan
+    (`estimator._front_pallas_ok`), False for the builders that never launch it
+    (the receiver, the tracked estimator, an estimator on another tier).
 
     Returns {"hops": (per-hop dict, ...), "sst": (14,) symbol start times or None}.
     Each hop dict holds (None where the plan has no such array):
@@ -499,8 +503,7 @@ def plan_tensors(plan, device, dtype) -> dict:
                    interpolation matrices, or with interp="cnn" the exact
                    inpainting operators (`ops.dsp.inpaint_operator`, built on
                    the device);
-      taps         with interp="linear" on a plan the fused front (K1) takes
-                   (`estimator._front_pallas_ok`), the interpolation matrices'
+      taps         with interp="linear" and `k1`, the interpolation matrices'
                    two taps a column (`_interp_taps`): left, right (int32) and
                    w_l, w_r, each (n_cdm, n_sc_hop), which
                    `ops.kernels.front_finish` reads in place of the dense
@@ -516,7 +519,10 @@ def plan_tensors(plan, device, dtype) -> dict:
       ta, ta_idx   the direct-DFT TA matrices (cos, sin), and the scatter
                    indices of the FFT route;
       time_interp_t  the time-interpolation weights, (n_dsym, n_alloc);
-      front        the fused front kernel's tensors: the matrices of
+      front        the fused front kernel's tensors, for a hop with the
+                   direct-DFT TA path that K1 smooths through the fused
+                   matrices or, with `k1`, on its banded route
+                   (`estimator._front_banded`): the matrices or taps of
                    `models.estimator._front_mats` plus `two_pi_sst_d`, 2*pi
                    times the DM-RS symbols' start times (None without CFO
                    compensation), the array form of the static tuple the TPU
@@ -525,7 +531,7 @@ def plan_tensors(plan, device, dtype) -> dict:
     import torch
 
     from ..ops.dsp import INPAINT_CHAIN_MAX_ITERS, inpaint_consts, inpaint_operator
-    from .estimator import _front_mats, _front_pallas_ok
+    from .estimator import _front_banded, _front_mats, _front_pallas_ok
 
     def real(a):
         return None if a is None else torch.as_tensor(
@@ -536,7 +542,8 @@ def plan_tensors(plan, device, dtype) -> dict:
         return torch.as_tensor(np.asarray(a, dtype=np.int64).reshape(-1), device=device)
 
     sst = plan.symbol_start_time
-    two_tap = plan.config.interp == "linear" and _front_pallas_ok(plan)
+    k1 = _front_pallas_ok(plan) if k1 is None else k1
+    two_tap = plan.config.interp == "linear" and k1
     hops = []
     for hp in (plan.hop1, plan.hop2):
         if hp is None:
@@ -565,7 +572,7 @@ def plan_tensors(plan, device, dtype) -> dict:
                          smooth=real(hp.smooth_mat), smooth_vb=real(hp.smooth_vb_mat),
                          smooth_ve=real(hp.smooth_ve_mat))
         front = None
-        if fused is not None and hp.ta_dft_cos is not None:
+        if hp.ta_dft_cos is not None and (fused is not None or (k1 and _front_banded(hp))):
             front = {k: real(v) for k, v in _front_mats(hp).items()}
             front["two_pi_sst_d"] = (
                 None if sst is None else real(2.0 * np.pi * sst[hp.dmrs_sym_idx])

@@ -194,7 +194,7 @@ class BatchedReceiver:
         key = (torch.device(device), dtype)
         pt = self._tensors.get(key)
         if pt is None:
-            pt = self._tensors[key] = plan_tensors(self.plan, key[0], dtype)
+            pt = self._tensors[key] = plan_tensors(self.plan, key[0], dtype, k1=False)
         return pt
 
     def _inputs(self, rg_ri, pil_ri, beta):

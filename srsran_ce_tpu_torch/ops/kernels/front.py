@@ -33,6 +33,17 @@ a batch, on 8 warps an SM. Now:
 `make_plan` in csrc/front.cu number for number (a card test compares them
 through `srs_front_plan`); a shape that fits no plan raises.
 
+Smoothing routes, counted in `smoothing_launches`: "dense", the plan's fused
+operator (n_re x n_re with its edge matrices), which the plan builds up to
+1,024 pilot REs; and "banded", for the wider bands (a 273-PRB hop has 1,638),
+the raised-cosine taps themselves (`mats["taps"]`, 15 at comb 2): each block
+pair-averages its columns of H, takes the edge columns the virtual pilots fit
+from their owners, and filters its columns over the extended band, the 7
+columns past its share on each side read from its neighbours' shared memory.
+A dense product there would cost n_re + 2 n_pils FMAs a row and column (8 x
+1,638 x 1,652 a problem), the taps 15. The banded route is a separate
+instantiation (`front_kernel_banded`); the dense one compiles as before.
+
 Inputs, in one of two forms that the kernel reads through one accessor (the
 element strides of both inputs, and the RE and symbol tables or none):
 - staged: the received grid `rg_ri` (B, 2, n_sc, n_sym) as the caller staged
@@ -89,6 +100,9 @@ launches = 0
 #: the same launches by input form: "staged" (the grid and the pilots as the
 #: caller staged them) or "gathered"
 route_launches = {"staged": 0, "gathered": 0}
+#: the same launches by smoothing route: "dense" (the plan's fused operator)
+#: or "banded" (the raised-cosine taps, `mats["taps"]`)
+smoothing_launches = {"dense": 0, "banded": 0}
 
 _MAX_LAYERS = 8
 _MAX_PILS = 16
@@ -111,11 +125,13 @@ _PTR = ctypes.c_void_p
 #: `srs_fused_front_f32`, the gathered form (contiguous)
 _ARGTYPES = [_PTR] * 14 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3 + [ctypes.c_int, _PTR]
 #: `srs_fused_front_strided_f32`: rx, its tables and strides, pil and its
-#: strides, then the gathered form's arguments after its pil
+#: strides, then the gathered form's arguments after its pil, the banded
+#: route's taps and their count before the stream
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-_STRIDED_ARGTYPES = [_PTR] * 3 + [_STRIDES, _PTR, _STRIDES] + _ARGTYPES[2:]
+_STRIDED_ARGTYPES = ([_PTR] * 3 + [_STRIDES, _PTR, _STRIDES] + _ARGTYPES[2:-1]
+                     + [_PTR, ctypes.c_int, _PTR])
 PLAN_ARGTYPES = ([ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6
-                 + [ctypes.POINTER(ctypes.c_int)])
+                 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int])
 CAPS_ARGTYPES = [ctypes.POINTER(ctypes.c_int)]
 
 
@@ -142,7 +158,7 @@ def _pad4(x: int) -> int:
 
 
 def launch_plan(batch: int, n_re: int, nL: int, n_pils: int, half_cp_len: int, k_ta: int,
-                caps) -> LaunchPlan:
+                caps, n_taps: int = 0) -> LaunchPlan:
     """The launch of `batch` problems as `make_plan` (csrc/front.cu) computes it.
 
     `caps[S - 1]`: the clusters of S blocks the card holds at once with one
@@ -155,10 +171,16 @@ def launch_plan(batch: int, n_re: int, nL: int, n_pils: int, half_cp_len: int, k
     search without that condition, so whether a plan exists depends only on
     the shape, never on `batch` or `caps`. A launch asks for at least half an
     SM's shared memory, so that a block has its SM to itself. NS and TS are
-    multiples of 4. Raises when no plan fits."""
+    multiples of 4. Raises when no plan fits.
+
+    `n_taps` > 0: the banded route's plan (a filter of n_taps taps, odd, in
+    place of the dense smoothing product): its cost counts n_taps FMAs a
+    column and row, and its RN serves the TA product alone (at most 4, in
+    passes past that)."""
     rows, np_, nbins = 2 * nL, n_pils, 2 * half_cp_len
     if (batch < 1 or not 1 <= nL <= _MAX_LAYERS or not 1 <= np_ <= _MAX_PILS or n_re < 1
-            or half_cp_len < 1 or not 1 <= k_ta <= n_re or len(caps) != _MAX_CLUSTER):
+            or half_cp_len < 1 or not 1 <= k_ta <= n_re or len(caps) != _MAX_CLUSTER
+            or n_taps < 0 or (n_taps > 0 and (n_taps % 2 == 0 or n_re < np_))):
         raise ValueError(f"no front launch for batch={batch}, nL={nL}, n_pils={n_pils}, "
                          f"n_re={n_re}, half_cp_len={half_cp_len}, k_ta={k_ta}")
     for resident in (True, False):
@@ -173,12 +195,13 @@ def launch_plan(batch: int, n_re: int, nL: int, n_pils: int, half_cp_len: int, k
                 if resident and clusters > caps[S - 1]:
                     continue
                 NS = _pad4(-(-n_re // S))
-                RN = -(-NS // NX)
+                TS = _pad4(-(-nbins // S))
+                RN = min(_MAX_RN, -(-2 * TS // NX)) if n_taps else -(-NS // NX)
                 if RN > _MAX_RN:
                     continue
-                TS = _pad4(-(-nbins // S))
                 W = NX * RN
-                cost = Mpad * (W * (n_re + 2 * np_) + -(-2 * TS // W) * W * k_ta)
+                smooth = n_taps * NS if n_taps else W * (n_re + 2 * np_)
+                cost = Mpad * (smooth + -(-2 * TS // W) * W * k_ta)
                 if best is not None and cost >= best[0]:
                     continue
                 for KT in (32, 16, 8):
@@ -214,10 +237,16 @@ def fused_front_plain(
 ):
     """Plain PyTorch version of the fused front (same math and operation order
     as the TPU kernel body). Returns (h_s (B, 2, nL, n_re), scalars (B, 8)) with
-    scalar columns [cfo, ta, noise, rsrp, epre, 0, 0, 0]."""
+    scalar columns [cfo, ta, noise, rsrp, epre, 0, 0, 0].
+
+    `mats` with "taps" (the raised-cosine filter, (K,), K odd) in place of
+    pair_l, pair_r, smooth, smooth_vb and smooth_ve takes the banded route
+    (`banded_smooth`): the same smoothing as the dense operator, for bands
+    the plan builds no operator for (n_re > 1024); n_pils is then vp's size."""
     B, _, n_cdm, nd, n_re = rx_ri.shape
     nL = pil_ri.shape[2]
-    n_pils = mats["pair_l"].shape[1]
+    banded = "taps" in mats
+    n_pils = mats["vp"].shape[0] if banded else mats["pair_l"].shape[1]
     k_ta = mats["ta_c"].shape[0]
     dt = rx_ri.dtype
     with full_f32_matmul():
@@ -258,8 +287,17 @@ def fused_front_plain(
         hp_r = rec_r.sum(2) / b3 / nd  # (B, nL, n_re)
         hp_i = rec_i.sum(2) / b3 / nd
         H = torch.cat([hp_r, hp_i], dim=1)  # (B, 2nL, n_re), rows (ri, l)
-        e_l = torch.matmul(H, mats["pair_l"])  # (B, 2nL, n_pils)
-        e_rf = torch.flip(torch.matmul(H, mats["pair_r"]), dims=(-1,))
+        if banded:
+            if nL >= 2:  # the CDM pair average, which the dense operator holds
+                m = n_re // 2
+                avg = (H[..., 0:2 * m:2] + H[..., 1:2 * m:2]) * 0.5
+                H = torch.cat([avg[..., None].expand(avg.shape + (2,)).reshape(B, 2 * nL, 2 * m),
+                               H[..., 2 * m:]], dim=-1)
+            e_l = H[..., :n_pils]
+            e_rf = torch.flip(H[..., n_re - n_pils:], dims=(-1,))
+        else:
+            e_l = torch.matmul(H, mats["pair_l"])  # (B, 2nL, n_pils)
+            e_rf = torch.flip(torch.matmul(H, mats["pair_r"]), dims=(-1,))
 
         def virtual(e):
             if n_pils == 1:
@@ -274,11 +312,14 @@ def fused_front_plain(
 
         vb = virtual(e_l)
         vef = virtual(e_rf)
-        Hs = (
-            torch.matmul(H, mats["smooth"])
-            + torch.matmul(vb, mats["smooth_vb"])
-            + torch.matmul(vef, torch.flip(mats["smooth_ve"], dims=(0,)))
-        )
+        if banded:
+            Hs = banded_smooth(H, vb, vef, mats["taps"])
+        else:
+            Hs = (
+                torch.matmul(H, mats["smooth"])
+                + torch.matmul(vb, mats["smooth_vb"])
+                + torch.matmul(vef, torch.flip(mats["smooth_ve"], dims=(0,)))
+            )
         hs_r, hs_i = Hs[:, :nL], Hs[:, nL:]
 
         Hk = Hs[:, :, :k_ta]
@@ -323,6 +364,26 @@ def fused_front_plain(
         zero = torch.zeros_like(cfo)
         sc = torch.stack([cfo, ta, noise, rsrp, epre, zero, zero, zero], dim=1)
     return Hs.reshape(B, 2, nL, n_re), sc
+
+
+def banded_smooth(h: torch.Tensor, vb: torch.Tensor, vef: torch.Tensor,
+                  taps: torch.Tensor) -> torch.Tensor:
+    """The banded route's smoothing: (..., n_re) rows, already pair-averaged,
+    filtered by the K taps over the extended band x = [vb | h | flip(vef)]
+    (n_pils virtual pilots each side), out[j] = sum_t taps[t] x[j + n_pils +
+    hw - t] with zero outside x (hw = (K - 1) / 2): the 'same' convolution of
+    the reference, which the plan's dense operator holds as a matrix. Summed
+    over t in order, as the kernel."""
+    n_re, n_pils, K = h.shape[-1], vb.shape[-1], taps.shape[0]
+    hw = (K - 1) // 2
+    pad = max(0, hw - n_pils)
+    x = torch.nn.functional.pad(torch.cat([vb, h, torch.flip(vef, dims=(-1,))], dim=-1),
+                                (pad, pad))
+    out = torch.zeros_like(h)
+    for t in range(K):
+        s = pad + n_pils + hw - t
+        out = out + taps[t] * x[..., s:s + n_re]
+    return out
 
 
 def gather_rx(rg: torch.Tensor, re_idx: torch.Tensor, dmrs_sym_idx: torch.Tensor,
@@ -397,15 +458,20 @@ def fused_front(
     n_cdm, nd, n_re), `pil_ri` (B, 2, nL, nd, n_re), no tables. The grid's
     rank says which (module docstring). `mats`: the hop's tensors of
     `models.plan.plan_tensors` (pair_l, pair_r, vp, smooth, smooth_vb,
-    smooth_ve, ta_c, ta_s, two_pi_sst_d). CPU tensors go through
+    smooth_ve, ta_c, ta_s, two_pi_sst_d), or for the banded route taps, vp,
+    ta_c, ta_s and two_pi_sst_d, counted in `smoothing_launches`. CPU tensors go through
     `fused_front_plain` (the staged form gathered first, by `gather_staged`);
     CUDA tensors launch the kernel."""
     kw = dict(
         n_samples=n_samples, half_cp_len=half_cp_len, fft_size=fft_size, scs_hz=scs_hz,
         cfo_possible=cfo_possible, cfo_compensate=cfo_compensate,
     )
-    n_re = mats["smooth"].shape[0]
+    banded = "taps" in mats
     staged = rx_ri.dim() == 4
+    if banded:
+        n_re = pil_ri.shape[2] if staged else pil_ri.shape[-1]
+    else:
+        n_re = mats["smooth"].shape[0]
     if staged:
         n_cdm, nd, nL = _check_staged(rx_ri, pil_ri, re_idx, dmrs_sym_idx, n_re)
     elif re_idx is not None or dmrs_sym_idx is not None:
@@ -426,16 +492,16 @@ def fused_front(
         check_shape("rx_ri", rx_ri, (rx_ri.shape[0], 2, n_cdm, nd, n_re))
         check_shape("pil_ri", pil_ri, (rx_ri.shape[0], 2, nL, nd, n_re))
     B = rx_ri.shape[0]
-    n_pils = mats["pair_l"].shape[1]
+    n_pils = mats["vp"].shape[0] if banded else mats["pair_l"].shape[1]
     k_ta, n_bins = mats["ta_c"].shape
     rotate = cfo_possible and cfo_compensate
     vp = mats["vp"] if n_pils > 1 else None
     sst_d = mats["two_pi_sst_d"] if rotate else None
-    device = check_cuda_f32(
-        beta=beta, pair_l=mats["pair_l"], pair_r=mats["pair_r"], vp=vp, smooth=mats["smooth"],
-        smooth_vb=mats["smooth_vb"], smooth_ve=mats["smooth_ve"], ta_c=mats["ta_c"],
-        ta_s=mats["ta_s"], two_pi_sst_d=sst_d,
-    )
+    dense = {} if banded else {k: mats[k] for k in ("pair_l", "pair_r", "smooth", "smooth_vb",
+                                                    "smooth_ve")}
+    taps = mats["taps"] if banded else None
+    device = check_cuda_f32(beta=beta, vp=vp, ta_c=mats["ta_c"], ta_s=mats["ta_s"],
+                            two_pi_sst_d=sst_d, taps=taps, **dense)
     for name, t in (("rx_ri", rx_ri), ("pil_ri", pil_ri), ("re_idx", re_idx),
                     ("dmrs_sym_idx", dmrs_sym_idx)):
         if t is not None and t.device != device:
@@ -453,17 +519,23 @@ def fused_front(
     if n_bins != 2 * half_cp_len or k_ta > n_re:
         raise ValueError(f"TA DFT {tuple(mats['ta_c'].shape)} does not match half_cp_len / n_re")
     check_shape("beta", beta, (B,))
-    check_shape("pair_l", mats["pair_l"], (n_re, n_pils))
-    check_shape("pair_r", mats["pair_r"], (n_re, n_pils))
     if vp is not None:
         check_shape("vp", vp, (n_pils, n_pils))
-    check_shape("smooth", mats["smooth"], (n_re, n_re))
-    check_shape("smooth_vb", mats["smooth_vb"], (n_pils, n_re))
-    check_shape("smooth_ve", mats["smooth_ve"], (n_pils, n_re))
+    if banded:
+        if taps.dim() != 1 or taps.shape[0] % 2 == 0:
+            raise ValueError(f"the banded route takes an odd number of taps, got "
+                             f"{tuple(taps.shape)}")
+    else:
+        check_shape("pair_l", mats["pair_l"], (n_re, n_pils))
+        check_shape("pair_r", mats["pair_r"], (n_re, n_pils))
+        check_shape("smooth", mats["smooth"], (n_re, n_re))
+        check_shape("smooth_vb", mats["smooth_vb"], (n_pils, n_re))
+        check_shape("smooth_ve", mats["smooth_ve"], (n_pils, n_re))
     check_shape("ta_s", mats["ta_s"], (k_ta, n_bins))
     if sst_d is not None:
         check_shape("two_pi_sst_d", sst_d, (nd,))
-    plan = launch_plan(B, n_re, nL, n_pils, half_cp_len, k_ta, kernel_caps(device))
+    n_taps = taps.shape[0] if banded else 0
+    plan = launch_plan(B, n_re, nL, n_pils, half_cp_len, k_ta, kernel_caps(device), n_taps)
 
     if staged:  # strides (problem, ri, CDM group, symbol, row), (problem, ri, l, d, k)
         sb, sri, sk, sd = rx_ri.stride()
@@ -479,16 +551,18 @@ def fused_front(
     launch(
         "fused_front", bind("front", "srs_fused_front_strided_f32", _STRIDED_ARGTYPES), device,
         ptr(rx_ri), ptr(re_idx), ptr(dmrs_sym_idx), strides(rx_st), ptr(pil_ri), strides(pil_st),
-        ptr(beta), ptr(mats["pair_l"]), ptr(mats["pair_r"]),
-        ptr(vp), ptr(mats["smooth"]), ptr(mats["smooth_vb"]), ptr(mats["smooth_ve"]),
+        ptr(beta), ptr(dense.get("pair_l")), ptr(dense.get("pair_r")),
+        ptr(vp), ptr(dense.get("smooth")), ptr(dense.get("smooth_vb")),
+        ptr(dense.get("smooth_ve")),
         ptr(mats["ta_c"]), ptr(mats["ta_s"]), ptr(sst_d), ptr(h_out), ptr(sc_out),
         B, n_cdm, nL, nd, n_re, n_pils, k_ta, half_cp_len,
         int(cfo_possible), int(cfo_compensate),
-        2.0 * math.pi * n_samples, float(fft_size), float(scs_hz), plan.smem,
+        2.0 * math.pi * n_samples, float(fft_size), float(scs_hz), plan.smem, ptr(taps), n_taps,
     )
     global launches
     launches += 1
     route_launches["staged" if staged else "gathered"] += 1
+    smoothing_launches["banded" if banded else "dense"] += 1
     return h_out, sc_out
 
 
@@ -512,13 +586,13 @@ def kernel_caps(device) -> tuple:
 
 
 def kernel_plan(batch: int, n_re: int, nL: int, n_pils: int, half_cp_len: int, k_ta: int,
-                caps) -> LaunchPlan:
+                caps, n_taps: int = 0) -> LaunchPlan:
     """The kernel's own plan (`srs_front_plan` of the built library), to hold
     `launch_plan` to it on the card."""
     out = (ctypes.c_longlong * 9)()
     cap = (ctypes.c_int * _MAX_CLUSTER)(*caps)
     rc = bind("front", "srs_front_plan", PLAN_ARGTYPES)(out, batch, n_re, nL, n_pils,
-                                                        half_cp_len, k_ta, cap)
+                                                        half_cp_len, k_ta, cap, n_taps)
     if rc != 0:
         raise ValueError(f"srs_front_plan refused the shape (CUDA error {rc})")
     return LaunchPlan(*[int(v) for v in out])

@@ -1735,15 +1735,16 @@ def _cell_call(n_slots, seed):
     return problems, (hop1, hop2, high, nL), want
 
 
-def _cell_problems(n_slots, seed):
-    """The problems of `_cell_call` and (hop1, hop2, served config, n_layers)."""
+def _cell_problems(n_slots, seed, config="ce_n78_40mhz_4port_32ant.json"):
+    """The problems of `_cell_call` and (hop1, hop2, served config, n_layers);
+    `config` another CE deployment's file."""
     import dataclasses
 
     from cebench import spec
     from cebench.gen import slots
     from srsran_ce_tpu_torch import config as pconfig
 
-    cfg = spec.read_json("configs", "ce_n78_40mhz_4port_32ant.json")
+    cfg = spec.read_json("configs", config)
     pool = [slots.ce_slot(cfg, seed, i) for i in range(n_slots)]
     s = pool[0]  # the chain's problem form (cebench/chains/ce_factored.py)
     hop1 = pconfig.HopConfig(**dataclasses.asdict(s.hop1))
@@ -1984,3 +1985,163 @@ def test_front_finish_refuses_bands_off_the_four_subcarrier_grid_and_unaligned_t
         with pytest.raises(ValueError, match="16-byte aligned"):
             call(dict(taps, **{name: shifted(taps[name])}))
     assert kf.launches == n0 + 1
+
+
+# ---------------------------------------------------------------------------
+# K1's banded route: bands past the plan's 1,024-RE dense smoothing operator
+# ---------------------------------------------------------------------------
+
+WIDE_CELL = "ce_n78_100mhz_4port_64ant.json"
+#: ptxas's registers of each dense K1 instantiation (front_kernel<RN>) as they
+#: were before the banded route was added (sm_90a, CUDA 12.8): the banded route
+#: is a separate instantiation, and the dense one compiles as before
+DENSE_FRONT_REGISTERS = {1: 127, 2: 128, 3: 128, 4: 128}
+
+
+def _wide_front_inputs(batch, seed):
+    """K1's staged inputs for `batch` problems of the 64-antenna cell's plan
+    (273 PRB, 4 ports, n_re 1638: the banded route), each problem's grid
+    perturbed by a seeded 1e-3 noise: (hop plan, hop tensors, args, kwargs)."""
+    problems, (hop1, hop2, high, nL) = _cell_problems(-(-batch // 64), seed, WIDE_CELL)
+    plan = make_plan(hop1, hop2, high, nL)
+    pt = plan_tensors(plan, "cuda", torch.float32)
+    hp, ht = plan.hop1, pt["hops"][0]
+    rng = np.random.default_rng(seed % 2**32)
+    rg = np.stack([est.split_ri(p.received_rg) for p in problems[:batch]])
+    rg = rg + 1e-3 * rng.standard_normal(rg.shape)
+    pil = np.stack([est.split_ri(p.pilots) for p in problems[:batch]])
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device="cuda")
+    beta = t([p.beta for p in problems[:batch]])
+    kw = dict(n_samples=hp.n_samples, half_cp_len=hp.half_cp_len, fft_size=hp.fft_size,
+              scs_hz=high.scs_hz, cfo_possible=hp.cfo_possible, cfo_compensate=high.cfo_compensate,
+              re_idx=ht["re_idx"], dmrs_sym_idx=ht["dmrs_sym_idx"])
+    return hp, ht, (t(rg), t(pil)[:, :, :, :hp.n_dsym], beta, ht["front"]), kw
+
+
+@NEEDS_GPU
+def test_banded_front_kernel_at_the_cells_shape_matches_plain_and_float64():
+    """K1 on its banded route at `ce100_64ant_closed2`'s shape (128 problems,
+    273 PRB, 4 layers, n_re 1638, staged): against its plain version on the
+    same float32 inputs (relative 1e-5, the TA bins, scalars 1e-4) and the
+    plain version in float64 on the CPU (NMSE 1e-10, the cell's limit);
+    counted on the banded route."""
+    hp, ht, args, kw = _wide_front_inputs(128, 2**31 + 25_001)
+    assert est._front_banded(hp) and set(args[3]) == {"taps", "vp", "ta_c", "ta_s", "two_pi_sst_d"}
+    n0, b0 = k1.launches, dict(k1.smoothing_launches)
+    h_k, s_k = k1.fused_front(*args, **kw)
+    assert k1.launches == n0 + 1
+    assert {r: n - b0[r] for r, n in k1.smoothing_launches.items()} == {"dense": 0, "banded": 1}
+    rx, pil = k1.gather_staged(args[0], args[1], kw["re_idx"], kw["dmrs_sym_idx"])
+    plain_kw = {k: v for k, v in kw.items() if k not in ("re_idx", "dmrs_sym_idx")}
+    h_p, s_p = k1.fused_front_plain(rx, pil, *args[2:], **plain_kw)
+    torch.cuda.synchronize()
+    assert rel(h_k, h_p) <= 1e-5
+    s_k, s_p = s_k.cpu().numpy(), s_p.cpu().numpy()
+    to_bin = kw["fft_size"] * kw["scs_hz"]
+    np.testing.assert_array_equal(np.rint(s_k[:, 1] * to_bin), np.rint(s_p[:, 1] * to_bin))
+    np.testing.assert_allclose(s_k[:, [0, 2, 3, 4]], s_p[:, [0, 2, 3, 4]], rtol=1e-4, atol=1e-12)
+    mats64 = {k: None if v is None else v.double().cpu() for k, v in args[3].items()}
+    h_64, s_64 = k1.fused_front_plain(rx.double().cpu(), pil.double().cpu(),
+                                      args[2].double().cpu(), mats64, **plain_kw)
+    nmse = float(((h_k.double().cpu() - h_64) ** 2).sum() / (h_64 ** 2).sum())
+    assert nmse <= 1e-10, nmse
+    np.testing.assert_allclose(s_k[:, [2, 3, 4]], s_64.numpy()[:, [2, 3, 4]], rtol=1e-5)
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("B,nL,n_re,cfo_compensate", [
+    (1, 4, 1638, True), (37, 1, 1638, True), (128, 2, 1080, False), (9, 3, 1025, True),
+    (128, 4, 636, True),  # the dense route's band, filtered by the taps instead
+])
+def test_banded_front_kernel_matches_plain_at_plan_shapes(B, nL, n_re, cfo_compensate):
+    """K1's banded route on seeded random inputs at other batches, layer
+    counts, bands (an odd CDM layout, the first band past 1,024) and without
+    the CFO's compensation: against its plain version."""
+    args, kw = random_front(B, nL, 4, n_re, 7, 144, True, cfo_compensate, seed=B + n_re)
+    rng = np.random.default_rng(n_re)
+    taps = rng.uniform(0.0, 1.0, 15)
+    mats = dict(taps=torch.as_tensor(taps / taps.sum(), dtype=torch.float32, device="cuda"),
+                **{k: args[3][k] for k in ("vp", "ta_c", "ta_s", "two_pi_sst_d")})
+    b0 = k1.smoothing_launches["banded"]
+    assert_front_matches_plain(args[:3] + (mats,), kw, f"banded B={B} nL={nL} n_re={n_re}")
+    assert k1.smoothing_launches["banded"] == b0 + 1
+
+
+@NEEDS_GPU
+def test_banded_launch_plan_mirrors_the_kernels_plan():
+    """`front.launch_plan(..., n_taps)` against `srs_front_plan` on the
+    banded route, bands from the dense route's to 275 PRB."""
+    caps = k1.kernel_caps("cuda")
+    n_cases = 0
+    for cap in (caps, tuple(max(1, c // 3) for c in caps)):
+        for B in (1, 33, 128, 256):
+            for nL in (1, 2, 4, 8):
+                for n_re in (636, 1025, 1638, 3300):
+                    lp = k1.launch_plan(B, n_re, nL, 7, 144, n_re, cap, n_taps=15)
+                    assert k1.kernel_plan(B, n_re, nL, 7, 144, n_re, cap, n_taps=15) == lp
+                    n_cases += 1
+    assert n_cases == 2 * 4 * 4 * 4
+
+
+@NEEDS_GPU
+@pytest.mark.parametrize("config,route", [("ce_n78_40mhz_4port_32ant.json", "dense"),
+                                          (WIDE_CELL, "banded")])
+def test_served_call_counts_k1_by_smoothing_route(config, route):
+    """A served call of 128 problems of each CE deployment: over replays of
+    its graph `front.smoothing_launches` moves by the replays on the cell's
+    route alone (the dense operator at 106 PRB, the banded route at 273),
+    `front_finish` once a replay, and the results keep the configuration's
+    limits of the float64 reference."""
+    from cebench import spec
+    from cebench.gen import slots
+    from cebench.reference import ce
+
+    n_rx = spec.read_json("configs", config)["n_rx"]
+    seed = 2**31 + 25_002
+    problems, key = _cell_problems(128 // n_rx, seed, config)
+    assert est.served_kernels(*key, "factored", "cuda") == "pallas_front"
+    graphs.clear()
+    serving.process(problems, out="factored")  # eager: the key's first call
+    serving.process(problems, out="factored")  # captured and replayed
+    r0, s0, f0 = graphs.replays, dict(k1.smoothing_launches), kf.launches
+    for _ in range(3):
+        res = serving.process(problems, out="factored")
+    n = graphs.replays - r0
+    assert n == 3
+    want = {"dense": 0, "banded": 0, route: n}
+    assert {r: k - s0[r] for r, k in k1.smoothing_launches.items()} == want
+    assert kf.launches - f0 == n
+    cfg = spec.read_json("configs", config)
+    slot = slots.ce_slot(cfg, seed, 0)
+    nums = ce.judge_slot(slot, res[:n_rx], ce.reference(slot))
+    for k, limit in cfg["limits"].items():
+        assert nums[k] <= limit, (k, nums[k], limit)
+
+
+@NEEDS_GPU
+def test_front_instantiations_compile_without_spills_and_the_dense_ones_as_before():
+    """ptxas on csrc/front.cu: no spill in any instantiation (dense or
+    banded), and each dense one (`front_kernel<RN>`) at the registers it had
+    before the banded route was added."""
+    import re
+
+    from srsran_ce_tpu_torch.ops.kernels import _build
+
+    _build.build_all(("front",), force=True)
+    log = _build.build_logs["front"]
+    assert not [ln for ln in log.splitlines()
+                if any(int(b) for b in re.findall(r"(\d+) bytes spill", ln))]
+    regs, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+        elif name and "Used" in ln and "registers" in ln:
+            regs[name] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            name = None
+    dense = {int(re.search(r"front_kernelILi(\d)EE", n).group(1)): r for n, r in regs.items()
+             if re.search(r"front_kernelILi\dEE", n)}
+    banded = [n for n in regs if "front_kernel_banded" in n]
+    assert len(dense) == 4 and len(banded) == 4, sorted(regs)
+    assert dense == DENSE_FRONT_REGISTERS, dense
+

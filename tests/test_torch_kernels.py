@@ -611,13 +611,17 @@ def parent_smem_fits(n_re, nL, n_pils, half_cp_len):
 
 @pytest.mark.parametrize("kw", GATE_CONFIGS, ids=[str(i) for i in range(len(GATE_CONFIGS))])
 def test_front_gate_admits_the_parents_plans(kw, monkeypatch):
-    """`_front_pallas_ok` asks K1's launch plan; it admits exactly the plans
-    that the parent's shared-memory rule admitted."""
+    """`_front_pallas_ok` asks K1's launch plan; on the dense route it admits
+    exactly the plans that the parent's shared-memory rule admitted (the
+    banded route, past 1,024 pilot REs, asks its own plan)."""
     case = synthetic.make_case(seed=5, **kw)
     plan = make_plan(case.hop1, case.hop2, case.config, case.pilots.shape[2])
     got = port_est._front_pallas_ok(plan)
+    real = k1.launch_plan
 
-    def parent_rule(batch, n_re, nL, n_pils, half_cp_len, k_ta, caps):
+    def parent_rule(batch, n_re, nL, n_pils, half_cp_len, k_ta, caps, n_taps=0):
+        if n_taps:
+            return real(batch, n_re, nL, n_pils, half_cp_len, k_ta, caps, n_taps)
         if not parent_smem_fits(n_re, nL, n_pils, half_cp_len):
             raise ValueError("does not fit")
 
@@ -1110,7 +1114,8 @@ TAPS_CASES = [
     ("k1_one_hop", dict(n_prbs=8, n_layers=2), True),
     ("k1_two_hops_offset", dict(n_prbs=6, n_layers=3, two_hops=True, n_dmrs_syms=2,
                                 prb_start=2, n_prb_total=20), True),
-    ("wide_no_fused_smoothing", dict(n_prbs=273, n_layers=1), False),
+    # no fused smoothing matrix past 1,024 pilot REs: K1's banded route takes it
+    ("wide_no_fused_smoothing", dict(n_prbs=273, n_layers=1), True),
     ("mean_smoothing", dict(n_prbs=8, n_layers=2, smoothing="mean"), False),
     ("time_interpolation", dict(n_prbs=8, n_layers=1, time_interp="linear", doppler_hz=300.0),
      False),
@@ -1122,11 +1127,13 @@ TAPS_CASES = [
 def test_plan_tensors_build_taps_only_for_plans_the_fused_front_takes(name, kw, two_tap):
     """The two-tap tables exist exactly where the fused front (K1) takes a
     linear-interpolation plan, the one tier whose finish reads them, and lie
-    on the whole-PRB grid the kernel's 16-byte loads and stores need."""
+    on the whole-PRB grid the kernel's 16-byte loads and stores need; a
+    caller that never launches K1 (the receiver, `k1=False`) gets none."""
     case = synthetic.make_case(seed=5, **kw)
     plan = make_plan(case.hop1, case.hop2, case.config, kw["n_layers"])
     assert two_tap == (case.config.interp == "linear" and port_est._front_pallas_ok(plan))
     pt = plan_tensors(plan, "cpu", torch.float32)
+    assert all(ht["taps"] is None for ht in plan_tensors(plan, "cpu", torch.float32, k1=False)["hops"])
     hops = [hp for hp in (plan.hop1, plan.hop2) if hp is not None]
     for hp, ht in zip(hops, pt["hops"]):
         if not two_tap:
