@@ -5,16 +5,19 @@ checkout, in turns, on one NVIDIA GPU.
     python3 ab_kernels.py OTHER_CHECKOUT [k1|k2|k6|k5|k3|k4 ...]
 
 OTHER_CHECKOUT holds another version of `srsran_ce_tpu_torch/csrc/` with the
-same C entries (`srs_fused_front_f32`, `srs_fill_rotate_serve_f32`,
-`srs_fill_rotate_f32`, `srs_rc_smooth_f32`, `srs_ldpc_posterior_f32`,
-`srs_ldpc_stream_posterior`, same argument lists), for example the parent
-commit unpacked by `git archive`. Its `front.cu`, `fill_rotate_serve.cu`,
-`fill_rotate.cu`, `rc_smooth.cu`, `ldpc.cu` and `ldpc_stream.cu` are built
-with this checkout's nvcc flags (each includes the headers of its own
-directory), all at the same time as this checkout's. Both libraries get the
-same arguments (K1's through `srs_fused_front_f32`, the gathered form,
-with the shared memory of this checkout's `launch_plan`: a body whose own
-plan differs refuses the launch), except K6's layer table: chunks of at most
+same C entries (`srs_fused_front_strided_f32`, `srs_front_plan`,
+`srs_fill_rotate_serve_f32`, `srs_fill_rotate_f32`, `srs_rc_smooth_f32`,
+`srs_ldpc_posterior_f32`, `srs_ldpc_stream_posterior`, same argument lists;
+K1's may also be the argument list it had beside its dense smoothing route,
+which is told by the `pair_l` argument in the other `front.cu`), for example
+the parent commit unpacked by `git archive`. Its `front.cu`,
+`fill_rotate_serve.cu`, `fill_rotate.cu`, `rc_smooth.cu`, `ldpc.cu` and
+`ldpc_stream.cu` are built with this checkout's nvcc flags (each includes the
+headers of its own directory), all at the same time as this checkout's. Both
+libraries get the same arguments (K1's on the staged form, each with the
+shared memory of its own library's plan, `srs_front_plan`), except K1's
+smoothing in a body with the dense route (the plan's dense operator up to
+1,024 pilot REs, the taps past that) and K6's layer table: chunks of at most
 two layers of a CDM group for a body before the shared tiled product (which
 refuses more), whole CDM groups for this checkout's. The LDPC scratch and
 delta buffers are sized for either layout (per-edge messages or per-row
@@ -24,11 +27,15 @@ relative 1e-5, K6 written at its offset into a larger grid whose rest must
 stay as it was; K3 and K4 bit for bit, torch.equal on the int32 views), then
 both are timed device-only (torch.profiler's CUDA kernel time over n calls,
 over n) in turns other / this / this / other:
-  k1  c2 (106 PRB, 4 layers, the shape of `ce40_closed4`) at B=128 and c4
-      (24 PRB, 1 layer) at B=256; whether the two outputs are bit-identical
-      (torch.equal) is printed, and this checkout's K1 on the staged grid
-      and pilots (`front.fused_front` with the hop's tables) must give this
-      checkout's gathered-form bits, its device-only time printed beside;
+  k1  staged, at c2 (106 PRB, 4 layers, the shape of `ce40_closed4`) B=128,
+      c4 (24 PRB, 1 layer) B=256 and 273 PRB, 4 layers (the shape of
+      `ce100_64ant_closed2`) B=128; each library's h_s error against the
+      plain version is printed and whether the two outputs are bit-identical
+      (torch.equal): at 273 PRB both take the banded route and must be; at
+      c2 and c4 a body with the dense route takes it there, and the two
+      routes round differently in float32, so they are compared by time and
+      by each one's error against the plain version, not by bits. This
+      checkout's K1 on the gathered inputs must give its staged bits;
   k2  c2 B=128 (its interpolation operator, CDM groups (0,2),(2,4)), nL=3
       (groups (0,2),(2,3)) with a seeded operator of c2's shape, and the c3
       inpainting operator (1638 x 3276, B=16, one layer); the two outputs
@@ -145,9 +152,34 @@ def main(argv) -> int:
         return float((got.double() - want.double()).abs().max() / want.double().abs().max())
 
     if "k1" in picked:
-        fns = dict(zip(("other", "this"), entry("k1", "srs_fused_front_f32", k1._ARGTYPES)))
+        this_k1 = bind("front", "srs_fused_front_strided_f32", k1._STRIDED_ARGTYPES)
+        dense_body = "const float* pair_l" in (other_dir / "front.cu").read_text()
+        # the argument list of a body with the dense route: rx, its tables and
+        # strides, pil and its strides, beta, pair_l, pair_r, vp, smooth,
+        # smooth_vb, smooth_ve, ta_c, ta_s, two_pi_sst_d, h_out, sc_out; ten
+        # ints, three floats, smem, taps, n_taps, stream
+        strides_t = ctypes.POINTER(ctypes.c_longlong)
+        dense_argtypes = ([ctypes.c_void_p] * 3 + [strides_t, ctypes.c_void_p, strides_t]
+                          + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3
+                          + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        other_k1 = getattr(other["k1"], "srs_fused_front_strided_f32")
+        other_k1.argtypes = dense_argtypes if dense_body else k1._STRIDED_ARGTYPES
+        other_k1.restype = ctypes.c_int
+        plans = dict(zip(("other", "this"), entry("k1", "srs_front_plan", k1.PLAN_ARGTYPES)))
+        caps = k1.kernel_caps(dev)
+
+        def smem_of(lab, B, hp, nL, n_taps):
+            """The shared memory of library `lab`'s plan (n_taps 0: the dense route's)."""
+            out = (ctypes.c_longlong * 9)()
+            rc = plans[lab](out, B, hp.n_re, nL, hp.n_pils, hp.half_cp_len,
+                            hp.ta_dft_cos.shape[0], (ctypes.c_int * 8)(*caps), n_taps)
+            if rc != 0:
+                raise SystemExit(f"K1 {lab}: srs_front_plan refused the shape ({rc})")
+            return int(out[8])
+
         for label, kw, B in (("c2", dict(n_prbs=106, n_layers=4), 128),
-                             ("c4", dict(n_prbs=24, n_layers=1, two_hops=True), 256)):
+                             ("c4", dict(n_prbs=24, n_layers=1, two_hops=True), 256),
+                             ("273 PRB", dict(n_prbs=273, n_layers=4), 128)):
             cases = [synthetic.make_case(seed=s, comb=2, scs_hz=30e3, snr_db=30.0, **kw)
                      for s in (11, 12, 13, 14)]
             nL = cases[0].pilots.shape[2]
@@ -160,56 +192,78 @@ def main(argv) -> int:
                                   dtype=torch.float32, device=dev)
             rg = rg + torch.as_tensor(1e-3 * np.random.default_rng(101).standard_normal(rg.shape),
                                       dtype=torch.float32, device=dev)
-            rx = estimator._gather_rx(hp, ht, rg)
             pil_staged = pil[:, :, :, : hp.n_dsym]
-            pil = pil_staged.permute(0, 1, 4, 3, 2).contiguous()
             beta = torch.ones(B, dtype=torch.float32, device=dev)
             mats = ht["front"]
             fkw = dict(n_samples=hp.n_samples, half_cp_len=hp.half_cp_len, fft_size=hp.fft_size,
                        scs_hz=cases[0].config.scs_hz, cfo_possible=hp.cfo_possible,
                        cfo_compensate=cases[0].config.cfo_compensate)
-            h_p, s_p = k1.fused_front_plain(rx, pil, beta, mats, **fkw)
-            n_re, n_pils = hp.n_re, hp.n_pils
-            smem = k1.launch_plan(B, n_re, nL, n_pils, hp.half_cp_len, mats["ta_c"].shape[0],
-                                  k1.kernel_caps(dev)).smem
+            rx, pil_g = k1.gather_staged(rg, pil_staged, ht["re_idx"], ht["dmrs_sym_idx"])
+            h_p, s_p = k1.fused_front_plain(rx, pil_g, beta, mats, **fkw)
+            n_re, n_pils, k_ta, n_taps = hp.n_re, hp.n_pils, mats["ta_c"].shape[0], hp.rc_taps.size
             h_o = torch.empty_like(h_p)
             s_o = torch.empty_like(s_p)
             rotate = fkw["cfo_possible"] and fkw["cfo_compensate"]
-            ptrs = [t.data_ptr() if t is not None else None for t in (
-                rx, pil, beta, mats["pair_l"], mats["pair_r"], mats["vp"] if n_pils > 1 else None,
-                mats["smooth"], mats["smooth_vb"], mats["smooth_ve"], mats["ta_c"], mats["ta_s"],
-                mats["two_pi_sst_d"] if rotate else None, h_o, s_o)]
-            scal = (B, rx.shape[2], nL, hp.n_dsym, n_re, n_pils, mats["ta_c"].shape[0],
-                    hp.half_cp_len, int(fkw["cfo_possible"]), int(fkw["cfo_compensate"]),
-                    2.0 * np.pi * hp.n_samples, float(hp.fft_size), float(fkw["scs_hz"]))
+            sb, sri, sk, sd = rg.stride()
+            pb, pri, pk, pd, pl = pil_staged.stride()
+            st = lambda v: (ctypes.c_longlong * 5)(*v)
+            head = (rg.data_ptr(), ht["re_idx"].data_ptr(), ht["dmrs_sym_idx"].data_ptr(),
+                    st((sb, sri, 0, sd, sk)), pil_staged.data_ptr(), st((pb, pri, pl, pd, pk)),
+                    beta.data_ptr())
+            ptr = lambda t: None if t is None else t.data_ptr()
+            vp, sst = mats["vp"] if n_pils > 1 else None, mats["two_pi_sst_d"] if rotate else None
+            flt = (2.0 * np.pi * hp.n_samples, float(hp.fft_size), float(fkw["scs_hz"]))
+            flags = (int(fkw["cfo_possible"]), int(fkw["cfo_compensate"]))
+            dims = (B, rx.shape[2], nL, hp.n_dsym, n_re, n_pils, k_ta, hp.half_cp_len)
+            this_args = (*head, ptr(vp), ptr(mats["taps"]), ptr(mats["ta_c"]), ptr(mats["ta_s"]),
+                         ptr(sst), ptr(h_o), ptr(s_o), *dims, n_taps, *flags, *flt,
+                         smem_of("this", B, hp, nL, n_taps))
+            if not dense_body:
+                other_args = this_args[:-1] + (smem_of("other", B, hp, nL, n_taps),)
+            elif hp.smooth_mat is None:  # the other body's banded route
+                other_args = (*head, None, None, ptr(vp), None, None, None, ptr(mats["ta_c"]),
+                              ptr(mats["ta_s"]), ptr(sst), ptr(h_o), ptr(s_o), *dims, *flags,
+                              *flt, smem_of("other", B, hp, nL, n_taps), ptr(mats["taps"]), n_taps)
+            else:  # its dense route, the plan's operator
+                t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                                              device=dev)
+                dm = [t(a) for a in (hp.pair_l_mat, hp.pair_r_mat, hp.smooth_mat,
+                                     hp.smooth_vb_mat, hp.smooth_ve_mat)]
+                other_args = (*head, ptr(dm[0]), ptr(dm[1]), ptr(vp), ptr(dm[2]), ptr(dm[3]),
+                              ptr(dm[4]), ptr(mats["ta_c"]), ptr(mats["ta_s"]), ptr(sst),
+                              ptr(h_o), ptr(s_o), *dims, *flags, *flt,
+                              smem_of("other", B, hp, nL, 0), None, 0)
+            route = {"this": "banded", "other": "dense" if dense_body and hp.smooth_mat is not None
+                     else "banded"}
             runs, outs = {}, {}
             to_bin = hp.fft_size * fkw["scs_hz"]
-            for lab, fn in fns.items():
-                runs[lab] = (lambda fn=fn: launch("fused_front", fn, dev, *ptrs, *scal, smem))
+            for lab, fn, args in (("other", other_k1, other_args), ("this", this_k1, this_args)):
+                runs[lab] = (lambda fn=fn, args=args: launch("fused_front", fn, dev, *args))
                 h_o.fill_(float("nan"))
                 runs[lab]()
                 torch.cuda.synchronize()
                 err = rel_err(h_o, h_p)
-                sk, sp = s_o.cpu().numpy(), s_p.cpu().numpy()
-                if not (err <= 1e-5 and np.array_equal(np.rint(sk[:, 1] * to_bin),
-                                                       np.rint(sp[:, 1] * to_bin))
-                        and np.allclose(sk[:, [0, 2, 3, 4]], sp[:, [0, 2, 3, 4]], rtol=1e-4,
+                sk_, sp_ = s_o.cpu().numpy(), s_p.cpu().numpy()
+                if not (err <= 1e-5 and np.array_equal(np.rint(sk_[:, 1] * to_bin),
+                                                       np.rint(sp_[:, 1] * to_bin))
+                        and np.allclose(sk_[:, [0, 2, 3, 4]], sp_[:, [0, 2, 3, 4]], rtol=1e-4,
                                         atol=1e-12)):
                     raise SystemExit(f"K1 {lab} at {label}: h_s rel err {err:.3e}, or the "
                                      "scalars / TA bins differ from the plain version")
-                print(f"K1 {lab} at {label} B={B}: h_s rel err vs plain {err:.2e}, scalars "
-                      "within rtol 1e-4, TA bins equal")
+                print(f"K1 {lab} ({route[lab]} route) at {label} B={B}, staged: h_s rel err vs "
+                      f"plain {err:.2e}, scalars within rtol 1e-4, TA bins equal")
                 outs[lab] = (h_o.clone(), s_o.clone())
             same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
-            staged = lambda: k1.fused_front(rg, pil_staged, beta, mats, re_idx=ht["re_idx"],
-                                            dmrs_sym_idx=ht["dmrs_sym_idx"], **fkw)
-            h_s, s_s = staged()
-            if not (torch.equal(h_s, outs["this"][0]) and torch.equal(s_s, outs["this"][1])):
-                raise SystemExit(f"K1 this staged at {label}: not bit-identical to this gathered")
-            print(f"K1 at {label} B={B}: other and this bit-identical: {same}; this staged "
-                  f"bit-identical to this gathered")
-            turns(f"K1 {label} B={B}", runs, 50)
-            print(f"K1 {label} B={B} this staged device-only ms {device_ms(staged, 50):.5f} [{smi}]")
+            if route["other"] == "banded" and not same:
+                raise SystemExit(f"K1 at {label}: both on the banded route, not bit-identical "
+                                 f"(h_s max abs diff "
+                                 f"{float((outs['other'][0] - outs['this'][0]).abs().max()):.3e})")
+            h_g, s_g = k1.fused_front(rx, pil_g, beta, mats, **fkw)
+            if not (torch.equal(h_g, outs["this"][0]) and torch.equal(s_g, outs["this"][1])):
+                raise SystemExit(f"K1 this gathered at {label}: not bit-identical to this staged")
+            print(f"K1 at {label} B={B}: other and this bit-identical: {same}; this gathered "
+                  f"bit-identical to this staged")
+            turns(f"K1 {label} B={B} ({route['other']} / {route['this']})", runs, 50)
 
     fill_rows = ()
     if "k2" in picked or "k6" in picked:

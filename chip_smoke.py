@@ -15,10 +15,10 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
   3. K1 (fused front) against its plain PyTorch version at c2 shapes, B=128;
      K1 on the staged grid and pilots bit-identical to K1 on the gathered
      inputs at c2 B=128 (`ce40_closed4`'s shape) and both hops of c4 B=256,
-     with its launches by form (`route_launches`); K1's banded smoothing
-     route at `ce100_64ant_closed2`'s shape (273 PRB, 4 layers, B=128,
-     staged) against its plain version (h_s relative 1e-5, scalars 1e-4,
-     the same TA bins), one launch on that route (`smoothing_launches`);
+     with its launches by form (`route_launches`); K1 (its one smoothing
+     route, the banded one) at `ce100_64ant_closed2`'s shape (273 PRB, 4
+     layers, B=128, staged) against its plain version (h_s relative 1e-5,
+     scalars 1e-4, the same TA bins), one launch;
   4. K2 (serve fill) against its plain version, equal and unequal CDM groups;
   5. `build_ri(..., batched=True, out_layout="serve", kernels="pallas_front")`
      at c2 (106 PRB x 4 layers, batch 128, matmul_precision="high") against
@@ -26,11 +26,11 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      front's finish, `front_finish`, on its scalar route); then the factored
      layout against the serve grid, the finish on its profiles route;
   6. the two-hop c4 geometry (24 PRB, 1 layer) at batch 256, same checks
-     (c2 and c4 on K1's dense smoothing route alone); then the served path
+     (c2 and c4 on K1's banded smoothing route); then the served path
      at `ce100_64ant_closed2`'s shape: `serving.process(out="factored")`
      over 2 UE-slots of the 64-antenna configuration (273 PRB, 4 ports, 128
      problems, one chunk), counts set to 0 just before the call: K1 once on
-     its banded route and staged, `front_finish` once on its profiles route,
+     staged, `front_finish` once on its profiles route,
      no other kernel, and both slots within the configuration's limits of
      the float64 oracle (`cebench.reference.ce`);
   7. `front_finish` against its plain version on K1's c2 outputs, both
@@ -41,8 +41,8 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      (torch.profiler); K1 staged against the gathered route (the gather and
      the permute, then K1) and K1 gathered alone at c2 B=128, device-only
      (torch.profiler, with the kernels a call) and in-graph (CUDA events over
-     replays of one captured call); K1 on its dense and banded smoothing
-     routes at c2 B=128, and banded at 273 PRB B=128, the same two ways;
+     replays of one captured call); K1 at c2 B=128 and at 273 PRB B=128,
+     the same two ways, beside the parent's dense route at c2 (PERF.md);
   8. K5 (rc_smooth) against its plain version at the c2 rows (B=128, C=8,
      n_ext=650) and at the time-interpolation row count (C=2*nL*n_dsym);
   9. K6 (fused_fill_rotate) against its plain version: c2 equal CDM groups,
@@ -238,8 +238,7 @@ Phases, one line each or more, any failure ends the run with a non-zero exit cod
      world of 1 on one card): exit 0, the dp, sp and config[4] rows of every
      world run present, the world sizes not run named in the report.
 Then one JSON line of per-kernel results (K1's launches are phase 5's c2
-serve call's and phase 6's served 273-PRB call's, with their split by
-smoothing route), and as the last line
+serve call's and phase 6's served 273-PRB call's), and as the last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -373,7 +372,6 @@ def main() -> int:
             m.launches = 0
         for m in (k1, k3, kf):
             m.route_launches.update(dict.fromkeys(m.route_launches, 0))
-        k1.smoothing_launches.update(dict.fromkeys(k1.smoothing_launches, 0))
 
     def read_counts():
         return {k: m.launches for k, m in kmods.items()}
@@ -425,8 +423,8 @@ def main() -> int:
     print(f"phase 2 K1 cluster capacity (clusters of 1..8 blocks resident at once): {list(caps)}")
     for label, B_, n_re_, nL_, np_, hcp_, kta_ in (("c2", 128, 636, 4, 7, 144, 636),
                                                     ("c4", 256, 144, 1, 7, 144, 144)):
-        lp = k1.launch_plan(B_, n_re_, nL_, np_, hcp_, kta_, caps)
-        if k1.kernel_plan(B_, n_re_, nL_, np_, hcp_, kta_, caps) != lp:
+        lp = k1.launch_plan(B_, n_re_, nL_, np_, hcp_, kta_, caps, 15)
+        if k1.kernel_plan(B_, n_re_, nL_, np_, hcp_, kta_, caps, 15) != lp:
             fail(f"K1 launch_plan differs from the kernel's plan at {label}: {lp}")
         print(f"phase 2 K1 plan {label} B={B_}: {lp.P} problems x {lp.S} blocks a cluster, "
               f"{lp.blocks} blocks, Mpad {lp.Mpad}, RN {lp.RN}, K tile {lp.KT}, {lp.NS} columns / "
@@ -567,20 +565,18 @@ def main() -> int:
     print(f"phase 3 K1 staged vs gathered (c2 B=128, the cell's shape; c4 B=256, both hops, hop 2 "
           f"from its symbol offset): h_s and scalars bit-identical; launches by form {moved}")
 
-    # K1's banded smoothing route at ce100_64ant_closed2's shape: past 1,024
-    # pilot REs the plan has no dense operator, and K1 filters with the taps
+    # K1 at ce100_64ant_closed2's shape: past 1,024 pilot REs the plan has no
+    # dense operator, and K1 filters with the taps there as at every band
     c100 = tiled(dict(n_prbs=273, n_layers=4, comb=2, scs_hz=30e3, snr_db=20.0), 128)
     ((_, _, (w_args, w_kw), (wg_args, wg_kw)),) = staged_inputs(*c100[:4], seed=105)
     if "taps" not in w_args[3]:
-        fail(f"K1 273 PRB: the hop's tensors {sorted(w_args[3])} hold no taps (the banded route)")
-    m0 = dict(k1.smoothing_launches)
+        fail(f"K1 273 PRB: the hop's tensors {sorted(w_args[3])} hold no taps")
+    n0 = k1.launches
     front_vs_plain("273 PRB banded, staged", *k1.fused_front(*w_args, **w_kw),
                    *k1.fused_front_plain(*wg_args, **wg_kw), wg_kw)
-    moved = {r: n - m0[r] for r, n in k1.smoothing_launches.items()}
-    if moved != {"dense": 0, "banded": 1}:
-        fail(f"K1 273 PRB: launches by smoothing route {moved}, expected one banded")
-    print(f"phase 3 K1 at 273 PRB B=128 (ce100_64ant_closed2's shape, staged): launches by "
-          f"smoothing route {moved}")
+    if k1.launches != n0 + 1:
+        fail(f"K1 273 PRB: {k1.launches - n0} launches, expected one")
+    print("phase 3 K1 at 273 PRB B=128 (ce100_64ant_closed2's shape, staged): one launch")
 
     # 4. K2 vs plain
     rng = np.random.default_rng(7)
@@ -666,9 +662,6 @@ def main() -> int:
                  "route alone on the serve layout")
         if k1.route_launches != {"staged": counts["fused_front"], "gathered": 0}:
             fail(f"{label}: K1 by form {k1.route_launches}, expected the staged form alone")
-        if k1.smoothing_launches != {"dense": counts["fused_front"], "banded": 0}:
-            fail(f"{label}: K1 by smoothing route {k1.smoothing_launches}, expected the dense "
-                 "route alone")
         worst = oracle_check(label, cases, res, "serve", batch, SERVE_NMSE_BOUND)
         print(f"phase {label}: serve {tuple(res.channel_est_rg.shape)}, worst NMSE vs float64 "
               f"oracle {worst:.3e} (< {SERVE_NMSE_BOUND}), scalars within bounds, launches {counts}")
@@ -688,9 +681,6 @@ def main() -> int:
                  "profiles route alone (linear interpolation)")
         if k1.route_launches != {"staged": fac_counts["fused_front"], "gathered": 0}:
             fail(f"{label} factored: K1 by form {k1.route_launches}, expected the staged form")
-        if k1.smoothing_launches != {"dense": fac_counts["fused_front"], "banded": 0}:
-            fail(f"{label} factored: K1 by smoothing route {k1.smoothing_launches}, expected "
-                 "the dense route alone")
         ch = res.channel_est_rg.cpu().numpy()
         prof = estimator.merge_ri(np.moveaxis(fac.profiles.cpu().numpy(), 1, 0))
         rot = estimator.merge_ri(np.moveaxis(fac.sym_rot.cpu().numpy(), 1, 0))
@@ -709,7 +699,7 @@ def main() -> int:
 
     # 6. the served path at ce100_64ant_closed2's shape: 2 UE-slots of the
     # 64-antenna configuration through serving.process, one chunk of 128
-    # problems, K1 on its banded route
+    # problems
     from cebench import spec as cb_spec
     from cebench.gen import slots as cb_slots
     from cebench.reference import ce as cb_ce
@@ -731,16 +721,15 @@ def main() -> int:
     reset_counts()
     wide_res = serving.process(wide_probs, out="factored", device=dev)
     torch.cuda.synchronize()
-    wide_counts, wide_smoothing = read_counts(), dict(k1.smoothing_launches)
+    wide_counts = read_counts()
     need("6 273 PRB served", wide_counts, launched=("fused_front", "front_finish"),
          idle=tuple(k for k in kmods if k not in ("fused_front", "front_finish")))
     if (wide_counts["fused_front"], wide_counts["front_finish"]) != (1, 1) \
-            or wide_smoothing != {"dense": 0, "banded": 1} \
             or k1.route_launches != {"staged": 1, "gathered": 0} \
             or kf.route_launches != {"profiles": 1, "scalars": 0}:
-        fail(f"phase 6 273 PRB served: launches {wide_counts}, K1 by smoothing route "
-             f"{wide_smoothing}, by form {k1.route_launches}, front_finish by route "
-             f"{kf.route_launches}; expected one banded staged K1 and one profiles finish")
+        fail(f"phase 6 273 PRB served: launches {wide_counts}, K1 by form "
+             f"{k1.route_launches}, front_finish by route {kf.route_launches}; expected one "
+             "staged K1 and one profiles finish")
     worst = {}
     for i, slot in enumerate(wide_pool):
         nums = cb_ce.judge_slot(slot, wide_res[i * n_rx:(i + 1) * n_rx], cb_ce.reference(slot))
@@ -749,8 +738,8 @@ def main() -> int:
                 fail(f"phase 6 273 PRB served, slot {i}: {k} {nums[k]:.3e} > {limit}")
             worst[k] = max(worst.get(k, 0.0), nums[k])
     print(f"phase 6 served 273 PRB factored (ce100_64ant_closed2's shape: 2 UE-slots x {n_rx} "
-          f"antennas, one chunk, tier {tier}): launches {wide_counts}, K1 by smoothing route "
-          f"{wide_smoothing}; worst of both slots against the float64 oracle "
+          f"antennas, one chunk, tier {tier}): launches {wide_counts}; worst of both slots "
+          f"against the float64 oracle "
           + ", ".join(f"{k} {v:.3e} (<= {wide_cfg['limits'][k]})" for k, v in worst.items()))
 
     # 7. times (CUDA events, after warm-up), plain / kernel / kernel / plain
@@ -937,15 +926,11 @@ def main() -> int:
     print(f"phase 7 K1 launches by form over those timings: "
           f"{ {r: n - r0[r] for r, n in k1.route_launches.items()} }")
 
-    # K1's smoothing routes: the banded one at the dense route's band (c2, the
-    # taps in place of the operator) against the dense one, and at the wide
-    # cell's band (273 PRB, 128 problems, where it is the only route)
-    c2_banded = dict(taps=torch.as_tensor(hp_s.rc_taps, dtype=torch.float32, device=dev),
-                     **{k: s_args[3][k] for k in ("vp", "ta_c", "ta_s", "two_pi_sst_d")})
-    m0 = dict(k1.smoothing_launches)
+    # K1's one smoothing route, the banded one, at the cell's band (c2) and at
+    # the wide cell's (273 PRB, 128 problems); the dense operator product it
+    # replaced at c2, as PERF.md §6 records it (H100 80GB HBM3, 700 W)
     for label, fn in (
-            ("c2 B=128 dense", lambda: k1.fused_front(*s_args, **s_kw)),
-            ("c2 B=128 banded", lambda: k1.fused_front(*s_args[:3], c2_banded, **s_kw)),
+            ("c2 B=128 banded", lambda: k1.fused_front(*s_args, **s_kw)),
             ("273 PRB B=128 banded (ce100_64ant_closed2's shape)",
              lambda: k1.fused_front(*w_args, **w_kw))):
         by_name = kernel_ms(fn)
@@ -954,8 +939,8 @@ def main() -> int:
         print(f"phase 7 K1 {label}: device-only {sum(by_name.values()):.4f} ms ("
               + ", ".join(f"{k[:40]} {ms:.4f}" for k, ms in by_name.items())
               + f"); in a graph {graph_ms(fn):.4f} ms a replay {card}")
-    print(f"phase 7 K1 launches by smoothing route over those timings: "
-          f"{ {r: n - m0[r] for r, n in k1.smoothing_launches.items()} }")
+    print("phase 7 K1 c2 B=128 on the former dense route (PERF.md §6, ab_kernels.py k1 on an "
+          "H100 80GB HBM3 at 700 W): device-only 0.1894 ms against 0.1466 banded")
     e2e, wall = call_ms(fn_c2, c2_args)
     print(f"phase 7 build_ri pallas_front/serve c2 B=128 (both kernels + plain glue): {e2e:.4f} "
           f"ms/batch on CUDA events, cold L2; {wall:.4f} ms/batch host wall clock back-to-back {card}")
@@ -1309,9 +1294,10 @@ def main() -> int:
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     rx, pil_f, beta_f, mats = f_args
     nL_f = pil_f.shape[2]
-    rows_of = {"pair_l": 2, "pair_r": 2, "smooth": 2, "smooth_vb": 2, "smooth_ve": 2, "ta_c": 2,
-               "ta_s": 2, "vp": 4}  # rows of each product, in units of nL (vp: 2 fits x 2 ends)
-    f_ops = sum(2 * rx.shape[0] * r_ * nL_f * mats[k].numel() for k, r_ in rows_of.items() if k in mats)
+    # rows of each product, in units of nL (vp: 2 fits x 2 ends)
+    rows_of = {"ta_c": 2, "ta_s": 2, "vp": 4}
+    f_ops = sum(2 * rx.shape[0] * r_ * nL_f * mats[k].numel() for k, r_ in rows_of.items())
+    f_ops += 2 * rx.shape[0] * 2 * nL_f * hp.n_re * mats["taps"].numel()  # the filter
     f_ops += 10 * rx.numel()  # the elementwise front, about 10 operations per received value
     dev_only = {}
     B2, nL2, n_re2 = k2_args[0].shape[0], k2_args[0].shape[2], k2_args[0].shape[3]
@@ -2985,12 +2971,7 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": sources[k][0], "replaces": sources[k][1],
          "launches": launches[k], "max_abs_err": results[k], "ms": times[k][0],
          "plain_ms": times[k][1], "bound_ms": times[k][4], "bound_by": times[k][5],
-         "library_ms": library[k],
-         # K1's launches above by smoothing route: phase 5's c2 call, dense,
-         # and phase 6's served 273-PRB call, banded
-         **({"smoothing_launches": {"dense": counts["fused_front"] + wide_smoothing["dense"],
-                                    "banded": wide_smoothing["banded"]}}
-            if k == "fused_front" else {})}
+         "library_ms": library[k]}
         for k in sources
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -15,51 +15,45 @@
 //             RE table (n_cdm * n_re, group-major) and DM-RS symbol table (nd);
 //             pil: the staged pilots (B, 2, n_re, nd_total, nL) from the hop's
 //             first symbol d0 on (the pointer offset by d0 * sd, no copy);
-//   gathered  rx (B, 2, n_cdm, nd, n_re), pil (B, 2, nL, nd, n_re), null tables
-//             (srs_fused_front_f32: contiguous).
+//   gathered  rx (B, 2, n_cdm, nd, n_re), pil (B, 2, nL, nd, n_re), null tables.
 // Other layouts (all row-major, contiguous):
-//   beta (B)
-//   pair_l / pair_r (n_re, n_pils)       vp    (n_pils, n_pils), v = vp @ y
-//   sm (n_re, n_re)   svb / sve (n_pils, n_re)   ta_c / ta_s (k_ta, 2*hcp)
+//   beta (B)                             vp    (n_pils, n_pils), v = vp @ y
+//   taps (n_taps, odd): the raised-cosine smoothing filter
+//   ta_c / ta_s (k_ta, 2*hcp)
 //   two_pi_sst_d (nd): 2*pi * start time of each DM-RS symbol (symbol units)
 //   h_out (B, 2, nL, n_re)               sc_out (B, 8) [cfo, ta, noise, rsrp, epre, 0, 0, 0]
 // Rows of the working matrices are (problem, ri, l): m = p * 2nL + ri * nL + l.
 //
 // Work split (make_plan; front.launch_plan mirrors it). A cluster of S blocks
 // takes P problems; the P * 2nL rows (<= 32, padded to Mpad in {4, 8, 16, 32})
-// are the M of two tiled products whose constant operand is staged once in
+// are the M of the TA product, whose constant operand is staged once in
 // shared memory for all P problems:
-//   Hs = [H | vb | flip(ve)] @ [sm; svb; sve]   columns split over the cluster
-//                                               (block r: columns [r*NS, (r+1)*NS))
 //   [tc | ts] = Hs[:, :k_ta] @ [ta_c | ta_s]    bins split over the cluster
 //                                               (block r: bins [r*TS, (r+1)*TS))
-// Block r keeps only its own columns of H and of Hs, k-major (h[k][m]); a
-// product's A operand (KT rows of H, then of Hs) is read each K step from the
-// block that owns those rows, through distributed shared memory, into a
-// two-stage ring (registers in flight across the step's FMAs); the B operand
-// comes through a two-stage cp.async ring, 16 bytes a copy where aligned. A
-// thread (512 a block) keeps a 4 x RN register tile, one 16-byte broadcast
-// giving it its 4 rows. The plan takes the split with the fewest FMAs a block
-// among those whose clusters are all resident at once, one block an SM (the
-// card's cluster capacities: an H100's GPCs hold 30 clusters of 4 blocks, not
-// 33). What crosses the column split goes through distributed shared memory,
-// summed in rank order so that every block holds the same bits:
+// Block r keeps only its own columns of H and of Hs (columns [r*NS,
+// (r+1)*NS)), k-major (h[k][m]); the product's A operand (KT rows of Hs) is
+// read each K step from the block that owns those rows, through distributed
+// shared memory, into a two-stage ring (registers in flight across the step's
+// FMAs); the B operand comes through a two-stage cp.async ring, 16 bytes a
+// copy where aligned. A thread (512 a block) keeps a 4 x RN register tile, one
+// 16-byte broadcast giving it its 4 rows. The plan takes the split with the
+// fewest FMAs a block among those whose clusters are all resident at once, one
+// block an SM (the card's cluster capacities: an H100's GPCs hold 30 clusters
+// of 4 blocks, not 33). What crosses the column split goes through
+// distributed shared memory, summed in rank order so that every block holds
+// the same bits:
 //   1. EPRE and the CFO correlations over the block's columns -> cfo, epre;
-//   2. H over the block's columns and its partial edge products H @ pair_l,
-//      H @ pair_r -> the summed edges; every block runs the virtual-pilot
-//      atan2 / unwrap / fit itself (identical bits);
-//   3. the smoothing product over the block's columns -> h_out, the block's
-//      noise and RSRP partials (pushed to rank 0);
+//   2. H over the block's columns, its CDM pairs averaged in place; the np
+//      edge columns of each side from the blocks that own them; every block
+//      runs the virtual-pilot atan2 / unwrap / fit itself (identical bits);
+//   3. the smoothing of the block's columns: the raised-cosine taps over the
+//      extended band [vb | H | flip(ve)], the hw = (n_taps - 1) / 2 columns
+//      past its share on each side read from the blocks that own them (n_taps
+//      FMAs a row and column; the plan's dense operator, which holds the same
+//      filter, would cost n_re + 2 np) -> h_out, the block's noise and RSRP
+//      partials (pushed to rank 0);
 //   4. the TA product over the block's bins -> the PDP (pushed to rank 0),
 //      whose first-maximum argmax rank 0 takes with the scalars.
-// The banded route (front_kernel_banded, n_taps > 0: bands past the plan's
-// 1,024-RE dense operator) replaces steps 2's edge products and 3's product:
-// each block averages its own CDM pairs of H in place, takes the np edge
-// columns from the blocks that own them, and filters its columns with the
-// raised-cosine taps over the extended band [vb | H | flip(ve)], the 2 hw
-// columns past its share read from its neighbours' shared memory: n_taps
-// FMAs a row and column where the dense product spends n_re + 2 np. Its plan
-// sizes the register tile by the TA product alone.
 // The per-problem sums over the block's columns (EPRE, CFO correlations,
 // noise, RSRP) run on 512 / P2 threads a problem (P2: P rounded up to a power
 // of two), reduced by shuffles and, past a warp, through shared memory.
@@ -108,7 +102,7 @@ constexpr int kMaxL = kMaxRows / 2;
 constexpr int kMaxCdm = kMaxL / 2;
 constexpr int kMaxPils = 16;
 constexpr int kMaxDsym = 32;
-constexpr int kMaxM = 32;       // rows of the products: P * 2nL
+constexpr int kMaxM = 32;       // rows of the TA product: P * 2nL
 constexpr int kMaxCluster = 8;  // portable cluster size
 constexpr int kMaxRN = 4;       // register columns per thread
 constexpr int kStages = 2;      // depth of the operand rings
@@ -124,12 +118,7 @@ struct FrontArgs {
   const long long* sym_idx;  // sym(d), or null: d
   const float* pil;
   const float* beta;
-  const float* pair_l;
-  const float* pair_r;
   const float* vp;
-  const float* sm;
-  const float* svb;
-  const float* sve;
   const float* ta_c;
   const float* ta_s;
   const float* two_pi_sst_d;
@@ -142,7 +131,7 @@ struct FrontArgs {
   int B, n_cdm, nL, nd, n_re, n_pils, k_ta, hcp;
   int cfo_possible, cfo_compensate;
   float two_pi_ns, fft_size, scs_hz;
-  const float* taps;  // the banded route's smoothing filter (n_taps, odd), or null: dense
+  const float* taps;  // the smoothing filter (n_taps, odd)
   int n_taps;
 };
 
@@ -150,8 +139,7 @@ struct Plan {
   int P, S, Mpad, RN, KT, NS, TS, blocks;
   long long smem;
   // offsets (floats) of the shared-memory regions
-  int o_hv, o_hss, o_as, o_bs, o_pdp, o_p1, o_p1s, o_p2, o_edgep, o_edge, o_cs, o_misc,
-      o_red;
+  int o_hv, o_hss, o_as, o_bs, o_pdp, o_p1, o_p1s, o_p2, o_edge, o_cs, o_misc, o_red;
 };
 
 constexpr long long pad4(long long x) { return (x + 3) & ~3LL; }
@@ -160,8 +148,8 @@ constexpr long long pad4(long long x) { return (x + 3) & ~3LL; }
 // floats.
 long long layout(Plan* p, int P, int S, int Mpad, int NX, int RN, int NS, int TS, int KT,
                  int rows, int np, int nbins) {
-  // hl: this block's H columns; once every block's smoothing product is
-  // done, the same memory holds tcs
+  // hl: this block's H columns; once every block's smoothing is done, the
+  // same memory holds tcs
   long long o = static_cast<long long>(std::max(NS, 2 * TS)) * Mpad;
   p->o_hv = static_cast<int>(o);
   o += 2LL * np * Mpad;
@@ -179,8 +167,6 @@ long long layout(Plan* p, int P, int S, int Mpad, int NX, int RN, int NS, int TS
   o += pad4(static_cast<long long>(P) * (rows + 1));
   p->o_p2 = static_cast<int>(o);
   o += pad4(2LL * S * P);
-  p->o_edgep = static_cast<int>(o);
-  o += pad4(2LL * Mpad * np);
   p->o_edge = static_cast<int>(o);
   o += pad4(2LL * Mpad * np);
   p->o_cs = static_cast<int>(o);
@@ -194,24 +180,21 @@ long long layout(Plan* p, int P, int S, int Mpad, int NX, int RN, int NS, int TS
 
 // The launch of B problems. cap[S - 1]: the clusters of S blocks the card
 // holds at once with one block an SM. Among P (problems a cluster, at most 32
-// rows) and S (1..8 blocks a cluster) whose clusters are all resident at once,
-// whose column share needs at most kMaxRN register columns a thread and whose
-// block fits the shared memory (the largest K tile of 32, 16 or 8 that does),
-// the one with the fewest FMAs a block, padding included (the smoothing
-// product's W columns over n_re + 2 np rows and the TA passes of W columns
-// over k_ta rows); on a tie the larger P, then the smaller S. If no candidate
-// is resident at once, the same search without that condition. Every launch
-// asks for at least half an SM's shared memory, so that a block has its SM to
-// itself. NS and TS are multiples of 4 (16-byte copies).
-// n_taps > 0: the banded route (no smoothing product; the filter's n_taps
-// FMAs a column and row instead), whose register columns serve the TA product
-// alone: RN = min(kMaxRN, the TA columns over NX), in passes past that.
+// rows) and S (1..8 blocks a cluster) whose clusters are all resident at once
+// and whose block fits the shared memory (the largest K tile of 32, 16 or 8
+// that does), the one with the fewest FMAs a block, padding included (the
+// filter's n_taps a row and column of the block's share and the TA passes of
+// W columns over k_ta rows); on a tie the larger P, then the smaller S. If no
+// candidate is resident at once, the same search without that condition. RN,
+// the register columns a thread, serves the TA product: min(kMaxRN, the TA
+// columns over NX), in passes past that. Every launch asks for at least half
+// an SM's shared memory, so that a block has its SM to itself. NS and TS are
+// multiples of 4 (16-byte copies).
 int make_plan(Plan* p, int B, int n_re, int nL, int n_pils, int hcp, int k_ta, const int* cap,
               int n_taps) {
   const int rows = 2 * nL, np = n_pils, nbins = 2 * hcp;
-  if (B < 1 || nL < 1 || rows > kMaxRows || np < 1 || np > kMaxPils || n_re < 1 || hcp < 1 ||
-      k_ta < 1 || k_ta > n_re || cap == nullptr || n_taps < 0 ||
-      (n_taps > 0 && (n_taps % 2 == 0 || n_re < np)))
+  if (B < 1 || nL < 1 || rows > kMaxRows || np < 1 || np > kMaxPils || n_re < np || hcp < 1 ||
+      k_ta < 1 || k_ta > n_re || cap == nullptr || n_taps < 1 || n_taps % 2 == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   for (const bool resident : {true, false}) {
     long long best = -1;
@@ -224,12 +207,9 @@ int make_plan(Plan* p, int B, int n_re, int nL, int n_pils, int hcp, int k_ta, c
         if (resident && clusters > cap[S - 1]) continue;
         const int NS = ((n_re + S - 1) / S + 3) / 4 * 4;
         const int TS = ((nbins + S - 1) / S + 3) / 4 * 4;
-        int RN = (NS + NX - 1) / NX;
-        if (n_taps > 0) RN = std::min(kMaxRN, (2 * TS + NX - 1) / NX);
-        if (RN > kMaxRN) continue;
+        const int RN = std::min(kMaxRN, (2 * TS + NX - 1) / NX);
         const long long W = static_cast<long long>(NX) * RN;
-        const long long smooth = n_taps > 0 ? 1LL * n_taps * NS : W * (n_re + 2 * np);
-        const long long cost = Mpad * (smooth + (2 * TS + W - 1) / W * W * k_ta);
+        const long long cost = Mpad * (1LL * n_taps * NS + (2 * TS + W - 1) / W * W * k_ta);
         if (best >= 0 && cost >= best) continue;
         for (int KT = 32; KT >= 8; KT /= 2) {
           Plan q;
@@ -476,8 +456,8 @@ __device__ void product(int Mpad, int kpad, int KT, int ncols, bool b_vec, float
   }
 }
 
-// The kernel's body; kBanded: the banded route (front_kernel_banded).
-template <int RN, bool kBanded>
+// The kernel's body.
+template <int RN>
 __device__ __forceinline__ void front_body(FrontArgs a, Plan p) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -497,15 +477,14 @@ __device__ __forceinline__ void front_body(FrontArgs a, Plan p) {
   float* hl = smem;                 // (NS, Mpad): this block's columns of H
   float* hv = smem + p.o_hv;        // (2 np, Mpad): vb, then the flip-fit ve
   float* hss = smem + p.o_hss;      // (NS, Mpad): this block's columns of Hs
-  float* as = smem + p.o_as;        // A-operand ring
-  float* bs = smem + p.o_bs;        // B-operand ring
+  float* as = smem + p.o_as;        // the TA product's A-operand ring
+  float* bs = smem + p.o_bs;        // its B-operand ring
   float* tcs = smem;                // (Mpad, 2 TS): this block's tc | ts, over hl
   float* pdp = smem + p.o_pdp;      // (P, nbins), filled on rank 0
   float* p1 = smem + p.o_p1;        // (P, 2nL + 1): CFO correlations, EPRE
   float* p1s = smem + p.o_p1s;      // the same, summed over the cluster
   float* p2s = smem + p.o_p2;       // (S, P, 2): noise, RSRP partials, on rank 0
-  float* edgep = smem + p.o_edgep;  // (2, Mpad, np): this block's edge products
-  float* edge = smem + p.o_edge;    // (2, Mpad, np): summed over the cluster
+  float* edge = smem + p.o_edge;    // (2, Mpad, np): the edge columns of H
   float* cs = smem + p.o_cs;        // (P, kMaxDsym, 2): cos, sin of x_d
   float* s_cfo = smem + p.o_misc;
   float* s_epre = s_cfo + P;
@@ -671,45 +650,25 @@ __device__ __forceinline__ void front_body(FrontArgs a, Plan p) {
   }
   for (int i = tid; i < 2 * np * Mpad; i += kThreads) hv[i] = 0.f;
   __syncthreads();
-  if constexpr (kBanded) {
-    // the CDM pair average of H in place, this block's pairs (c0 is even; an
-    // odd band's last RE stays as it is), then the edges' np columns of it
-    // from the blocks that own them
-    if (nL >= 2) {
-      for (int i = tid; i < (ncol / 2) * Mpad; i += kThreads) {
-        const int q = i / Mpad;
-        float* h0 = hl + 2 * q * Mpad + (i - q * Mpad);
-        const float v = (h0[0] + h0[Mpad]) * 0.5f;
-        h0[0] = v;
-        h0[Mpad] = v;
-      }
+  // the CDM pair average of H in place, this block's pairs (c0 is even; an
+  // odd band's last RE stays as it is), then the edges' np columns of it from
+  // the blocks that own them
+  if (nL >= 2) {
+    for (int i = tid; i < (ncol / 2) * Mpad; i += kThreads) {
+      const int q = i / Mpad;
+      float* h0 = hl + 2 * q * Mpad + (i - q * Mpad);
+      const float v = (h0[0] + h0[Mpad]) * 0.5f;
+      h0[0] = v;
+      h0[Mpad] = v;
     }
-    cluster.sync();
-    for (int o = tid; o < 2 * Mpad * np; o += kThreads) {
-      const int side = o / (Mpad * np), j = (o / Mpad) % np, m = o % Mpad;
-      const int k = side ? n_re - np + j : j, r = k / NS;
-      edge[(side * Mpad + m) * np + j] = cluster.map_shared_rank(hl, r)[(k - r * NS) * Mpad + m];
-    }
-    __syncthreads();
-  } else {
-    // partial edge products H @ pair_l and H @ pair_r over this block's columns
-    for (int o = tid; o < 2 * Mpad * np; o += kThreads) {
-      const int side = o / (Mpad * np), j = (o / Mpad) % np, m = o % Mpad;
-      const float* pm = (side ? a.pair_r : a.pair_l) + static_cast<size_t>(c0) * np + j;
-      float v = 0.f;
-#pragma unroll 8
-      for (int kk = 0; kk < ncol; ++kk) v += hl[kk * Mpad + m] * __ldg(pm + kk * np);
-      edgep[(side * Mpad + m) * np + j] = v;
-    }
-    cluster.sync();
-
-    for (int o = tid; o < 2 * Mpad * np; o += kThreads) {
-      float v = 0.f;
-      for (int r = 0; r < S; ++r) v += cluster.map_shared_rank(edgep, r)[o];
-      edge[o] = v;
-    }
-    __syncthreads();
   }
+  cluster.sync();
+  for (int o = tid; o < 2 * Mpad * np; o += kThreads) {
+    const int side = o / (Mpad * np), j = (o / Mpad) % np, m = o % Mpad;
+    const int k = side ? n_re - np + j : j, r = k / NS;
+    edge[(side * Mpad + m) * np + j] = cluster.map_shared_rank(hl, r)[(k - r * NS) * Mpad + m];
+  }
+  __syncthreads();
 
   // virtual pilots: one lane per (problem, side, layer) series, serial over
   // n_pils; side 1 fits the reversed right edge (the TPU kernel's flipped
@@ -759,15 +718,13 @@ __device__ __forceinline__ void front_body(FrontArgs a, Plan p) {
   }
   __syncthreads();
 
-  // 3. smoothing Hs = H @ sm + vb @ svb + flip(ve) @ sve over this block's
-  // columns; row k < n_re of A lives in block k / NS
+  // 3. smoothing over this block's columns: Hs[:, j] = sum_t taps[t] x[j + np
+  // + hw - t] over the extended band x = [vb | pair-averaged H | ve reversed]
+  // (zero outside), what the plan's dense operator holds; a column's 2 hw
+  // neighbours past this block's share come from the blocks that own them
   float* h_out = a.h_out + static_cast<size_t>(b0) * rows * n_re;
   const int m_valid = pv * rows;
-  if constexpr (kBanded) {
-    // the banded route: Hs[:, j] = sum_t taps[t] x[j + np + hw - t] over the
-    // extended band x = [vb | pair-averaged H | ve reversed] (zero outside),
-    // what the dense operator holds; a column's 2 hw neighbours past this
-    // block's share come from the blocks that own them
+  {
     const int K = a.n_taps, hw = (K - 1) / 2, m4 = Mpad >> 2, n_ext = n_re + 2 * np;
     for (int i = tid; i < ncol * m4; i += kThreads) {
       const int c = i / m4, m0 = (i - c * m4) * 4;
@@ -798,34 +755,6 @@ __device__ __forceinline__ void front_body(FrontArgs a, Plan p) {
       if (m0 + 2 < m_valid) o[2 * n_re] = acc.z;
       if (m0 + 3 < m_valid) o[3 * n_re] = acc.w;
     }
-  } else {
-    product<RN>(
-        Mpad, (n_re + 2 * np + p.KT - 1) / p.KT * p.KT, p.KT, ncol, (n_re & 3) == 0, as, bs, a.sm,
-        [&](int k) -> const float* {
-          if (k < n_re) {
-            const int r = k / NS;
-            return cluster.map_shared_rank(hl, r) + (k - r * NS) * Mpad;
-          }
-          return k < n_re + 2 * np ? hv + (k - n_re) * Mpad : nullptr;
-        },
-        [&](int k, int c) -> const float* {
-          if (c >= ncol) return nullptr;
-          const int col = c0 + c;
-          if (k < n_re) return a.sm + static_cast<size_t>(k) * n_re + col;
-          k -= n_re;
-          if (k < np) return a.svb + static_cast<size_t>(k) * n_re + col;
-          k -= np;
-          if (k < np) return a.sve + static_cast<size_t>(np - 1 - k) * n_re + col;
-          return nullptr;
-        },
-        [&](int m0, int c, float4 v) {
-          *reinterpret_cast<float4*>(hss + c * Mpad + m0) = v;
-          float* o = h_out + static_cast<size_t>(m0) * n_re + c0 + c;
-          if (m0 < m_valid) o[0] = v.x;
-          if (m0 + 1 < m_valid) o[n_re] = v.y;
-          if (m0 + 2 < m_valid) o[2 * n_re] = v.z;
-          if (m0 + 3 < m_valid) o[3 * n_re] = v.w;
-        });
   }
   __syncthreads();
 
@@ -948,18 +877,11 @@ __device__ __forceinline__ void front_body(FrontArgs a, Plan p) {
 }
 
 template <int RN>
-__global__ void __launch_bounds__(kThreads, 1) front_kernel(FrontArgs a, Plan p) {
-  front_body<RN, false>(a, p);
-}
-
-template <int RN>
 __global__ void __launch_bounds__(kThreads, 1) front_kernel_banded(FrontArgs a, Plan p) {
-  front_body<RN, true>(a, p);
+  front_body<RN>(a, p);
 }
 
 using FrontFn = void (*)(FrontArgs, Plan);
-const FrontFn kFns[kMaxRN] = {front_kernel<1>, front_kernel<2>, front_kernel<3>,
-                                  front_kernel<4>};
 const FrontFn kBandedFns[kMaxRN] = {front_kernel_banded<1>, front_kernel_banded<2>,
                                     front_kernel_banded<3>, front_kernel_banded<4>};
 
@@ -973,7 +895,7 @@ int cluster_caps(int* cap) {
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev >= 16) return static_cast<int>(cudaErrorInvalidDevice);
   if (!have[dev]) {
-    e = cudaFuncSetAttribute(kFns[0], cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(kBandedFns[0], cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kSmemLimit));
     for (int S = 1; S <= kMaxCluster && e == cudaSuccess; ++S) {
       cudaLaunchConfig_t cfg = {};
@@ -987,7 +909,7 @@ int cluster_caps(int* cap) {
       attr[0].val.clusterDim.z = 1;
       cfg.attrs = attr;
       cfg.numAttrs = 1;
-      e = cudaOccupancyMaxActiveClusters(&cached[dev][S - 1], kFns[0], &cfg);
+      e = cudaOccupancyMaxActiveClusters(&cached[dev][S - 1], kBandedFns[0], &cfg);
     }
     if (e != cudaSuccess) return static_cast<int>(e);
     have[dev] = true;
@@ -1002,8 +924,7 @@ int cluster_caps(int* cap) {
 // device, one block an SM (the plan's cap).
 extern "C" int srs_front_caps(int* out) { return cluster_caps(out); }
 
-// out[0..8] = P, S, Mpad, RN, KT, NS, TS, blocks, smem of a launch (n_taps > 0:
-// the banded route's).
+// out[0..8] = P, S, Mpad, RN, KT, NS, TS, blocks, smem of a launch.
 extern "C" int srs_front_plan(long long* out, int B, int n_re, int nL, int n_pils, int hcp,
                               int k_ta, const int* cap, int n_taps) {
   Plan p;
@@ -1020,19 +941,17 @@ extern "C" int srs_front_plan(long long* out, int B, int n_re, int nL, int n_pil
 // smem_bytes: the plan's shared memory as the caller computed it
 // (front.launch_plan); a launch whose caller disagrees with the kernel's own
 // plan is refused, and so is a stride past 32 bits after the problem's.
-// taps / n_taps: the banded route's smoothing filter (n_taps odd; pair_l,
-// pair_r, sm, svb and sve are then not read), or null / 0: the dense route.
+// taps / n_taps: the smoothing filter (n_taps odd).
 extern "C" int srs_fused_front_strided_f32(
     const float* rx, const long long* re_idx, const long long* sym_idx,
     const long long* rx_st, const float* pil, const long long* pil_st, const float* beta,
-    const float* pair_l, const float* pair_r, const float* vp, const float* sm,
-    const float* svb, const float* sve, const float* ta_c, const float* ta_s,
+    const float* vp, const float* taps, const float* ta_c, const float* ta_s,
     const float* two_pi_sst_d, float* h_out, float* sc_out, int B, int n_cdm, int nL,
-    int nd, int n_re, int n_pils, int k_ta, int hcp, int cfo_possible, int cfo_compensate,
-    float two_pi_ns, float fft_size, float scs_hz, int smem_bytes, const float* taps,
-    int n_taps, void* stream) {
+    int nd, int n_re, int n_pils, int k_ta, int hcp, int n_taps, int cfo_possible,
+    int cfo_compensate, float two_pi_ns, float fft_size, float scs_hz, int smem_bytes,
+    void* stream) {
   if (nd < 1 || nd > kMaxDsym || k_ta < 1 || k_ta > n_re || (cfo_possible && nd < 2) ||
-      nL < 1 || nL > kMaxL || n_cdm != (nL + 1) / 2 || (n_taps > 0) != (taps != nullptr))
+      nL < 1 || nL > kMaxL || n_cdm != (nL + 1) / 2 || taps == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 1; i < 5; ++i)
     if (rx_st[i] < 0 || rx_st[i] > INT_MAX || pil_st[i] < 0 || pil_st[i] > INT_MAX)
@@ -1046,13 +965,12 @@ extern "C" int srs_fused_front_strided_f32(
   const auto i32 = [](long long v) { return static_cast<int>(v); };
   bool pil_vec = pil_st[2] == 1 && nL % 4 == 0 && (reinterpret_cast<size_t>(pil) & 15) == 0;
   for (int i = 0; i < 5; ++i) pil_vec = pil_vec && (i == 2 || pil_st[i] % 4 == 0);
-  FrontArgs a{rx, re_idx, sym_idx, pil, beta, pair_l, pair_r, vp, sm, svb, sve, ta_c, ta_s,
-              two_pi_sst_d, h_out, sc_out, rx_st[0], pil_st[0],
-              i32(rx_st[1]), i32(rx_st[2]), i32(rx_st[3]), i32(rx_st[4]),
+  FrontArgs a{rx, re_idx, sym_idx, pil, beta, vp, ta_c, ta_s, two_pi_sst_d, h_out, sc_out,
+              rx_st[0], pil_st[0], i32(rx_st[1]), i32(rx_st[2]), i32(rx_st[3]), i32(rx_st[4]),
               i32(pil_st[1]), i32(pil_st[2]), i32(pil_st[3]), i32(pil_st[4]), pil_vec,
               B, n_cdm, nL, nd, n_re, n_pils, k_ta, hcp,
               cfo_possible, cfo_compensate, two_pi_ns, fft_size, scs_hz, taps, n_taps};
-  const FrontFn fn = (n_taps > 0 ? kBandedFns : kFns)[p.RN - 1];
+  const FrontFn fn = kBandedFns[p.RN - 1];
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(p.smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1070,25 +988,4 @@ extern "C" int srs_fused_front_strided_f32(
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, fn, a, p);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
-}
-
-// The gathered form, contiguous: rx (B, 2, n_cdm, nd, n_re), pil (B, 2, nL,
-// nd, n_re). The entry every earlier version of this file has, with the same
-// arguments (ab_kernels.py times one checkout's against another's).
-extern "C" int srs_fused_front_f32(
-    const float* rx, const float* pil, const float* beta, const float* pair_l,
-    const float* pair_r, const float* vp, const float* sm, const float* svb,
-    const float* sve, const float* ta_c, const float* ta_s, const float* two_pi_sst_d,
-    float* h_out, float* sc_out, int B, int n_cdm, int nL, int nd, int n_re,
-    int n_pils, int k_ta, int hcp, int cfo_possible, int cfo_compensate,
-    float two_pi_ns, float fft_size, float scs_hz, int smem_bytes, void* stream) {
-  const long long rx_st[5] = {2LL * n_cdm * nd * n_re, 1LL * n_cdm * nd * n_re,
-                              1LL * nd * n_re, n_re, 1};
-  const long long pil_st[5] = {2LL * nL * nd * n_re, 1LL * nL * nd * n_re, 1LL * nd * n_re,
-                               n_re, 1};
-  return srs_fused_front_strided_f32(
-      rx, nullptr, nullptr, rx_st, pil, pil_st, beta, pair_l, pair_r, vp, sm, svb, sve, ta_c,
-      ta_s, two_pi_sst_d, h_out, sc_out, B, n_cdm, nL, nd, n_re, n_pils, k_ta, hcp,
-      cfo_possible, cfo_compensate, two_pi_ns, fft_size, scs_hz, smem_bytes, nullptr, 0,
-      stream);
 }

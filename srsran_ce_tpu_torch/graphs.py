@@ -21,8 +21,7 @@ capture launches nothing, so its counts are taken back, and each replay adds
 them again, once per kernel the graph launches, so the counters go on
 counting launches on the card (one call, one launch of each of its kernels).
 The same holds for a wrapper's launches by route (`ROUTE_COUNTERS`:
-`route_launches`, K1's by input form, K3's and `front_finish`'s; K1's
-`smoothing_launches`, by smoothing route).
+`route_launches`, K1's by input form, K3's and `front_finish`'s).
 A replay is the span `graphs.replay` (its input copies, the replay and the
 output clones), and its work on the card the event-timed `graphs.replay_ms`
 (`utils/spans.py`, while the spans are on).
@@ -100,7 +99,7 @@ def kernel_modules():
 
 #: a wrapper's counters of its launches by route, each {route: launches}; the
 #: routes of one module's counters have distinct names
-ROUTE_COUNTERS = ("route_launches", "smoothing_launches")
+ROUTE_COUNTERS = ("route_launches",)
 
 
 def _route_counters(m) -> list:

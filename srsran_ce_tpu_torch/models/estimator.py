@@ -174,25 +174,17 @@ def _serve_pallas_deferred_ok(plan: EstimatorPlan) -> bool:
     return True
 
 
-#: the widest band (pilot REs a CDM group) for which the plan builds the fused
-#: smoothing operator (`models.plan.make_hop_plan`)
-_DENSE_MAX_RE = 1024
-
-
 def _front_banded(hp: HopPlan) -> bool:
-    """True when K1 smooths the hop on its banded route: 'filter' smoothing
-    past the plan's dense operator (more than `_DENSE_MAX_RE` pilot REs, so
-    `smooth_mat` is None), from the plan's raised-cosine taps."""
-    return (hp.smoothing == "filter" and hp.smooth_mat is None and hp.n_re > _DENSE_MAX_RE
-            and hp.rc_taps is not None)
+    """True when K1 can smooth the hop on its banded route: 'filter'
+    smoothing, from the plan's raised-cosine taps, at any band."""
+    return hp.smoothing == "filter" and hp.rc_taps is not None
 
 
 def _front_pallas_ok(plan: EstimatorPlan) -> bool:
     """True when the fused front kernel (K1) covers the plan: 'filter'
-    smoothing (no alpha blend) through the plan's fused matrices or, past
-    1,024 pilot REs, K1's banded route (`_front_banded`), the first-pair CFO
-    estimator, no time interpolation, the paired CDM layer layout, the
-    direct-DFT TA path, an interpolation or inpainting operator for the fill,
+    smoothing (no alpha blend) on K1's banded route (`_front_banded`), the
+    first-pair CFO estimator, no time interpolation, the paired CDM layer
+    layout, the direct-DFT TA path, an interpolation or inpainting operator for the fill,
     and a launch of the kernel for the hop's shape (`front.launch_plan`, the
     plan the kernel's wrapper launches; whether one exists does not depend on
     the batch or the card)."""
@@ -207,8 +199,7 @@ def _front_pallas_ok(plan: EstimatorPlan) -> bool:
     for hp in (plan.hop1, plan.hop2):
         if hp is None:
             continue
-        banded = _front_banded(hp)
-        if (hp.smooth_mat is None and not banded) or hp.cfo_pair_dt is not None:
+        if not _front_banded(hp) or hp.cfo_pair_dt is not None:
             return False
         if hp.vp_matrix is None and hp.n_pils != 1:
             return False
@@ -224,33 +215,19 @@ def _front_pallas_ok(plan: EstimatorPlan) -> bool:
             return False
         try:
             _k1.launch_plan(1, hp.n_re, nL, hp.n_pils, hp.half_cp_len,
-                            hp.ta_dft_cos.shape[0], _k1.NOMINAL_CAPS,
-                            **({"n_taps": hp.rc_taps.size} if banded else {}))
+                            hp.ta_dft_cos.shape[0], _k1.NOMINAL_CAPS, hp.rc_taps.size)
         except ValueError:
             return False
     return True
 
 
 def _front_mats(hp: HopPlan) -> dict:
-    """Static matrices of the fused front kernel, in plan order. The TPU
-    version folds two flips into pair_r and smooth_ve (Mosaic has no lane
-    reversal); here they are dropped and the kernel indexes the right edge
-    reversed. `vp` is the fit matrix itself (v = vp @ y); a (1, 1) zero stands
-    in when n_pils == 1 (no fit). On the banded route (`_front_banded`) the
-    raised-cosine taps stand in for the five smoothing matrices."""
+    """Static arrays of the fused front kernel: the raised-cosine taps, which
+    stand in for the TPU kernel's five smoothing matrices (the plan's fused
+    operator holds the same filter), `vp`, the fit matrix itself (v = vp @ y;
+    a (1, 1) zero stands in when n_pils == 1, no fit), and the TA DFT."""
     vp = hp.vp_matrix if hp.vp_matrix is not None else np.zeros((1, 1))
-    if _front_banded(hp):
-        return dict(taps=hp.rc_taps, vp=vp, ta_c=hp.ta_dft_cos, ta_s=hp.ta_dft_sin)
-    return dict(
-        pair_l=hp.pair_l_mat,
-        pair_r=hp.pair_r_mat,
-        vp=vp,
-        smooth=hp.smooth_mat,
-        smooth_vb=hp.smooth_vb_mat,
-        smooth_ve=hp.smooth_ve_mat,
-        ta_c=hp.ta_dft_cos,
-        ta_s=hp.ta_dft_sin,
-    )
+    return dict(taps=hp.rc_taps, vp=vp, ta_c=hp.ta_dft_cos, ta_s=hp.ta_dft_sin)
 
 
 def _gather_rx(hp: HopPlan, ht: dict, rg: torch.Tensor) -> torch.Tensor:
@@ -1079,8 +1056,9 @@ def _front_serves(plan_key, out_layout: str) -> bool:
         return False
     if out_layout == "factored":
         return True
+    # past the plan's dense operator (1,024 pilot REs) the grid stays on "xla"
     hops = [hp for hp in (plan.hop1, plan.hop2) if hp is not None]
-    return _serve_pallas_deferred_ok(plan) and not any(_front_banded(hp) for hp in hops)
+    return _serve_pallas_deferred_ok(plan) and all(hp.smooth_mat is not None for hp in hops)
 
 
 def served_kernels(
@@ -1097,10 +1075,10 @@ def served_kernels(
     CUDA device when the fused front covers the plan; "xla" otherwise (the
     CPU, and the plans K1 cannot take: learned or wiener smoothing, time
     interpolation, the CFO pair estimator, more than 8 layers, unpaired CDM
-    slices). A band past 1,024 pilot REs takes K1's banded route for out
-    "factored" only: its "grid" (K2's serve fill over the wide operator after
-    it) stays on "xla". Both tiers compute one algorithm to within float32
-    rounding. Decided once per plan key."""
+    slices). K1 smooths every band on its banded route; a band past 1,024
+    pilot REs takes it for out "factored" only: its "grid" (K2's serve fill
+    over the wide operator after it) stays on "xla". Both tiers compute one
+    algorithm to within float32 rounding. Decided once per plan key."""
     if torch.device(device).type != "cuda":
         return "xla"
     if hop2 is not None and hop2.is_empty:

@@ -4,9 +4,11 @@ Replaces the TPU kernel `srsran_ce_tpu/ops/pallas/kernels.py:fused_front`
 (`_front_kernel`). Per hop and problem it computes the LS de-spread
 rx * conj(pilot); the first-pair CFO by atan2 summed over CDM groups, then the
 compensation at the DM-RS symbol times; the time average / beta / n_dsym; the
-fused smoothing H @ smooth + vb @ smooth_vb + flip(ve) @ smooth_ve with
-unwrap-based virtual pilots; the direct-DFT time alignment (PDP over the
-+-half-CP bins, first maximum, head window wins ties); noise, RSRP and EPRE.
+smoothing by the raised-cosine taps over the extended band [vb | H | flip(ve)]
+with unwrap-based virtual pilots (what the TPU kernel's fused operator
+H @ smooth + vb @ smooth_vb + flip(ve) @ smooth_ve holds); the direct-DFT time
+alignment (PDP over the +-half-CP bins, first maximum, head window wins ties);
+noise, RSRP and EPRE.
 
 CUDA kernel (csrc/front.cu), the PR 2 body redesigned for Hopper. What
 bounded the first body (one block a problem) was reuse, not the FMA rate: each
@@ -14,18 +16,18 @@ of its 128 blocks streamed the constant matrices (smoothing 636 x 636 = 1.6 MB
 and the TA DFT 2 x 636 x 288 = 1.5 MB at c2) from L2 on its own, about 400 MB
 a batch, on 8 warps an SM. Now:
 - a cluster of S blocks takes P problems (P * 2nL <= 32 rows), so every
-  K tile of `smooth`, `smooth_vb`/`smooth_ve` and `ta_c`/`ta_s` is staged once
-  in shared memory (a two-stage cp.async ring) for all P problems, and each
-  of a block's 512 threads keeps a 4-row x RN-column register tile;
-- the n_re columns of the smoothing product and the TA bins are split over
-  the S blocks; a block keeps only its columns of H and Hs, and each K step
-  reads the A rows from the block that owns them; the other partials (EPRE,
-  CFO correlations, edge products, noise / RSRP, the PDP) go through
-  distributed shared memory too, summed in rank order;
+  K tile of `ta_c`/`ta_s` is staged once in shared memory (a two-stage
+  cp.async ring) for all P problems, and each of a block's 512 threads keeps
+  a 4-row x RN-column register tile;
+- the n_re columns of H and Hs and the TA bins are split over the S blocks;
+  a block keeps only its columns of H and Hs, and each K step of the TA
+  product reads the A rows from the block that owns them; the other partials
+  (EPRE, CFO correlations, noise / RSRP, the PDP) go through distributed
+  shared memory too, summed in rank order;
 - the plan takes the split with the fewest FMAs a block among those whose
   clusters are all resident at once with one block an SM: an H100 holds 30
-  clusters of 4 (its GPCs), so c2 at B=128 runs 2 problems x 2 blocks on
-  128 SMs rather than 4 x 4, whose 32 clusters would not all fit;
+  clusters of 4 (its GPCs), so 273 PRB at B=128 runs 2 problems x 2 blocks
+  on 128 SMs rather than 4 x 4, whose 32 clusters would not all fit;
 - the serial parts (the CFO atan2 over CDM groups, the virtual-pilot atan2 /
   unwrap / fit, the first-maximum TA argmax) run once per problem, exactly
   as before.
@@ -33,16 +35,15 @@ a batch, on 8 warps an SM. Now:
 `make_plan` in csrc/front.cu number for number (a card test compares them
 through `srs_front_plan`); a shape that fits no plan raises.
 
-Smoothing routes, counted in `smoothing_launches`: "dense", the plan's fused
-operator (n_re x n_re with its edge matrices), which the plan builds up to
-1,024 pilot REs; and "banded", for the wider bands (a 273-PRB hop has 1,638),
-the raised-cosine taps themselves (`mats["taps"]`, 15 at comb 2): each block
+Smoothing (the banded route, `front_kernel_banded`): the raised-cosine taps
+themselves (`mats["taps"]`, 15 at comb 2), at every band: each block
 pair-averages its columns of H, takes the edge columns the virtual pilots fit
-from their owners, and filters its columns over the extended band, the 7
-columns past its share on each side read from its neighbours' shared memory.
-A dense product there would cost n_re + 2 n_pils FMAs a row and column (8 x
-1,638 x 1,652 a problem), the taps 15. The banded route is a separate
-instantiation (`front_kernel_banded`); the dense one compiles as before.
+from their owners, and filters its columns over the extended band, the hw =
+(K - 1) / 2 columns past its share on each side read from its neighbours'
+shared memory. The plan's dense operator (n_re x n_re with its edge matrices,
+built up to 1,024 pilot REs for the "xla" tier) holds the same filter, but a
+product with it costs n_re + 2 n_pils FMAs a row and column (8 x 636 x 650 a
+problem at 106 PRB), the taps K.
 
 Inputs, in one of two forms that the kernel reads through one accessor (the
 element strides of both inputs, and the RE and symbol tables or none):
@@ -78,10 +79,9 @@ Precision: the TPU runs matmul_precision "high" as a 3-pass bf16 split
 Left out on purpose (Mosaic workarounds of the TPU kernel): the batch block
 with its floor of 2 and batch padding, and the sublane-column scalar layout —
 here any B works, B=1 included. The two flipped matrices of the TPU kernel
-(`pair_r[:, ::-1]`, `smooth_ve[::-1]`, Mosaic has no lane reversal) are
-dropped as well: the matrices stay in plan order and the kernel indexes them
-reversed. The TPU's static `sst_d` tuple is the small device array
-`two_pi_sst_d`.
+(`pair_r[:, ::-1]`, `smooth_ve[::-1]`, Mosaic has no lane reversal) go with
+the dense operator: the kernel reads the right edge reversed. The TPU's static
+`sst_d` tuple is the small device array `two_pi_sst_d`.
 """
 from __future__ import annotations
 
@@ -100,15 +100,12 @@ launches = 0
 #: the same launches by input form: "staged" (the grid and the pilots as the
 #: caller staged them) or "gathered"
 route_launches = {"staged": 0, "gathered": 0}
-#: the same launches by smoothing route: "dense" (the plan's fused operator)
-#: or "banded" (the raised-cosine taps, `mats["taps"]`)
-smoothing_launches = {"dense": 0, "banded": 0}
 
 _MAX_LAYERS = 8
 _MAX_PILS = 16
 _MAX_DSYM = 32
 _THREADS = 512
-_MAX_M = 32  # rows of the products a cluster: P * 2nL
+_MAX_M = 32  # rows of the TA product a cluster: P * 2nL
 _MAX_CLUSTER = 8
 _MAX_RN = 4
 _STAGES = 2  # depth of the kernel's operand rings
@@ -122,14 +119,13 @@ SMEM_HALF = 233472 // 2 - 1024
 NOMINAL_CAPS = tuple(132 // s for s in range(1, 9))
 
 _PTR = ctypes.c_void_p
-#: `srs_fused_front_f32`, the gathered form (contiguous)
-_ARGTYPES = [_PTR] * 14 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3 + [ctypes.c_int, _PTR]
-#: `srs_fused_front_strided_f32`: rx, its tables and strides, pil and its
-#: strides, then the gathered form's arguments after its pil, the banded
-#: route's taps and their count before the stream
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-_STRIDED_ARGTYPES = ([_PTR] * 3 + [_STRIDES, _PTR, _STRIDES] + _ARGTYPES[2:-1]
-                     + [_PTR, ctypes.c_int, _PTR])
+#: `srs_fused_front_strided_f32`: rx, its tables and strides, pil and its
+#: strides, beta, vp, taps, ta_c, ta_s, two_pi_sst_d, h_out, sc_out; B, n_cdm,
+#: nL, nd, n_re, n_pils, k_ta, half_cp_len, n_taps, cfo_possible,
+#: cfo_compensate; 2 pi n_samples, fft_size, scs_hz; smem, stream
+_STRIDED_ARGTYPES = ([_PTR] * 3 + [_STRIDES, _PTR, _STRIDES] + [_PTR] * 8 + [ctypes.c_int] * 11
+                     + [ctypes.c_float] * 3 + [ctypes.c_int, _PTR])
 PLAN_ARGTYPES = ([ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6
                  + [ctypes.POINTER(ctypes.c_int), ctypes.c_int])
 CAPS_ARGTYPES = [ctypes.POINTER(ctypes.c_int)]
@@ -138,8 +134,8 @@ CAPS_ARGTYPES = [ctypes.POINTER(ctypes.c_int)]
 @dataclass(frozen=True)
 class LaunchPlan:
     """P problems a cluster of S blocks; Mpad rows (P * 2nL padded to 4, 8, 16
-    or 32); RN register columns a thread; K tiles of KT rows; NS columns of
-    the smoothing product and TS TA bins a block; blocks in all; smem bytes a
+    or 32); RN register columns a thread (the TA product's); K tiles of KT
+    rows; NS columns of H and TS TA bins a block; blocks in all; smem bytes a
     block."""
 
     P: int
@@ -158,31 +154,27 @@ def _pad4(x: int) -> int:
 
 
 def launch_plan(batch: int, n_re: int, nL: int, n_pils: int, half_cp_len: int, k_ta: int,
-                caps, n_taps: int = 0) -> LaunchPlan:
+                caps, n_taps: int) -> LaunchPlan:
     """The launch of `batch` problems as `make_plan` (csrc/front.cu) computes it.
 
     `caps[S - 1]`: the clusters of S blocks the card holds at once with one
     block an SM (`kernel_caps`). Among P (problems a cluster, at most 32 rows)
-    and S (1..8 blocks a cluster) whose clusters are all resident at once,
-    whose column share needs at most 4 register columns a thread and whose
-    block fits the shared memory (the largest K tile of 32, 16 or 8 that
-    does), the one with the fewest FMAs a block, padding included; on a tie
-    the larger P, then the smaller S. If none is resident at once, the same
-    search without that condition, so whether a plan exists depends only on
-    the shape, never on `batch` or `caps`. A launch asks for at least half an
-    SM's shared memory, so that a block has its SM to itself. NS and TS are
-    multiples of 4. Raises when no plan fits.
-
-    `n_taps` > 0: the banded route's plan (a filter of n_taps taps, odd, in
-    place of the dense smoothing product): its cost counts n_taps FMAs a
-    column and row, and its RN serves the TA product alone (at most 4, in
-    passes past that)."""
+    and S (1..8 blocks a cluster) whose clusters are all resident at once and
+    whose block fits the shared memory (the largest K tile of 32, 16 or 8 that
+    does), the one with the fewest FMAs a block, padding included (the
+    filter's `n_taps` (odd) a row and column of the block's share, and the TA
+    passes); on a tie the larger P, then the smaller S. If none is resident at
+    once, the same search without that condition, so whether a plan exists
+    depends only on the shape, never on `batch` or `caps`. RN serves the TA
+    product (at most 4, in passes past that). A launch asks for at least half
+    an SM's shared memory, so that a block has its SM to itself. NS and TS are
+    multiples of 4. Raises when no plan fits."""
     rows, np_, nbins = 2 * nL, n_pils, 2 * half_cp_len
-    if (batch < 1 or not 1 <= nL <= _MAX_LAYERS or not 1 <= np_ <= _MAX_PILS or n_re < 1
+    if (batch < 1 or not 1 <= nL <= _MAX_LAYERS or not 1 <= np_ <= _MAX_PILS or n_re < np_
             or half_cp_len < 1 or not 1 <= k_ta <= n_re or len(caps) != _MAX_CLUSTER
-            or n_taps < 0 or (n_taps > 0 and (n_taps % 2 == 0 or n_re < np_))):
+            or n_taps < 1 or n_taps % 2 == 0):
         raise ValueError(f"no front launch for batch={batch}, nL={nL}, n_pils={n_pils}, "
-                         f"n_re={n_re}, half_cp_len={half_cp_len}, k_ta={k_ta}")
+                         f"n_re={n_re}, half_cp_len={half_cp_len}, k_ta={k_ta}, n_taps={n_taps}")
     for resident in (True, False):
         best = None
         for P in range(min(_MAX_M // rows, batch), 0, -1):
@@ -196,19 +188,16 @@ def launch_plan(batch: int, n_re: int, nL: int, n_pils: int, half_cp_len: int, k
                     continue
                 NS = _pad4(-(-n_re // S))
                 TS = _pad4(-(-nbins // S))
-                RN = min(_MAX_RN, -(-2 * TS // NX)) if n_taps else -(-NS // NX)
-                if RN > _MAX_RN:
-                    continue
+                RN = min(_MAX_RN, -(-2 * TS // NX))
                 W = NX * RN
-                smooth = n_taps * NS if n_taps else W * (n_re + 2 * np_)
-                cost = Mpad * (smooth + -(-2 * TS // W) * W * k_ta)
+                cost = Mpad * (n_taps * NS + -(-2 * TS // W) * W * k_ta)
                 if best is not None and cost >= best[0]:
                     continue
                 for KT in (32, 16, 8):
                     floats = (max(NS, 2 * TS) * Mpad + NS * Mpad + 2 * np_ * Mpad
                               + _STAGES * KT * (Mpad + W)
                               + _pad4(P * nbins) + 2 * _pad4(P * (rows + 1))
-                              + _pad4(2 * S * P) + 2 * _pad4(2 * Mpad * np_)
+                              + _pad4(2 * S * P) + _pad4(2 * Mpad * np_)
                               + _pad4(2 * P * _MAX_DSYM) + _pad4(3 * P)
                               + _pad4(_THREADS // 32 * (rows + 1)))
                     if 4 * floats <= SMEM_LIMIT:
@@ -235,18 +224,16 @@ def fused_front_plain(
     cfo_possible: bool,
     cfo_compensate: bool,
 ):
-    """Plain PyTorch version of the fused front (same math and operation order
-    as the TPU kernel body). Returns (h_s (B, 2, nL, n_re), scalars (B, 8)) with
+    """Plain PyTorch version of the fused front (the TPU kernel body's math and
+    operation order, its fused smoothing operator applied as the taps it holds,
+    `banded_smooth`). Returns (h_s (B, 2, nL, n_re), scalars (B, 8)) with
     scalar columns [cfo, ta, noise, rsrp, epre, 0, 0, 0].
 
-    `mats` with "taps" (the raised-cosine filter, (K,), K odd) in place of
-    pair_l, pair_r, smooth, smooth_vb and smooth_ve takes the banded route
-    (`banded_smooth`): the same smoothing as the dense operator, for bands
-    the plan builds no operator for (n_re > 1024); n_pils is then vp's size."""
+    `mats`: taps (the raised-cosine filter, (K,), K odd), vp (n_pils,
+    n_pils), ta_c, ta_s and two_pi_sst_d."""
     B, _, n_cdm, nd, n_re = rx_ri.shape
     nL = pil_ri.shape[2]
-    banded = "taps" in mats
-    n_pils = mats["vp"].shape[0] if banded else mats["pair_l"].shape[1]
+    n_pils = mats["vp"].shape[0]
     k_ta = mats["ta_c"].shape[0]
     dt = rx_ri.dtype
     with full_f32_matmul():
@@ -287,17 +274,13 @@ def fused_front_plain(
         hp_r = rec_r.sum(2) / b3 / nd  # (B, nL, n_re)
         hp_i = rec_i.sum(2) / b3 / nd
         H = torch.cat([hp_r, hp_i], dim=1)  # (B, 2nL, n_re), rows (ri, l)
-        if banded:
-            if nL >= 2:  # the CDM pair average, which the dense operator holds
-                m = n_re // 2
-                avg = (H[..., 0:2 * m:2] + H[..., 1:2 * m:2]) * 0.5
-                H = torch.cat([avg[..., None].expand(avg.shape + (2,)).reshape(B, 2 * nL, 2 * m),
-                               H[..., 2 * m:]], dim=-1)
-            e_l = H[..., :n_pils]
-            e_rf = torch.flip(H[..., n_re - n_pils:], dims=(-1,))
-        else:
-            e_l = torch.matmul(H, mats["pair_l"])  # (B, 2nL, n_pils)
-            e_rf = torch.flip(torch.matmul(H, mats["pair_r"]), dims=(-1,))
+        if nL >= 2:  # the CDM pair average, which the dense operator holds
+            m = n_re // 2
+            avg = (H[..., 0:2 * m:2] + H[..., 1:2 * m:2]) * 0.5
+            H = torch.cat([avg[..., None].expand(avg.shape + (2,)).reshape(B, 2 * nL, 2 * m),
+                           H[..., 2 * m:]], dim=-1)
+        e_l = H[..., :n_pils]  # (B, 2nL, n_pils)
+        e_rf = torch.flip(H[..., n_re - n_pils:], dims=(-1,))
 
         def virtual(e):
             if n_pils == 1:
@@ -310,16 +293,7 @@ def fused_front_plain(
             v_ph = torch.matmul(ph, vp_t)
             return torch.cat([v_amp * torch.cos(v_ph), v_amp * torch.sin(v_ph)], dim=1)
 
-        vb = virtual(e_l)
-        vef = virtual(e_rf)
-        if banded:
-            Hs = banded_smooth(H, vb, vef, mats["taps"])
-        else:
-            Hs = (
-                torch.matmul(H, mats["smooth"])
-                + torch.matmul(vb, mats["smooth_vb"])
-                + torch.matmul(vef, torch.flip(mats["smooth_ve"], dims=(0,)))
-            )
+        Hs = banded_smooth(H, virtual(e_l), virtual(e_rf), mats["taps"])
         hs_r, hs_i = Hs[:, :nL], Hs[:, nL:]
 
         Hk = Hs[:, :, :k_ta]
@@ -368,7 +342,7 @@ def fused_front_plain(
 
 def banded_smooth(h: torch.Tensor, vb: torch.Tensor, vef: torch.Tensor,
                   taps: torch.Tensor) -> torch.Tensor:
-    """The banded route's smoothing: (..., n_re) rows, already pair-averaged,
+    """K1's smoothing: (..., n_re) rows, already pair-averaged,
     filtered by the K taps over the extended band x = [vb | h | flip(vef)]
     (n_pils virtual pilots each side), out[j] = sum_t taps[t] x[j + n_pils +
     hw - t] with zero outside x (hw = (K - 1) / 2): the 'same' convolution of
@@ -413,9 +387,9 @@ def gather_staged(rg_ri: torch.Tensor, pil_ri: torch.Tensor, re_idx: torch.Tenso
     return rx, pil_ri.permute(0, 1, 4, 3, 2).contiguous()
 
 
-def _check_staged(rg_ri, pil_ri, re_idx, dmrs_sym_idx, n_re: int):
-    """Validate the staged form's grid, pilots and tables (on either device):
-    returns (n_cdm, nd, nL)."""
+def _check_staged(rg_ri, pil_ri, re_idx, dmrs_sym_idx):
+    """Validate the staged form's grid, pilots and tables (on either device),
+    the band's width read from the RE table: returns (n_cdm, nd, nL, n_re)."""
     if rg_ri.dim() != 4 or rg_ri.shape[1] != 2 or rg_ri.shape[0] < 1:
         raise ValueError(f"the staged grid must be (B>=1, 2, n_sc, n_sym), got {tuple(rg_ri.shape)}")
     for name, t in (("re_idx", re_idx), ("dmrs_sym_idx", dmrs_sym_idx)):
@@ -430,9 +404,10 @@ def _check_staged(rg_ri, pil_ri, re_idx, dmrs_sym_idx, n_re: int):
                          f"{tuple(pil_ri.shape)}")
     nd, nL = dmrs_sym_idx.shape[0], pil_ri.shape[4]
     n_cdm = (nL + 1) // 2
-    check_shape("pil_ri", pil_ri, (rg_ri.shape[0], 2, n_re, nd, nL))
+    n_re = re_idx.shape[0] // n_cdm
     check_shape("re_idx", re_idx, (n_cdm * n_re,))
-    return n_cdm, nd, nL
+    check_shape("pil_ri", pil_ri, (rg_ri.shape[0], 2, n_re, nd, nL))
+    return n_cdm, nd, nL, n_re
 
 
 def fused_front(
@@ -457,25 +432,20 @@ def fused_front(
     the hop's `re_idx` and `dmrs_sym_idx`. Gathered form: `rx_ri` (B, 2,
     n_cdm, nd, n_re), `pil_ri` (B, 2, nL, nd, n_re), no tables. The grid's
     rank says which (module docstring). `mats`: the hop's tensors of
-    `models.plan.plan_tensors` (pair_l, pair_r, vp, smooth, smooth_vb,
-    smooth_ve, ta_c, ta_s, two_pi_sst_d), or for the banded route taps, vp,
-    ta_c, ta_s and two_pi_sst_d, counted in `smoothing_launches`. CPU tensors go through
-    `fused_front_plain` (the staged form gathered first, by `gather_staged`);
+    `models.plan.plan_tensors` (taps, vp, ta_c, ta_s, two_pi_sst_d). CPU
+    tensors go through `fused_front_plain` (the staged form gathered first, by `gather_staged`);
     CUDA tensors launch the kernel."""
     kw = dict(
         n_samples=n_samples, half_cp_len=half_cp_len, fft_size=fft_size, scs_hz=scs_hz,
         cfo_possible=cfo_possible, cfo_compensate=cfo_compensate,
     )
-    banded = "taps" in mats
     staged = rx_ri.dim() == 4
-    if banded:
-        n_re = pil_ri.shape[2] if staged else pil_ri.shape[-1]
-    else:
-        n_re = mats["smooth"].shape[0]
     if staged:
-        n_cdm, nd, nL = _check_staged(rx_ri, pil_ri, re_idx, dmrs_sym_idx, n_re)
+        n_cdm, nd, nL, n_re = _check_staged(rx_ri, pil_ri, re_idx, dmrs_sym_idx)
     elif re_idx is not None or dmrs_sym_idx is not None:
         raise ValueError("the gathered form (rx_ri (B, 2, n_cdm, n_dsym, n_re)) takes no tables")
+    else:
+        n_re = pil_ri.shape[-1]
     if rx_ri.device.type == "cpu":
         if staged:
             rx_ri, pil_ri = gather_staged(rx_ri, pil_ri, re_idx, dmrs_sym_idx)
@@ -492,16 +462,14 @@ def fused_front(
         check_shape("rx_ri", rx_ri, (rx_ri.shape[0], 2, n_cdm, nd, n_re))
         check_shape("pil_ri", pil_ri, (rx_ri.shape[0], 2, nL, nd, n_re))
     B = rx_ri.shape[0]
-    n_pils = mats["vp"].shape[0] if banded else mats["pair_l"].shape[1]
+    n_pils = mats["vp"].shape[0]
     k_ta, n_bins = mats["ta_c"].shape
     rotate = cfo_possible and cfo_compensate
     vp = mats["vp"] if n_pils > 1 else None
     sst_d = mats["two_pi_sst_d"] if rotate else None
-    dense = {} if banded else {k: mats[k] for k in ("pair_l", "pair_r", "smooth", "smooth_vb",
-                                                    "smooth_ve")}
-    taps = mats["taps"] if banded else None
+    taps = mats["taps"]
     device = check_cuda_f32(beta=beta, vp=vp, ta_c=mats["ta_c"], ta_s=mats["ta_s"],
-                            two_pi_sst_d=sst_d, taps=taps, **dense)
+                            two_pi_sst_d=sst_d, taps=taps)
     for name, t in (("rx_ri", rx_ri), ("pil_ri", pil_ri), ("re_idx", re_idx),
                     ("dmrs_sym_idx", dmrs_sym_idx)):
         if t is not None and t.device != device:
@@ -521,20 +489,12 @@ def fused_front(
     check_shape("beta", beta, (B,))
     if vp is not None:
         check_shape("vp", vp, (n_pils, n_pils))
-    if banded:
-        if taps.dim() != 1 or taps.shape[0] % 2 == 0:
-            raise ValueError(f"the banded route takes an odd number of taps, got "
-                             f"{tuple(taps.shape)}")
-    else:
-        check_shape("pair_l", mats["pair_l"], (n_re, n_pils))
-        check_shape("pair_r", mats["pair_r"], (n_re, n_pils))
-        check_shape("smooth", mats["smooth"], (n_re, n_re))
-        check_shape("smooth_vb", mats["smooth_vb"], (n_pils, n_re))
-        check_shape("smooth_ve", mats["smooth_ve"], (n_pils, n_re))
+    if taps.dim() != 1 or taps.shape[0] % 2 == 0:
+        raise ValueError(f"the smoothing takes an odd number of taps, got {tuple(taps.shape)}")
     check_shape("ta_s", mats["ta_s"], (k_ta, n_bins))
     if sst_d is not None:
         check_shape("two_pi_sst_d", sst_d, (nd,))
-    n_taps = taps.shape[0] if banded else 0
+    n_taps = taps.shape[0]
     plan = launch_plan(B, n_re, nL, n_pils, half_cp_len, k_ta, kernel_caps(device), n_taps)
 
     if staged:  # strides (problem, ri, CDM group, symbol, row), (problem, ri, l, d, k)
@@ -551,18 +511,14 @@ def fused_front(
     launch(
         "fused_front", bind("front", "srs_fused_front_strided_f32", _STRIDED_ARGTYPES), device,
         ptr(rx_ri), ptr(re_idx), ptr(dmrs_sym_idx), strides(rx_st), ptr(pil_ri), strides(pil_st),
-        ptr(beta), ptr(dense.get("pair_l")), ptr(dense.get("pair_r")),
-        ptr(vp), ptr(dense.get("smooth")), ptr(dense.get("smooth_vb")),
-        ptr(dense.get("smooth_ve")),
-        ptr(mats["ta_c"]), ptr(mats["ta_s"]), ptr(sst_d), ptr(h_out), ptr(sc_out),
-        B, n_cdm, nL, nd, n_re, n_pils, k_ta, half_cp_len,
+        ptr(beta), ptr(vp), ptr(taps), ptr(mats["ta_c"]), ptr(mats["ta_s"]), ptr(sst_d),
+        ptr(h_out), ptr(sc_out), B, n_cdm, nL, nd, n_re, n_pils, k_ta, half_cp_len, n_taps,
         int(cfo_possible), int(cfo_compensate),
-        2.0 * math.pi * n_samples, float(fft_size), float(scs_hz), plan.smem, ptr(taps), n_taps,
+        2.0 * math.pi * n_samples, float(fft_size), float(scs_hz), plan.smem,
     )
     global launches
     launches += 1
     route_launches["staged" if staged else "gathered"] += 1
-    smoothing_launches["banded" if banded else "dense"] += 1
     return h_out, sc_out
 
 
@@ -586,7 +542,7 @@ def kernel_caps(device) -> tuple:
 
 
 def kernel_plan(batch: int, n_re: int, nL: int, n_pils: int, half_cp_len: int, k_ta: int,
-                caps, n_taps: int = 0) -> LaunchPlan:
+                caps, n_taps: int) -> LaunchPlan:
     """The kernel's own plan (`srs_front_plan` of the built library), to hold
     `launch_plan` to it on the card."""
     out = (ctypes.c_longlong * 9)()

@@ -1,11 +1,14 @@
 """K1's banded smoothing route, the tier rule that admits it, and the plain
 PyTorch reference of the wide CE cell, on the CPU.
 
-Past 1,024 pilot REs the plan builds no fused smoothing operator
-(`smooth_mat` None, as the JAX plan); K1 then smooths with the raised-cosine
-taps over the extended band (`front.banded_smooth`). Held here:
-  - the plain banded route against the plain dense route wherever both
-    exist (n_re <= 1024), float64 within 1e-12 relative;
+K1 smooths every band with the raised-cosine taps over the extended band
+(`front.banded_smooth`); up to 1,024 pilot REs the plan also builds the fused
+smoothing operator that holds the same filter (`smooth_mat`, as the JAX plan;
+the "xla" tier applies it), past that none. Held here:
+  - the plain K1 against the same front smoothed by the plan's dense operator
+    at every kind of plan the operator exists for (n_re <= 1024: one and two
+    PRBs, an odd band, a PRB hole, 8 layers, two hops), float64 within 1e-12
+    relative, the TA bins equal;
   - the pallas_front tier on the banded route (K1's and `front_finish`'s
     plain versions) against the JAX package's "xla" estimator at 180 PRB
     (n_re 1080), float64, within the ref-layout bound of 1e-12 NMSE;
@@ -49,12 +52,14 @@ def rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
 
 
-def banded_mats(hp, dense: dict) -> dict:
-    """The banded route's tensors of a hop beside the dense route's: the
-    taps in place of the five smoothing matrices."""
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dense["ta_c"].dtype)
-    return dict(taps=t(hp.rc_taps), vp=dense["vp"], ta_c=dense["ta_c"], ta_s=dense["ta_s"],
-                two_pi_sst_d=dense["two_pi_sst_d"])
+def dense_smooth(hp):
+    """K1's smoothing step as the plan's dense operator, in `banded_smooth`'s
+    place: (h, vb, vef, taps) -> h @ smooth + vb @ smooth_vb + vef @
+    flip(smooth_ve). h comes pair-averaged; the operator folds the same
+    average in, and averaging twice changes nothing."""
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a))
+    sm, svb, sve = t(hp.smooth_mat), t(hp.smooth_vb_mat), t(hp.smooth_ve_mat[::-1])
+    return lambda h, vb, vef, taps: h @ sm + vb @ svb + vef @ sve
 
 
 DENSE_CASES = [
@@ -64,13 +69,20 @@ DENSE_CASES = [
     ("nL2_two_hops", dict(n_prbs=12, n_layers=2, two_hops=True)),
     ("nL1_cfo_off", dict(n_prbs=20, n_layers=1, cfo_compensate=False)),
     ("nL4_106prb", dict(n_prbs=106, n_layers=4)),
+    ("one_prb", dict(n_prbs=1, n_layers=2)),
+    ("one_prb_comb4_odd_band", dict(n_prbs=1, n_layers=4, comb=4)),
+    ("two_prbs", dict(n_prbs=2, n_layers=4)),
+    ("prb_hole", dict(n_prbs=20, n_layers=3, prb_start=6, n_prb_total=30, prb_hole=(5, 8))),
+    ("nL8_comb4", dict(n_prbs=16, n_layers=8, comb=4)),
 ]
 
 
 @pytest.mark.parametrize("name,kw", DENSE_CASES, ids=[c[0] for c in DENSE_CASES])
-def test_banded_route_matches_the_dense_route(name, kw):
-    """Both routes of the plain K1 on the same staged inputs, float64."""
-    case = synthetic.make_case(seed=7, comb=2, snr_db=25.0, **kw)
+def test_banded_route_matches_the_dense_route(name, kw, monkeypatch):
+    """The plain K1 on staged inputs against the same front smoothed by the
+    plan's dense operator, float64; the operator's edge columns (pair_l,
+    pair_r) are the pair-averaged band's first and last n_pils."""
+    case = synthetic.make_case(seed=7, **dict(dict(comb=2, snr_db=25.0), **kw))
     nL = case.pilots.shape[2]
     plan = tplan.make_plan(case.hop1, case.hop2, case.config, nL)
     pt = tplan.plan_tensors(plan, "cpu", torch.float64)
@@ -81,14 +93,24 @@ def test_banded_route_matches_the_dense_route(name, kw):
     beta = torch.as_tensor(case.beta * (1.0 + 0.1 * np.arange(3)))
     d0 = 0
     for hp, ht in zip((plan.hop1, plan.hop2), pt["hops"]):
+        assert hp.smooth_mat is not None and est._front_banded(hp) and "taps" in ht["front"]
+        h = rng.standard_normal((2 * nL, hp.n_re))
+        avg = h.copy()
+        if nL >= 2:
+            m = hp.n_re // 2
+            avg[:, 0:2 * m:2] = avg[:, 1:2 * m:2] = (h[:, 0:2 * m:2] + h[:, 1:2 * m:2]) * 0.5
+        assert rel(h @ hp.pair_l_mat, avg[:, :hp.n_pils]) <= 1e-15
+        assert rel(h @ hp.pair_r_mat, avg[:, hp.n_re - hp.n_pils:]) <= 1e-15
         kw_ = dict(n_samples=hp.n_samples, half_cp_len=hp.half_cp_len, fft_size=hp.fft_size,
                    scs_hz=case.config.scs_hz, cfo_possible=hp.cfo_possible,
                    cfo_compensate=case.config.cfo_compensate, re_idx=ht["re_idx"],
                    dmrs_sym_idx=ht["dmrs_sym_idx"])
         pil_h = pil[:, :, :, d0:d0 + hp.n_dsym]
         d0 += hp.n_dsym
-        h_d, s_d = k1.fused_front(rg, pil_h, beta, ht["front"], **kw_)
-        h_b, s_b = k1.fused_front(rg, pil_h, beta, banded_mats(hp, ht["front"]), **kw_)
+        h_b, s_b = k1.fused_front(rg, pil_h, beta, ht["front"], **kw_)
+        with monkeypatch.context() as mp:
+            mp.setattr(k1, "banded_smooth", dense_smooth(hp))
+            h_d, s_d = k1.fused_front(rg, pil_h, beta, ht["front"], **kw_)
         assert rel(h_b, h_d) <= 1e-12, (name, rel(h_b, h_d))
         np.testing.assert_array_equal(s_b[:, 1].numpy(), s_d[:, 1].numpy())  # TA bins
         np.testing.assert_allclose(s_b.numpy(), s_d.numpy(), rtol=1e-12, atol=1e-300)
@@ -190,8 +212,8 @@ def test_wide_cell_takes_the_banded_route(name, changes, layout, device, tier):
 
 def test_banded_launch_plan_at_the_cells_shape():
     """128 problems of 1,638 REs, 4 layers: every cluster resident at once on
-    an H100 (2 problems x 2 blocks, 128 blocks, one an SM); the dense route
-    has no plan there that fits; even tap counts raise."""
+    an H100 (2 problems x 2 blocks, 128 blocks, one an SM); even tap counts
+    raise."""
     caps = (132, 66, 39, 30, 22, 17, 15, 15)
     lp = k1.launch_plan(128, 1638, 4, 7, 144, 1638, caps, n_taps=15)
     assert (lp.P, lp.S, lp.blocks) == (2, 2, 128), lp

@@ -38,6 +38,13 @@ FRONT_CASES = [
     ("nL2_two_hops", dict(n_prbs=12, n_layers=2, comb=2, snr_db=30.0, two_hops=True)),
     ("nL3", dict(n_prbs=16, n_layers=3, comb=2, snr_db=30.0)),
     ("nL1_one_dmrs_sym", dict(n_prbs=8, n_layers=1, comb=2, snr_db=30.0, n_dmrs_syms=1)),
+    # bands of one and two PRBs (as many REs as virtual pilots), a PRB hole, 8 layers
+    ("one_prb", dict(n_prbs=1, n_layers=2, comb=2, snr_db=30.0)),
+    ("one_prb_comb4_odd_band", dict(n_prbs=1, n_layers=4, comb=4, snr_db=30.0)),
+    ("two_prbs", dict(n_prbs=2, n_layers=4, comb=2, snr_db=30.0)),
+    ("prb_hole", dict(n_prbs=20, n_layers=3, comb=2, snr_db=30.0, prb_start=6, n_prb_total=30,
+                      prb_hole=(5, 8))),
+    ("nL8_comb4", dict(n_prbs=16, n_layers=8, comb=4, snr_db=30.0)),
 ]
 
 
@@ -136,13 +143,10 @@ def random_front(B, nL, nd, n_re, n_pils, hcp, cfo_possible, cfo_compensate, see
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device="cuda")
     n_cdm = (nL + 1) // 2
     k_ta = n_re - n_re // 7
-    smooth = np.eye(n_re) + 0.05 * rng.standard_normal((n_re, n_re))
+    taps = rng.uniform(0.0, 1.0, 15)
     ph = 2 * np.pi * np.outer(np.arange(k_ta), np.arange(-hcp, hcp)) / (4 * n_re)
     mats = dict(
-        pair_l=t(np.eye(n_re)[:, :n_pils]), pair_r=t(np.eye(n_re)[:, -n_pils:]),
-        vp=t(rng.standard_normal((n_pils, n_pils)) / n_pils), smooth=t(smooth),
-        smooth_vb=t(0.1 * rng.standard_normal((n_pils, n_re))),
-        smooth_ve=t(0.1 * rng.standard_normal((n_pils, n_re))),
+        taps=t(taps / taps.sum()), vp=t(rng.standard_normal((n_pils, n_pils)) / n_pils),
         ta_c=t(np.cos(ph)), ta_s=t(np.sin(ph)),
         two_pi_sst_d=t(2 * np.pi * (2.0 + 7.0 * np.arange(nd))),
     )
@@ -178,11 +182,13 @@ def assert_front_matches_plain(args, kw, label):
     (19, 8, 4, 636, 12, True, True),   # nL=8, P=2 of 32 rows
     (17, 2, 1, 96, 1, False, False),   # n_pils=1 (no fit), CFO off, one DM-RS symbol
     (3, 5, 2, 1024, 16, True, True),   # the widest fused-smoothing band, 16 pilots
+    (4, 4, 2, 7, 7, True, True),       # as many REs as virtual pilots, an odd band
 ])
 def test_fused_front_kernel_matches_plain_at_every_plan_shape(
         B, nL, nd, n_re, n_pils, cfo_possible, cfo_compensate):
     args, kw = random_front(B, nL, nd, n_re, n_pils, 144, cfo_possible, cfo_compensate, seed=B)
-    lp = k1.launch_plan(B, n_re, nL, n_pils, 144, args[3]["ta_c"].shape[0], k1.kernel_caps("cuda"))
+    lp = k1.launch_plan(B, n_re, nL, n_pils, 144, args[3]["ta_c"].shape[0], k1.kernel_caps("cuda"),
+                        15)
     assert_front_matches_plain(args, kw, f"B={B} nL={nL} {lp}")
 
 
@@ -265,9 +271,10 @@ def test_fill_rotate_serve_kernel_at_the_c3_operator():
 @NEEDS_GPU
 def test_front_launch_plan_mirrors_the_kernels_plan():
     """`front.launch_plan` against `make_plan` of csrc/front.cu (`srs_front_plan`)
-    at batches around the SM count, every layer count, both pilot-count ends
-    and band widths up to the widest fused-smoothing band, with the card's
-    cluster capacities and with capacities that hold fewer clusters."""
+    at batches around the SM count, every layer count, both pilot-count ends,
+    band widths up to the widest fused-smoothing band and two filter lengths,
+    with the card's cluster capacities and with capacities that hold fewer
+    clusters."""
     caps = k1.kernel_caps("cuda")
     assert len(caps) == 8 and caps[0] >= sm_count() and all(c >= 1 for c in caps), caps
     n_cases = 0
@@ -275,11 +282,12 @@ def test_front_launch_plan_mirrors_the_kernels_plan():
         for B in (1, 2, 5, 33, 128, 256, 1000):
             for nL in range(1, 9):
                 for n_pils in (1, 7, 16):
-                    for n_re in (12, 144, 636, 1024):
-                        for hcp in (36, 144):
-                            lp = k1.launch_plan(B, n_re, nL, n_pils, hcp, n_re - n_re // 7, cap)
+                    for n_re in (16, 144, 636, 1024):
+                        for hcp, n_taps in ((36, 5), (144, 15)):
+                            lp = k1.launch_plan(B, n_re, nL, n_pils, hcp, n_re - n_re // 7, cap,
+                                                n_taps)
                             assert k1.kernel_plan(B, n_re, nL, n_pils, hcp, n_re - n_re // 7,
-                                                  cap) == lp
+                                                  cap, n_taps) == lp
                             n_cases += 1
     assert n_cases == 2 * 7 * 8 * 3 * 4 * 2
 
@@ -1988,14 +1996,15 @@ def test_front_finish_refuses_bands_off_the_four_subcarrier_grid_and_unaligned_t
 
 
 # ---------------------------------------------------------------------------
-# K1's banded route: bands past the plan's 1,024-RE dense smoothing operator
+# K1's banded route: every band, the wide cell's past the plan's 1,024-RE dense
+# smoothing operator
 # ---------------------------------------------------------------------------
 
 WIDE_CELL = "ce_n78_100mhz_4port_64ant.json"
-#: ptxas's registers of each dense K1 instantiation (front_kernel<RN>) as they
-#: were before the banded route was added (sm_90a, CUDA 12.8): the banded route
-#: is a separate instantiation, and the dense one compiles as before
-DENSE_FRONT_REGISTERS = {1: 127, 2: 128, 3: 128, 4: 128}
+#: ptxas's registers of each K1 instantiation (front_kernel_banded<RN>) as they
+#: were while the dense route was beside it (sm_90a, CUDA 12.8): taking the
+#: dense route out left the banded body's code as it was
+BANDED_FRONT_REGISTERS = {1: 121, 2: 121, 3: 121, 4: 121}
 
 
 def _wide_front_inputs(batch, seed):
@@ -2023,14 +2032,12 @@ def test_banded_front_kernel_at_the_cells_shape_matches_plain_and_float64():
     """K1 on its banded route at `ce100_64ant_closed2`'s shape (128 problems,
     273 PRB, 4 layers, n_re 1638, staged): against its plain version on the
     same float32 inputs (relative 1e-5, the TA bins, scalars 1e-4) and the
-    plain version in float64 on the CPU (NMSE 1e-10, the cell's limit);
-    counted on the banded route."""
+    plain version in float64 on the CPU (NMSE 1e-10, the cell's limit)."""
     hp, ht, args, kw = _wide_front_inputs(128, 2**31 + 25_001)
     assert est._front_banded(hp) and set(args[3]) == {"taps", "vp", "ta_c", "ta_s", "two_pi_sst_d"}
-    n0, b0 = k1.launches, dict(k1.smoothing_launches)
+    n0 = k1.launches
     h_k, s_k = k1.fused_front(*args, **kw)
     assert k1.launches == n0 + 1
-    assert {r: n - b0[r] for r, n in k1.smoothing_launches.items()} == {"dense": 0, "banded": 1}
     rx, pil = k1.gather_staged(args[0], args[1], kw["re_idx"], kw["dmrs_sym_idx"])
     plain_kw = {k: v for k, v in kw.items() if k not in ("re_idx", "dmrs_sym_idx")}
     h_p, s_p = k1.fused_front_plain(rx, pil, *args[2:], **plain_kw)
@@ -2051,7 +2058,7 @@ def test_banded_front_kernel_at_the_cells_shape_matches_plain_and_float64():
 @NEEDS_GPU
 @pytest.mark.parametrize("B,nL,n_re,cfo_compensate", [
     (1, 4, 1638, True), (37, 1, 1638, True), (128, 2, 1080, False), (9, 3, 1025, True),
-    (128, 4, 636, True),  # the dense route's band, filtered by the taps instead
+    (128, 4, 636, True),  # ce40_closed4's band
 ])
 def test_banded_front_kernel_matches_plain_at_plan_shapes(B, nL, n_re, cfo_compensate):
     """K1's banded route on seeded random inputs at other batches, layer
@@ -2060,17 +2067,15 @@ def test_banded_front_kernel_matches_plain_at_plan_shapes(B, nL, n_re, cfo_compe
     args, kw = random_front(B, nL, 4, n_re, 7, 144, True, cfo_compensate, seed=B + n_re)
     rng = np.random.default_rng(n_re)
     taps = rng.uniform(0.0, 1.0, 15)
-    mats = dict(taps=torch.as_tensor(taps / taps.sum(), dtype=torch.float32, device="cuda"),
-                **{k: args[3][k] for k in ("vp", "ta_c", "ta_s", "two_pi_sst_d")})
-    b0 = k1.smoothing_launches["banded"]
+    mats = dict(args[3], taps=torch.as_tensor(taps / taps.sum(), dtype=torch.float32,
+                                              device="cuda"))
     assert_front_matches_plain(args[:3] + (mats,), kw, f"banded B={B} nL={nL} n_re={n_re}")
-    assert k1.smoothing_launches["banded"] == b0 + 1
 
 
 @NEEDS_GPU
 def test_banded_launch_plan_mirrors_the_kernels_plan():
     """`front.launch_plan(..., n_taps)` against `srs_front_plan` on the
-    banded route, bands from the dense route's to 275 PRB."""
+    banded route, bands from `ce40_closed4`'s to 275 PRB."""
     caps = k1.kernel_caps("cuda")
     n_cases = 0
     for cap in (caps, tuple(max(1, c // 3) for c in caps)):
@@ -2084,14 +2089,14 @@ def test_banded_launch_plan_mirrors_the_kernels_plan():
 
 
 @NEEDS_GPU
-@pytest.mark.parametrize("config,route", [("ce_n78_40mhz_4port_32ant.json", "dense"),
+@pytest.mark.parametrize("config,route", [("ce_n78_40mhz_4port_32ant.json", "banded"),
                                           (WIDE_CELL, "banded")])
 def test_served_call_counts_k1_by_smoothing_route(config, route):
     """A served call of 128 problems of each CE deployment: over replays of
-    its graph `front.smoothing_launches` moves by the replays on the cell's
-    route alone (the dense operator at 106 PRB, the banded route at 273),
-    `front_finish` once a replay, and the results keep the configuration's
-    limits of the float64 reference."""
+    its graph K1's launches (`launches.front` in a traced benchmark line) move
+    by the replays, K1 on its one route, the banded one, at 106 PRB and at
+    273, `front_finish` once a replay, and the results keep the
+    configuration's limits of the float64 reference."""
     from cebench import spec
     from cebench.gen import slots
     from cebench.reference import ce
@@ -2103,13 +2108,12 @@ def test_served_call_counts_k1_by_smoothing_route(config, route):
     graphs.clear()
     serving.process(problems, out="factored")  # eager: the key's first call
     serving.process(problems, out="factored")  # captured and replayed
-    r0, s0, f0 = graphs.replays, dict(k1.smoothing_launches), kf.launches
+    r0, n0, f0 = graphs.replays, k1.launches, kf.launches
     for _ in range(3):
         res = serving.process(problems, out="factored")
     n = graphs.replays - r0
-    assert n == 3
-    want = {"dense": 0, "banded": 0, route: n}
-    assert {r: k - s0[r] for r, k in k1.smoothing_launches.items()} == want
+    assert n == 3 and route == "banded"
+    assert k1.launches - n0 == n
     assert kf.launches - f0 == n
     cfg = spec.read_json("configs", config)
     slot = slots.ce_slot(cfg, seed, 0)
@@ -2119,10 +2123,10 @@ def test_served_call_counts_k1_by_smoothing_route(config, route):
 
 
 @NEEDS_GPU
-def test_front_instantiations_compile_without_spills_and_the_dense_ones_as_before():
-    """ptxas on csrc/front.cu: no spill in any instantiation (dense or
-    banded), and each dense one (`front_kernel<RN>`) at the registers it had
-    before the banded route was added."""
+def test_front_instantiations_compile_without_spills_and_the_banded_ones_as_before():
+    """ptxas on csrc/front.cu: no spill in any instantiation, no dense one
+    left (`front_kernel<RN>`), and each banded one (`front_kernel_banded<RN>`)
+    at the registers it had beside the dense route."""
     import re
 
     from srsran_ce_tpu_torch.ops.kernels import _build
@@ -2139,9 +2143,9 @@ def test_front_instantiations_compile_without_spills_and_the_dense_ones_as_befor
         elif name and "Used" in ln and "registers" in ln:
             regs[name] = int(re.search(r"Used (\d+) registers", ln).group(1))
             name = None
-    dense = {int(re.search(r"front_kernelILi(\d)EE", n).group(1)): r for n, r in regs.items()
-             if re.search(r"front_kernelILi\dEE", n)}
-    banded = [n for n in regs if "front_kernel_banded" in n]
-    assert len(dense) == 4 and len(banded) == 4, sorted(regs)
-    assert dense == DENSE_FRONT_REGISTERS, dense
+    dense = [n for n in regs if re.search(r"front_kernelILi\dEE", n)]
+    banded = {int(re.search(r"front_kernel_bandedILi(\d)EE", n).group(1)): r
+              for n, r in regs.items() if re.search(r"front_kernel_bandedILi\dEE", n)}
+    assert not dense and len(banded) == 4, sorted(regs)
+    assert banded == BANDED_FRONT_REGISTERS, banded
 

@@ -174,23 +174,22 @@ def test_graphed_runs_eagerly_on_the_cpu():
 
 def test_launch_counts_are_taken_back_and_added_by_route():
     """What a capture takes back and each replay adds: every kernel module's
-    launches and, for K1 (by input form and by smoothing route), K3 and the
-    front's finish, its launches by route (`route_launches`, K1's
-    `smoothing_launches`)."""
+    launches and, for K1 (by input form), K3 and the front's finish, its
+    launches by route (`route_launches`)."""
     from srsran_ce_tpu_torch.ops.kernels import front as k1
     from srsran_ce_tpu_torch.ops.kernels import front_finish as kf
     from srsran_ce_tpu_torch.ops.kernels import ldpc_stream as k3
 
     mods = graphs.kernel_modules()
     before = graphs.launch_counts(mods)
-    assert dict(before[mods.index(k1)][1]) == {**k1.route_launches, **k1.smoothing_launches}
+    assert dict(before[mods.index(k1)][1]) == k1.route_launches
     assert dict(before[mods.index(k3)][1]) == k3.route_launches
     assert dict(before[mods.index(kf)][1]) == kf.route_launches
     assert all(by_route == {} for m, (_, by_route) in zip(mods, before) if m not in (k1, k3, kf))
-    # a replay of a graph holding one pair launch of K3 and one staged, banded
-    # launch of K1
+    # a replay of a graph holding one pair launch of K3 and one staged launch
+    # of K1
     one = tuple((int(m in (k1, k3)),
-                 {"pair": 1} if m is k3 else {"staged": 1, "banded": 1} if m is k1 else {})
+                 {"pair": 1} if m is k3 else {"staged": 1} if m is k1 else {})
                 for m in mods)
     graphs.add_launch_counts(mods, one)
     after = graphs.launch_counts(mods)
@@ -198,8 +197,7 @@ def test_launch_counts_are_taken_back_and_added_by_route():
     assert after[mods.index(k3)][1]["pair"] == before[mods.index(k3)][1]["pair"] + 1
     assert after[mods.index(k1)][0] == before[mods.index(k1)][0] + 1
     assert after[mods.index(k1)][1] == dict(before[mods.index(k1)][1],
-                                            staged=before[mods.index(k1)][1]["staged"] + 1,
-                                            banded=before[mods.index(k1)][1]["banded"] + 1)
+                                            staged=before[mods.index(k1)][1]["staged"] + 1)
     graphs.add_launch_counts(mods, one, -1)  # a capture's counts taken back
     assert graphs.launch_counts(mods) == before
 

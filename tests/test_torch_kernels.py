@@ -611,40 +611,40 @@ def parent_smem_fits(n_re, nL, n_pils, half_cp_len):
 
 @pytest.mark.parametrize("kw", GATE_CONFIGS, ids=[str(i) for i in range(len(GATE_CONFIGS))])
 def test_front_gate_admits_the_parents_plans(kw, monkeypatch):
-    """`_front_pallas_ok` asks K1's launch plan; on the dense route it admits
-    exactly the plans that the parent's shared-memory rule admitted (the
-    banded route, past 1,024 pilot REs, asks its own plan)."""
+    """`_front_pallas_ok` asks K1's launch plan, on the banded route at every
+    band; up to 1,024 pilot REs, where the plan builds the dense operator, it
+    admits exactly the plans that the first parent's shared-memory rule
+    admitted (the banded plan exists wherever that rule held)."""
     case = synthetic.make_case(seed=5, **kw)
     plan = make_plan(case.hop1, case.hop2, case.config, case.pilots.shape[2])
     got = port_est._front_pallas_ok(plan)
     real = k1.launch_plan
 
-    def parent_rule(batch, n_re, nL, n_pils, half_cp_len, k_ta, caps, n_taps=0):
-        if n_taps:
-            return real(batch, n_re, nL, n_pils, half_cp_len, k_ta, caps, n_taps)
-        if not parent_smem_fits(n_re, nL, n_pils, half_cp_len):
+    def parent_rule(batch, n_re, nL, n_pils, half_cp_len, k_ta, caps, n_taps):
+        if n_re <= 1024 and not parent_smem_fits(n_re, nL, n_pils, half_cp_len):
             raise ValueError("does not fit")
+        return real(batch, n_re, nL, n_pils, half_cp_len, k_ta, caps, n_taps)
 
     monkeypatch.setattr(k1, "launch_plan", parent_rule)
     assert got == port_est._front_pallas_ok(plan)
 
 
 def test_front_plan_exists_wherever_the_parents_did():
-    """Over every shape the plan builder gives K1 (the fused smoothing matrix
-    exists up to n_re = 1024, n_pils <= 12 there), a launch exists exactly
-    where the parent's one block a problem fitted, at any batch and cluster
-    capacity."""
+    """Over every shape up to n_re = 1024 (where the plan builds the fused
+    smoothing operator, n_pils <= n_re), a launch of K1's banded route exists
+    exactly where the first parent's one block a problem fitted, at any batch
+    and cluster capacity; a band narrower than its virtual pilots has none."""
     caps_low = tuple(max(1, c // 4) for c in k1.NOMINAL_CAPS)
     n = 0
     for nL in range(1, 9):
         for n_pils in (1, 2, 7, 12, 16):
             for hcp in (36, 144, 288):
                 for n_re in (1, 2, 3, 5, 12, 24, 96, 143, 144, 300, 636, 637, 1000, 1024):
-                    want = parent_smem_fits(n_re, nL, n_pils, hcp)
+                    want = n_pils <= n_re and parent_smem_fits(n_re, nL, n_pils, hcp)
                     for batch, caps in ((1, k1.NOMINAL_CAPS), (128, k1.NOMINAL_CAPS),
                                         (1000, caps_low)):
                         try:
-                            lp = k1.launch_plan(batch, n_re, nL, n_pils, hcp, n_re, caps)
+                            lp = k1.launch_plan(batch, n_re, nL, n_pils, hcp, n_re, caps, 15)
                         except ValueError:
                             lp = None
                         assert (lp is not None) == want, (nL, n_pils, hcp, n_re, batch)
@@ -658,25 +658,29 @@ def test_front_plan_exists_wherever_the_parents_did():
 
 def test_front_shapes_outside_every_plan_raise():
     caps = k1.NOMINAL_CAPS
-    for args in ((1, 636, 9, 7, 144, 636),   # 9 layers
-                 (1, 636, 4, 17, 144, 636),  # 17 pilots
-                 (1, 636, 4, 7, 144, 637),   # a TA DFT longer than the band
-                 (0, 636, 4, 7, 144, 636),   # no problem
-                 (1, 20000, 8, 16, 144, 20000)):  # no block holds the band
+    for args in ((1, 636, 9, 7, 144, 636, 15),   # 9 layers
+                 (1, 636, 4, 17, 144, 636, 15),  # 17 pilots
+                 (1, 636, 4, 7, 144, 637, 15),   # a TA DFT longer than the band
+                 (0, 636, 4, 7, 144, 636, 15),   # no problem
+                 (1, 6, 4, 7, 144, 6, 15),       # fewer REs than virtual pilots
+                 (1, 636, 4, 7, 144, 636, 14),   # an even filter
+                 (1, 636, 4, 7, 144, 636, 0),    # no filter
+                 (1, 20000, 8, 16, 144, 20000, 15)):  # no block holds the band
         with pytest.raises(ValueError):
-            k1.launch_plan(*args, caps)
+            k1.launch_plan(*args[:6], caps, args[6])
 
 
 def test_front_plan_at_the_main_paths_shapes():
-    """c2 (B=128): 2 problems x 2 blocks a cluster on 128 of 132 SMs; c4
-    (B=256): 16 problems a cluster. `caps`: an H100 SXM's cluster capacities
-    at one block an SM (chip_smoke phase 2 prints the card's): its GPCs hold
-    30 clusters of 4, not the 33 that 132 SMs would."""
+    """c2 (B=128): one problem a block of 8 rows, 128 blocks, the TA product's
+    576 columns in one pass of 3 register columns; c4 (B=256): 4 problems x
+    2 blocks a cluster. `caps`: an H100 SXM's cluster capacities at one block
+    an SM (chip_smoke phase 2 prints the card's): its GPCs hold 30 clusters of
+    4, not the 33 that 132 SMs would."""
     caps = H100_CAPS
-    c2 = k1.launch_plan(128, 636, 4, 7, 144, 636, caps)
-    assert (c2.P, c2.S, c2.blocks, c2.Mpad) == (2, 2, 128, 16), c2
-    c4 = k1.launch_plan(256, 144, 1, 7, 144, 144, caps)
-    assert c4.P == 16 and c4.blocks <= 132 and c4.Mpad == 32, c4
+    c2 = k1.launch_plan(128, 636, 4, 7, 144, 636, caps, 15)
+    assert (c2.P, c2.S, c2.blocks, c2.Mpad, c2.RN) == (1, 1, 128, 8, 3), c2
+    c4 = k1.launch_plan(256, 144, 1, 7, 144, 144, caps, 15)
+    assert (c4.P, c4.S, c4.blocks, c4.Mpad) == (4, 2, 128, 8), c4
     for lp in (c2, c4):
         assert k1.SMEM_HALF < lp.smem <= k1.SMEM_LIMIT  # one block an SM
 
@@ -685,11 +689,12 @@ def front_model(rx, pil, beta, mats, plan, *, n_samples, half_cp_len, fft_size, 
                 cfo_possible, cfo_compensate):
     """float32 model of csrc/front.cu's order of summation under `plan`: each
     cluster's P problems, its S blocks' column and bin shares, every partial
-    (EPRE, CFO correlations, edge products, noise, RSRP) summed over the
-    blocks in rank order, both products accumulated K tile by K tile."""
+    (EPRE, CFO correlations, noise, RSRP) summed over the blocks in rank
+    order, the CDM pairs averaged and filtered by the taps in order, the TA
+    product accumulated K tile by K tile."""
     B, _, n_cdm, nd, n_re = rx.shape
     nL = pil.shape[2]
-    rows, n_pils, hcp = 2 * nL, mats["pair_l"].shape[1], half_cp_len
+    rows, n_pils, hcp = 2 * nL, mats["vp"].shape[0], half_cp_len
     nbins, k_ta, KT = 2 * hcp, mats["ta_c"].shape[0], plan.KT
     f = torch.float32
     h_out = torch.zeros((B, rows, n_re), dtype=f)
@@ -730,12 +735,9 @@ def front_model(rx, pil, beta, mats, plan, *, n_samples, half_cp_len, fft_size, 
             sr = (rec_r * co + rec_i * si).sum(1) / beta[b] / nd
             s_i = (rec_i * co - rec_r * si).sum(1) / beta[b] / nd
             H = torch.cat([sr, s_i])  # (rows, n_re)
-            edges = []
-            for pm in (mats["pair_l"], mats["pair_r"]):
-                e = torch.zeros((rows, n_pils), dtype=f)
-                for c0, c1 in spans:
-                    e = e + H[:, c0:c1] @ pm[c0:c1]
-                edges.append(e)
+            if nL >= 2:
+                m = n_re // 2
+                H[:, 0:2 * m:2] = H[:, 1:2 * m:2] = (H[:, 0:2 * m:2] + H[:, 1:2 * m:2]) * 0.5
 
             def virtual(e):
                 if n_pils == 1:
@@ -745,9 +747,8 @@ def front_model(rx, pil, beta, mats, plan, *, n_samples, half_cp_len, fft_size, 
                 va, vph = amp @ mats["vp"].T, ph @ mats["vp"].T
                 return torch.cat([va * torch.cos(vph), va * torch.sin(vph)])
 
-            A = torch.cat([H, virtual(edges[0]), virtual(edges[1].flip(-1))], 1)
-            Bm = torch.cat([mats["smooth"], mats["smooth_vb"], mats["smooth_ve"].flip(0)])
-            Hs = torch.cat([tiled(A, Bm[:, c0:c1]) for c0, c1 in spans], 1)
+            Hs = k1.banded_smooth(H, virtual(H[:, :n_pils]),
+                                  virtual(H[:, n_re - n_pils:].flip(-1)), mats["taps"])
             h_out[b] = Hs
             noise = torch.zeros((), dtype=f)
             hsum = torch.zeros((), dtype=f)
@@ -781,23 +782,26 @@ def front_model(rx, pil, beta, mats, plan, *, n_samples, half_cp_len, fft_size, 
 ])
 def test_front_kernel_order_model_matches_plain(label, kw, batch):
     """The kernel's order of summation, under the plan it launches at the
-    main path's batch on an H100, stays within chip_smoke phase 3's bounds of
-    the plain version: h_s relative 1e-5, the scalars within rtol 1e-4, the
-    same TA bins. A problem's arithmetic depends on the plan's column and bin
-    split (S) and K tile, not on which problems share a cluster, so 6 seeded
-    problems stand for the batch."""
+    main path's batch on an H100 and the one of a single problem (a cluster
+    of 8 blocks, so the column and bin split is exercised), stays within
+    chip_smoke phase 3's bounds of the plain version: h_s relative 1e-5, the
+    scalars within rtol 1e-4, the same TA bins. A problem's arithmetic depends
+    on the plan's column and bin split (S) and K tile, not on which problems
+    share a cluster, so 6 seeded problems stand for the batch."""
     for hp, (rx, pil, beta, mats), t_kw, _, _ in front_inputs(kw, np.float32, batch=6, seed=7):
-        lp = k1.launch_plan(batch, hp.n_re, pil.shape[2], hp.n_pils, hp.half_cp_len,
-                            mats["ta_c"].shape[0], H100_CAPS)
-        assert lp.S > 1  # the column and bin split is exercised
-        h_m, s_m = front_model(rx, pil, beta, mats, lp, **t_kw)
+        plans = [k1.launch_plan(b, hp.n_re, pil.shape[2], hp.n_pils, hp.half_cp_len,
+                                mats["ta_c"].shape[0], H100_CAPS, mats["taps"].shape[0])
+                 for b in (batch, 1)]
+        assert plans[1].S == 8  # the column and bin split is exercised
         h_p, s_p = k1.fused_front_plain(rx, pil, beta, mats, **t_kw)
-        assert rel(h_m.numpy(), h_p.numpy()) <= 1e-5, label
-        s_m, s_p = s_m.numpy(), s_p.numpy()
-        to_bin = t_kw["fft_size"] * t_kw["scs_hz"]
-        np.testing.assert_array_equal(np.rint(s_m[:, 1] * to_bin), np.rint(s_p[:, 1] * to_bin))
-        np.testing.assert_allclose(s_m[:, [0, 2, 3, 4]], s_p[:, [0, 2, 3, 4]], rtol=1e-4,
-                                   atol=1e-12)
+        for lp in plans:
+            h_m, s_m = front_model(rx, pil, beta, mats, lp, **t_kw)
+            assert rel(h_m.numpy(), h_p.numpy()) <= 1e-5, (label, lp)
+            s_m, s_q = s_m.numpy(), s_p.numpy()
+            to_bin = t_kw["fft_size"] * t_kw["scs_hz"]
+            np.testing.assert_array_equal(np.rint(s_m[:, 1] * to_bin), np.rint(s_q[:, 1] * to_bin))
+            np.testing.assert_allclose(s_m[:, [0, 2, 3, 4]], s_q[:, [0, 2, 3, 4]], rtol=1e-4,
+                                       atol=1e-12)
 
 
 def tile_sums(a, w_c, KS):
